@@ -1,0 +1,30 @@
+"""Layout and window ops on NHWC tensors (counterpart of
+``nunif_tpu/modules/permute.py``)."""
+import torch
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, H, W, C*r*r) -> (B, H*r, W*r, C) with torch.pixel_shuffle's
+    channel-block order: channel c*r*r + dy*r + dx lands at (y*r+dy, x*r+dx).
+    """
+    b, h, w, crr = x.shape
+    c = crr // (r * r)
+    x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, h * r, w * r, c)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nH*nW, window, window, C)."""
+    b, h, w, c = x.shape
+    nh, nw = h // window, w // window
+    x = x.reshape(b, nh, window, nw, window, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b * nh * nw, window, window, c)
+
+
+def window_reverse(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
+    """Inverse of ``window_partition``."""
+    nh, nw = h // window, w // window
+    b = x.shape[0] // (nh * nw)
+    c = x.shape[-1]
+    x = x.reshape(b, nh, nw, window, window, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
