@@ -21,6 +21,29 @@ class Policy:
     output_dtype: torch.dtype = torch.float32
 
 
+def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``p`` in ``dtype``, as a flax layer casts its fp32 params to the
+    compute dtype.  Outside autograd the cast is made once per weight load
+    (cached on the parameter, keyed by its storage and version), not on
+    every call."""
+    if p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
+    key = (dtype, p.data_ptr(), p.device, p._version)
+    cached = getattr(p, "_nunif_cast", None)
+    if cached is None or cached[0] != key:
+        cached = (key, p.detach().to(dtype))
+        p._nunif_cast = cached
+    return cached[1]
+
+
+# iw3 reads images in this dtype for the stereo warp and the half-SBS /
+# half-TB downscale, where the JAX package hard-codes ``jnp.bfloat16``
+# (``grid_sample.py:189,249``, ``composition.py:109,117``).  K3 reads only
+# bf16.  Read at call time, so a parity test can set it to fp32.
+IMAGE_DTYPE = torch.bfloat16
+
 BF16_POLICY = Policy()
 FP32_POLICY = Policy(compute_dtype=torch.float32)
 DEFAULT_POLICY = BF16_POLICY

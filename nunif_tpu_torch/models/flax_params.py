@@ -1,10 +1,14 @@
 """Weights between the JAX package's flax layout and the port's modules.
 
-A flax path ``a/b/c/kernel`` is the torch parameter ``a.b.c.weight``;
-``bias`` and every other leaf name (``relative_position_bias_table``) keep
-their name.  Dense kernels ``(in, out)`` become Linear weights
-``(out, in)``, conv kernels HWIO become OIHW, and everything else keeps its
-shape.  ``.nztm`` files keep flax paths, so both packages read them.
+A flax path ``a/b/c/kernel`` is the torch parameter ``a.b.c.weight``,
+except that a ``LayerNorm``'s weight is flax's ``a/b/scale``; ``bias`` and
+every other leaf name (``relative_position_bias_table``, ``cls_token``,
+``pos_embed``, ``ls1/gamma``) keep their name.  Dense kernels ``(in, out)``
+become Linear weights ``(out, in)``, conv kernels HWIO become OIHW, flax
+``ConvTranspose(transpose_kernel=True)`` kernels ``(kh, kw, O, I)`` become
+``ConvTranspose2d`` weights ``(I, O, kh, kw)`` by the same 4-D rule, and
+everything else keeps its shape.  ``.nztm`` files keep flax paths, so both
+packages read them.
 """
 from __future__ import annotations
 
@@ -13,11 +17,19 @@ import torch
 from torch import nn
 
 
-def flax_key(torch_name: str) -> str:
+def flax_key(torch_name: str, layer_norm: bool = False) -> str:
     parts = torch_name.split(".")
     if parts[-1] == "weight":
-        parts[-1] = "kernel"
+        parts[-1] = "scale" if layer_norm else "kernel"
     return "/".join(parts)
+
+
+def flax_keys(module: nn.Module) -> dict:
+    """{torch parameter name: flax path} for every parameter of module."""
+    norms = {name for name, m in module.named_modules()
+             if isinstance(m, nn.LayerNorm)}
+    return {name: flax_key(name, name.rpartition(".")[0] in norms)
+            for name, _p in module.named_parameters()}
 
 
 def _to_flax_layout(name: str, a: np.ndarray) -> np.ndarray:
@@ -40,7 +52,8 @@ def _from_flax_layout(name: str, a: np.ndarray) -> np.ndarray:
 
 def to_flax(module: nn.Module) -> dict:
     """{flax path: float32 ndarray in flax layout} for every parameter."""
-    return {flax_key(name): np.ascontiguousarray(_to_flax_layout(
+    keys = flax_keys(module)
+    return {keys[name]: np.ascontiguousarray(_to_flax_layout(
                 name, p.detach().float().cpu().numpy()))
             for name, p in module.named_parameters()}
 
@@ -53,7 +66,7 @@ def from_flax(module: nn.Module, flat: dict):
     left over; otherwise raises ``KeyError`` or ``ValueError`` naming them.
     """
     params = dict(module.named_parameters())
-    keys = {flax_key(name): name for name in params}
+    keys = {key: name for name, key in flax_keys(module).items()}
     missing = sorted(set(keys) - set(flat))
     unexpected = sorted(set(flat) - set(keys))
     if missing or unexpected:

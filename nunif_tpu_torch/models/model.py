@@ -73,15 +73,25 @@ def _truncated_normal(shape, std: float, generator: torch.Generator):
 
 @torch.no_grad()
 def init_flax_default(module: nn.Module, generator: torch.Generator):
-    """Initialise like the JAX package's flax modules: lecun_normal kernels,
-    zero biases, truncated_normal(0.02) relative-position tables."""
-    for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "bias":
+    """Initialise like the JAX package's flax modules, by flax leaf name:
+    lecun_normal kernels, zero biases and class tokens, unit LayerNorm
+    scales, 1e-5 LayerScale gammas, N(0, 0.02) position embeddings and
+    truncated_normal(0.02) relative-position tables."""
+    from .flax_params import flax_keys
+    for name, key in flax_keys(module).items():
+        p = module.get_parameter(name)
+        leaf = key.rsplit("/", 1)[-1]
+        if leaf in ("bias", "cls_token"):
             p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
+        elif leaf == "gamma":
+            p.fill_(1e-5)
+        elif leaf == "pos_embed":
+            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
         elif leaf == "relative_position_bias_table":
             p.copy_(_truncated_normal(p.shape, 0.02, generator))
-        elif leaf == "weight":
+        elif leaf == "kernel":
             fan_in = math.prod(p.shape[1:])
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
             p.copy_(_truncated_normal(p.shape, std, generator))

@@ -1,9 +1,11 @@
 """Swin window-attention blocks on NHWC tensors (counterpart of
 ``nunif_tpu/modules/attention.py``).
 
-Only ``norm="none"`` is ported: its whole block is kernel K1
+Swin blocks: only ``norm="none"`` is ported: its whole block is kernel K1
 (``ops/swin_attention.py``).  Blocks with a LayerNorm need the attention-only
-kernel K4, which is not ported yet.
+kernel K4, which is not ported yet.  ``WindowScoreBias`` and ``WindowMHA2d``
+(row_flow_v3's rectangular-window attention) are plain PyTorch, as the JAX
+package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -11,8 +13,10 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..core.dtypes import cast_param
 from ..ops import swin_attention as _k1
 
 
@@ -160,3 +164,98 @@ class SwinTransformerBlocks(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"block{i}")(x, skip=skip if i == 0 else None)
         return x
+
+
+def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """Linear in x's dtype (fp32 params cast to the compute dtype), as a
+    flax ``Dense(dtype=x.dtype)``."""
+    bias = None if layer.bias is None else cast_param(layer.bias, x.dtype)
+    return F.linear(x, cast_param(layer.weight, x.dtype), bias)
+
+
+@functools.lru_cache(maxsize=32)
+def window_score_bias_input(window_size, device=torch.device("cpu")):
+    """(index (n*n,) int64, normalised unique position deltas (u, 2) fp32)
+    of a (wh, ww) window (reduction 1), on ``device``."""
+    wh, ww = window_size
+    n = wh * ww
+    pos = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"),
+                   axis=2).reshape(n, 2)
+    delta = (pos[:, None, :] - pos[None, :, :]).reshape(n * n, 2)
+    uniq = sorted({tuple(p) for p in delta.tolist()})
+    lookup = {d: i for i, d in enumerate(uniq)}
+    index = np.array([lookup[tuple(d)] for d in delta.tolist()], np.int64)
+    uniq = np.array(uniq, np.float32)
+    return (torch.from_numpy(index).to(device),
+            torch.from_numpy(uniq / np.abs(uniq).max()).to(device))
+
+
+class WindowScoreBias(nn.Module):
+    """Learned relative attention score bias of a rectangular window: a
+    two-layer GELU MLP on the normalised position deltas (flax paths
+    ``to_bias_0``, ``to_bias_2``).  Returns (n, n), or (heads, n, n) when
+    ``num_heads`` is set; always fp32."""
+
+    def __init__(self, window_size, hidden_dim=None, num_heads=None):
+        super().__init__()
+        self.window_size = tuple(window_size)
+        wh, ww = self.window_size
+        hidden = hidden_dim or int((wh * ww) ** 0.5) * 2
+        self.num_heads = num_heads
+        self.to_bias_0 = nn.Linear(2, hidden)
+        self.to_bias_2 = nn.Linear(hidden, num_heads or 1)
+
+    def forward(self):
+        wh, ww = self.window_size
+        n = wh * ww
+        index, delta = window_score_bias_input(self.window_size,
+                                               self.to_bias_0.weight.device)
+        b = self.to_bias_2(F.gelu(self.to_bias_0(delta)))[index]
+        if self.num_heads is None:
+            return b.reshape(n, n)
+        return b.t().reshape(self.num_heads, n, n)
+
+
+class WindowMHA2d(nn.Module):
+    """Multi-head attention inside (wh, ww) windows, NHWC (flax paths
+    ``qkv_proj``, ``head_proj``).  ``shift`` pads by half a window with
+    zeros (not a cyclic roll) so windows straddle the original borders.
+    bf16 rounding points follow the JAX module: qkv, q * scale, the
+    probabilities, the attention output and the head projection."""
+
+    def __init__(self, in_channels: int, num_heads: int, window_size=(4, 4),
+                 qkv_dim=None, shift=(False, False)):
+        super().__init__()
+        self.num_heads = num_heads
+        self.window_size = tuple(window_size)
+        self.shift = tuple(shift)
+        self.qkv_dim = qkv_dim or in_channels // num_heads
+        self.qkv_proj = nn.Linear(in_channels, self.qkv_dim * num_heads * 3)
+        self.head_proj = nn.Linear(self.qkv_dim * num_heads, in_channels)
+
+    def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
+        from .permute import window_partition2, window_reverse2
+        wh, ww = self.window_size
+        sh, sw = self.shift
+        pad_h = wh // 2 if sh else 0
+        pad_w = ww // 2 if sw else 0
+        if pad_h or pad_w:
+            x = F.pad(x, (0, 0, pad_w, pad_w, pad_h, pad_h))
+        B, H, W, C = x.shape
+        n, d, heads = wh * ww, self.qkv_dim, self.num_heads
+        qkv = dense(window_partition2(x, (wh, ww)), self.qkv_proj)
+        q, k, v = (t.reshape(-1, n, heads, d).permute(0, 2, 1, 3)
+                   for t in qkv.chunk(3, dim=-1))
+        attn = torch.einsum("bhnd,bhmd->bhnm", (q * d ** -0.5).float(),
+                            k.float())
+        if attn_mask is not None:
+            m = attn_mask if attn_mask.dim() == 3 else attn_mask[None]
+            attn = attn + m[None].float()
+        attn = torch.softmax(attn, dim=-1).to(x.dtype)
+        out = torch.einsum("bhnm,bhmd->bhnd", attn.float(),
+                           v.float()).to(x.dtype)
+        out = out.permute(0, 2, 1, 3).reshape(-1, n, heads * d)
+        out = window_reverse2(dense(out, self.head_proj), (wh, ww), H, W)
+        if pad_h or pad_w:
+            out = out[:, pad_h:H - pad_h, pad_w:W - pad_w, :]
+        return out

@@ -1,0 +1,115 @@
+"""Horizontal stereo warps on NHWC tensors (counterpart of
+``nunif_tpu/modules/grid_sample.py``, ``warp_x`` and ``warp_x_bounded``).
+
+K3: ``warp_x_bounded`` replaces ``_warp_x_bounded_pallas``.  The Hopper
+kernel is ``csrc/warp_x.cu``; its header notes what bounds it on the H100
+and what its design does about that.  On iw3's main path it runs the
+row_flow_v3 warp of both eyes at once: (16, 1080, 1920, 3), max_shift 28,
+one launch a batch of 8 frames.
+
+``warp_x_bounded`` takes its plain twin only for CPU tensors; for a CUDA
+tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import dtypes
+from ..ops import _build
+
+
+def warp_x(x, delta_px, padding_mode: str = "border"):
+    """Horizontal-only bilinear backward warp by a gather, for any delta.
+
+    x (B, H, W, C); delta_px (B, H, W) pixels added to each output pixel's
+    source x coordinate.  fp32 arithmetic, output in x's dtype.
+    """
+    if padding_mode not in ("border", "zeros"):
+        raise ValueError(padding_mode)
+    B, H, W, C = x.shape
+    base = torch.arange(W, dtype=torch.float32, device=x.device)
+    gx = base + delta_px.float()
+    x0 = torch.floor(gx)
+    t = gx - x0
+    xf = x.float()
+
+    def gather(ix):
+        valid = (ix >= 0) & (ix <= W - 1)
+        ix = ix.clamp(0, W - 1).long()
+        v = torch.gather(xf, 2, ix[..., None].expand(B, H, W, C))
+        return v, valid
+
+    v0, m0 = gather(x0)
+    v1, m1 = gather(x0 + 1)
+    w0, w1 = (1.0 - t)[..., None], t[..., None]
+    if padding_mode == "zeros":
+        w0 = w0 * m0[..., None]
+        w1 = w1 * m1[..., None]
+    return (v0 * w0 + v1 * w1).to(x.dtype)
+
+
+def warp_x_bounded_plain(x, delta_px, max_shift: int):
+    """Plain twin of ``warp_x_bounded``: the offset sum of
+    ``grid_sample.py:242-269``.  x is read in ``dtypes.IMAGE_DTYPE``; hat
+    weights and the sum are fp32; the result is cast to x's dtype.  Wherever
+    |delta| <= max_shift it equals ``warp_x`` (border) on the rounded x."""
+    B, H, W, C = x.shape
+    S = int(max_shift) + 1
+    base = torch.arange(W, dtype=torch.float32, device=x.device)
+    gx = (base + delta_px.float()).clamp(0, W - 1)
+    xc = x.to(dtypes.IMAGE_DTYPE)
+    xp = torch.cat([xc[:, :, :1].expand(B, H, S, C), xc,
+                    xc[:, :, -1:].expand(B, H, S, C)], dim=2)
+    out = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
+    for o in range(-S, S + 1):
+        w = torch.clamp(1.0 - torch.abs(gx - (base + o)), min=0.0)
+        out = out + xp[:, :, o + S:o + S + W, :].float() * w[..., None]
+    return out.to(x.dtype)
+
+
+def warp_x_bounded_kernel(xb, delta_px):
+    """Launch K3 on bf16 x (B, H, W, C <= 8) and fp32 delta (B, H, W),
+    both contiguous on one CUDA device; returns fp32 (B, H, W, C).  Each
+    launch adds one to ``warp_x_bounded.launches``."""
+    B, H, W, C = xb.shape
+    out = torch.empty((B, H, W, C), dtype=torch.float32, device=xb.device)
+    rc = _build.library().nunif_warp_x_bounded(
+        xb.data_ptr(), delta_px.data_ptr(), out.data_ptr(), B, H, W, C,
+        _build.stream_ptr(xb.device))
+    _build.check(rc, "warp_x_bounded")
+    warp_x_bounded.launches += 1
+    return out
+
+
+def warp_x_bounded(x, delta_px, max_shift: int):
+    """Horizontal bilinear backward warp with border padding, for
+    |delta_px| <= max_shift (beyond it the offset sum drops taps and the
+    kernel's gather does not, so the two are not meant to agree there).
+
+    x (B, H, W, C <= 8); delta_px (B, H, W).  x is read in
+    ``dtypes.IMAGE_DTYPE``, which must be bf16 on CUDA (the kernel's one
+    input type).  Returns x's dtype.
+    """
+    if x.device.type == "cpu":
+        return warp_x_bounded_plain(x, delta_px, max_shift)
+    if x.device.type != "cuda":
+        raise ValueError(f"warp_x_bounded: unsupported device {x.device}")
+    if dtypes.IMAGE_DTYPE != torch.bfloat16:
+        raise TypeError(f"warp_x_bounded: the kernel reads bfloat16, not "
+                        f"{dtypes.IMAGE_DTYPE}")
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 8:
+        raise ValueError(f"warp_x_bounded: x must be (B, H, W, C <= 8), got "
+                         f"{tuple(x.shape)}")
+    B, H, W, C = x.shape
+    if tuple(delta_px.shape) != (B, H, W):
+        raise ValueError(f"warp_x_bounded: delta {tuple(delta_px.shape)} != "
+                         f"{(B, H, W)}")
+    if delta_px.device != x.device:
+        raise ValueError(f"warp_x_bounded: delta on {delta_px.device}, x on "
+                         f"{x.device}")
+    out = warp_x_bounded_kernel(x.to(torch.bfloat16).contiguous(),
+                                delta_px.to(torch.float32).contiguous())
+    return out.to(x.dtype)
+
+
+warp_x_bounded.launches = 0

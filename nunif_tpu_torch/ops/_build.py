@@ -33,12 +33,18 @@ DTYPE_BF16 = 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # dtype, x, w, bias, out, B, H, W, Cin, Cout, crop, has_slope, slope, stream
     "nunif_stem_conv3x3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # dtype, x, skip, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
     # relbias, out, B, H, W, C, heads, hidden, ws, shift, scale, stream
     "nunif_swin_block_image": [_I] + [_P] * 12 + [_I] * 8 + [_F, _P],
+    # x, delta, out, B, H, W, C, stream
+    "nunif_warp_x_bounded": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, out, B, H, N, M, D, (batch, head, row) strides of q, k, v,
+    # out, scale, stream
+    "nunif_flash_attn": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
 }
 
 

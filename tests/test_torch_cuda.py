@@ -18,13 +18,23 @@ std of 0.02: at 0.02 the bias moves the output by less than the bf16
 tolerance, so a kernel that dropped it would pass.  A control holds the
 kernel run without the bias against the twin run with it and requires the
 comparison to fail.
+
+K3 (warp) sums the twin's two non-zero fp32 products with the twin's
+roundings: atol 1e-5 (measured 0); its control, the kernel given a zero
+delta, must fail.  K7 (attention) rounds the unnormalised probabilities and
+rescales online where the twin rounds normalised ones: abs 1e-2 and
+relative L2 1e-2 (measured <= 7.8e-3 and 3.1e-3 at N(0, 1) inputs); its
+control, the kernel given only the first N - 29 keys, must fail, which
+shows that a ragged last key tile counts.
 """
 import numpy as np
 import pytest
 import torch
 
 from nunif_tpu_torch.ops import conv3x3 as k2
+from nunif_tpu_torch.ops import sdpa as k7
 from nunif_tpu_torch.ops import swin_attention as k1
+from nunif_tpu_torch.modules import grid_sample as k3
 from nunif_tpu_torch.modules.attention import expand_relative_bias
 
 pytestmark = pytest.mark.cuda
@@ -148,3 +158,98 @@ def test_kernels_reject_bad_inputs(cuda):
         k1.fused_swin_block_image(
             x, *args, num_heads=2, window=6, shift=0,
             packed=k1.pack_weights(*args, torch.float32))
+
+
+@pytest.mark.parametrize("b,h,w,c,max_shift", [
+    (3, 7, 45, 3, 9), (2, 5, 33, 8, 3), (1, 4, 20, 1, 28), (2, 9, 130, 5, 6)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernel_matches_twin(cuda, b, h, w, c, max_shift, x_dtype):
+    rng = _rng(4)
+    x = _t(rng.random((b, h, w, c)), cuda, x_dtype)
+    delta = _t(rng.uniform(-max_shift, max_shift, (b, h, w)), cuda)
+    delta[0, 0, -3:] = max_shift   # gx clipped to W - 1
+    delta[0, 1, -1] = 0.0          # gx exactly W - 1
+    before = k3.warp_x_bounded.launches
+    got = k3.warp_x_bounded(x, delta, max_shift)
+    torch.cuda.synchronize()
+    assert k3.warp_x_bounded.launches == before + 1
+    want = k3.warp_x_bounded_plain(x, delta, max_shift)
+    assert got.shape == want.shape and got.dtype == x_dtype
+    atol = 1e-5 if x_dtype == torch.float32 else 1 / 128  # one bf16 output step
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    # control: the same check must see a kernel that moves nothing
+    still = k3.warp_x_bounded(x, torch.zeros_like(delta), max_shift)
+    assert float((still.float() - want.float()).abs().max()) > 10 * atol
+
+
+@pytest.mark.parametrize("b,heads,n,m,d", [
+    (2, 3, 1, 1, 64), (1, 2, 37, 37, 64), (2, 2, 63, 63, 64),
+    (1, 1, 64, 64, 64), (2, 3, 65, 65, 64), (1, 2, 197, 197, 64),
+    (1, 2, 100, 37, 64), (2, 6, 1373, 1373, 64)])
+def test_flash_kernel_matches_twin(cuda, b, heads, n, m, d):
+    rng = _rng(5)
+    q = _t(rng.standard_normal((b, heads, n, d)), cuda, torch.bfloat16)
+    k = _t(rng.standard_normal((b, heads, m, d)), cuda, torch.bfloat16)
+    v = _t(rng.standard_normal((b, heads, m, d)), cuda, torch.bfloat16)
+    before = k7.sdpa.launches
+    got = k7.sdpa(q, k, v)
+    torch.cuda.synchronize()
+    assert k7.sdpa.launches == before + 1
+    want = k7.sdpa_plain(q, k, v)
+    assert got.shape == want.shape == (b, heads, n, d)
+    diff = got.float() - want.float()
+    assert float(diff.abs().max()) <= 1e-2
+    assert float(diff.norm() / want.float().norm()) <= 1e-2
+    if m > 29:
+        cut = k7.sdpa(q, k[:, :, :m - 29], v[:, :, :m - 29])
+        ctrl = cut.float() - want.float()
+        assert float(ctrl.abs().max()) > 1e-2 or \
+            float(ctrl.norm() / want.float().norm()) > 1e-2
+
+
+def test_flash_kernel_reads_strided_qkv(cuda):
+    """q, k, v as views of a (B, N, 3, H, d) projection, as DINOv2's
+    attention passes them: the same result as from contiguous copies."""
+    from nunif_tpu_torch.iw3.depth.dinov2 import Attention
+    rng = _rng(6)
+    qkv = _t(rng.standard_normal((2, 200, 3, 6, 64)), cuda, torch.bfloat16)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    got = k7.sdpa(q, k, v)
+    want = k7.sdpa(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+    attn = Attention(384, 6).to(cuda)
+    x = _t(rng.standard_normal((2, 200, 384)), cuda, torch.bfloat16)
+    before = k7.sdpa.launches
+    with torch.no_grad():
+        y = attn(x)
+        saved = k7.sdpa
+        k7.sdpa = k7.sdpa_plain
+        try:
+            y_twin = attn(x)
+        finally:
+            k7.sdpa = saved
+    assert k7.sdpa.launches == before + 1
+    torch.testing.assert_close(y.float(), y_twin.float(), atol=5e-2, rtol=0)
+
+
+def test_iw3_kernels_reject_bad_inputs(cuda, monkeypatch):
+    x = torch.zeros((1, 4, 16, 9), device=cuda)
+    with pytest.raises(ValueError, match="C <= 8"):
+        k3.warp_x_bounded(x, torch.zeros((1, 4, 16), device=cuda), 4)
+    x = torch.zeros((1, 4, 16, 3), device=cuda)
+    with pytest.raises(ValueError, match="delta"):
+        k3.warp_x_bounded(x, torch.zeros((1, 4, 15), device=cuda), 4)
+    with monkeypatch.context() as mp:
+        mp.setattr(k3.dtypes, "IMAGE_DTYPE", torch.float32)
+        with pytest.raises(TypeError, match="bfloat16"):
+            k3.warp_x_bounded(x, torch.zeros((1, 4, 16), device=cuda), 4)
+    q = torch.zeros((1, 2, 10, 64), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k7.sdpa(q, q, q)
+    for d in (40, 128):
+        q = torch.zeros((1, 2, 10, d), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            k7.sdpa(q, q, q)
+    q = torch.zeros((1, 2, 10, 68), device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="strides"):
+        k7.sdpa(q, q, q)
