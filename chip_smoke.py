@@ -3,15 +3,22 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``nunif_tpu_torch/csrc`` and drives
-the port's two main paths, each with seeded weights loaded from ``.nztm``
-files written by the port:
+the port's main paths, each with seeded weights loaded from ``.nztm`` files
+written by the port:
 
-- waifu2x: holds K1 and K2 against their plain PyTorch twins at the shapes
-  of swin_unet_2x's 1080p path, renders one 1080p frame to 4K through
+- waifu2x swin_unet_2x: holds K1 and K2 against their plain PyTorch twins
+  at the shapes of the 1080p path, renders one 1080p frame to 4K through
   ``TiledRenderer.frame_program``, checks that the frame went through the
   kernels (launch counters) and agrees with the twin path, and drives
   ``Waifu2x.convert`` (and the CLI when PIL is present) on a multi-tile
   image;
+- waifu2x swin_unet_4xl (LayerNorm blocks): holds K4 (window attention) at
+  the eight shapes of the 540p path and K2 at its 96 -> 192 stem, each K4
+  check with controls that must fail, renders one 540p frame to 4K (launches
+  K4 14, K2 1, K1 0) against the twin path, profiles it, and drives
+  ``Waifu2x.convert`` and the CLI with ``--method scale4x`` and ``--arch
+  waifu2x.swin_unet_4xl``; then renders swin_unet_1x, swin_unet_4x and the
+  downscaled 2x model on a small image;
 - iw3: holds K3 (stereo warp) and K7 (DINOv2 attention) against their twins
   at the shapes of the 1080p half-SBS path, each with a control that must
   fail, runs a batch of 8 uint8 1080p frames through ``Iw3FrameProcessor``
@@ -19,13 +26,21 @@ files written by the port:
   checks the launch counters, the time and the agreement with the twin
   path, and drives the iw3 CLI on an image when PIL is present.
 
+Every kernel is timed with CUDA events in turns (plain, kernel, library,
+library, kernel, plain) beside its twin and, where one PyTorch call computes
+the same function, that call (``library_ms``); ``bound_ms`` is the least
+time the card could take for the same work, from this run's shapes: the
+larger of the bytes it must move over 3.35 TB/s and its operations over the
+dense peak of its type (989 TFLOP/s bf16, 67 TFLOP/s fp32).
+
 Prints, before the last line, the card's name and power limit
-(``nvidia-smi``) and one JSON line of per-kernel results (bf16; ``ms`` and
-``plain_ms`` add up the launches of one frame (K1, K2) or one batch of 8
-frames (K3, K7) at their main-path shapes, each shape timed on its own);
-the last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
-non-zero and prints no result.  Needs CUDA: without it, or without the
-repository beside this file, it exits 1.
+(``nvidia-smi``) and one JSON line of per-kernel results (bf16; ``ms``,
+``plain_ms``, ``library_ms`` and ``bound_ms`` add up the launches of one
+frame of each path that runs the kernel (K1, K2, K4) or of one iw3 batch of
+8 frames (K3, K7), each shape timed on its own); the last line is
+``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero and
+prints no result.  Needs CUDA: without it, or without the repository beside
+this file, it exits 1.
 """
 from __future__ import annotations
 
@@ -45,6 +60,8 @@ import numpy as np
 # rounding step and its downstream effect
 K2_TOL = {"bfloat16": (1 / 64, 1e-2), "float32": (0.0, 2e-4)}
 K1_TOL = {"bfloat16": (0.0, 0.05), "float32": (0.0, 2e-4)}
+# K4 rounds at the twin's two points (probabilities, output)
+K4_TOL = {"bfloat16": (1 / 64, 1e-2), "float32": (0.0, 2e-5)}
 FRAME_PSNR_MIN = 45.0  # uint8 frame, kernel path vs twin path, tamed weights
 # K3 sums the twin's two non-zero fp32 products with the twin's roundings
 K3_ATOL = 1e-5
@@ -52,6 +69,16 @@ K3_ATOL = 1e-5
 # rounds normalised ones: abs and relative-L2 bounds, both must hold
 K7_ATOL, K7_REL_L2 = 1e-2, 1e-2
 IW3_BATCH, IW3_HW = 8, (1080, 1920)
+# the card's published peaks (H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# K4 at the 4xl's 540p shapes (C, H, W, shift) and its launches a frame:
+# swin1 at C = 192, swin2 and swin4 at 288x480, swin3 at 144x240, swin5 at
+# 576x960 (the 4x trunk runs swin5 at 2C)
+K4_FRAME = {(192, 576, 960, 0): 1, (192, 576, 960, 3): 1,
+            (384, 288, 480, 0): 2, (384, 288, 480, 3): 2,
+            (384, 144, 240, 0): 3, (384, 144, 240, 3): 3,
+            (384, 576, 960, 0): 1, (384, 576, 960, 3): 1}
 
 
 def fail(msg: str):
@@ -70,6 +97,13 @@ def sh(cmd) -> str:
     return proc.stdout.strip()
 
 
+def bound(nbytes, flops, dtype="bfloat16"):
+    """(ms, "bytes" or "operations"): the least time for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def cuda_time(fn, torch):
     """Milliseconds of one call, by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -81,17 +115,24 @@ def cuda_time(fn, torch):
     return start.elapsed_time(end)
 
 
-def compare_timed(kernel, plain, torch, rounds=2):
-    """Warm both, then time in turns plain, kernel, kernel, plain; medians."""
-    kernel()
-    plain()
+def compare_timed(kernel, plain, torch, library=None, rounds=2):
+    """Warm each, then time in turns plain, kernel, [library, library,]
+    kernel, plain; medians by name ("library" is None without one)."""
+    fns = {"kernel": kernel, "plain": plain}
+    order = ["plain", "kernel", "kernel", "plain"]
+    if library is not None:
+        fns["library"] = library
+        order = ["plain", "kernel", "library", "library", "kernel", "plain"]
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    times = {"kernel": [], "plain": []}
+    times = {name: [] for name in fns}
     for _ in range(rounds):
-        for which in ("plain", "kernel", "kernel", "plain"):
-            times[which].append(cuda_time(kernel if which == "kernel" else plain,
-                                          torch))
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+        for which in order:
+            times[which].append(cuda_time(fns[which], torch))
+    out = {name: statistics.median(v) for name, v in times.items()}
+    out.setdefault("library", None)
+    return out
 
 
 def compare(got, want, tol):
@@ -116,6 +157,29 @@ def uint8_psnr(a, b):
     d = a.float() - b.float()
     mse = float((d * d).mean())
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+class twins:
+    """Within the block, the named kernels of the given modules are their
+    plain twins: ``with twins((k1, "fused_swin_block_image"), ...)``."""
+
+    def __init__(self, *pairs):
+        self.pairs = pairs
+        self.saved = []
+
+    def __enter__(self):
+        plain = {"fused_swin_block_image": "swin_block_image_plain",
+                 "fused_window_attention": "window_attention_plain",
+                 "stem_conv3x3": "stem_conv3x3_plain",
+                 "warp_x_bounded": "warp_x_bounded_plain",
+                 "sdpa": "sdpa_plain"}
+        for mod, name in self.pairs:
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, getattr(mod, plain[name]))
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
 
 def iw3_frames(torch, dev, n, h, w, seed):
@@ -200,13 +264,9 @@ def iw3_batch(torch, dev, model_dir, k3, k7):
         proc(frames)
         torch.cuda.synchronize()
         batch_ms.append((time.perf_counter() - t0) * 1e3)
-    saved = (k3.warp_x_bounded, k7.sdpa)
-    k3.warp_x_bounded, k7.sdpa = k3.warp_x_bounded_plain, k7.sdpa_plain
-    try:
+    with twins((k3, "warp_x_bounded"), (k7, "sdpa")):
         out_twin = proc(frames)
         torch.cuda.synchronize()
-    finally:
-        k3.warp_x_bounded, k7.sdpa = saved
     q = (out.clamp(0, 1) * 255 + 0.5).to(torch.uint8)
     q_twin = (out_twin.clamp(0, 1) * 255 + 0.5).to(torch.uint8)
     psnr = uint8_psnr(q, q_twin)
@@ -240,6 +300,154 @@ def iw3_cli(model_dir):
     return "cli.main --half-sbs"
 
 
+def k2_row(torch, k2, rng, t, dev, shape, cin, cout):
+    """K2 at one stem shape, bf16 and fp32, against its twin; bf16 timed
+    beside cuDNN's conv2d (with bias, channels_last, on the cropped input;
+    the leaky-ReLU is not part of that call).  Returns the bf16 row."""
+    import torch.nn.functional as F
+    b, h, w = shape
+    ho, wo = h - 14, w - 14
+    x = rng.normal(0, 0.5, (b, h, w, cin))
+    kern = t(rng.normal(0, 1 / np.sqrt(9 * cin), (3, 3, cin, cout)))
+    bias = t(rng.normal(0, 0.1, (cout,)))
+    kw = dict(crop=6, lrelu_slope=0.1)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = t(x, dtype)
+        got = k2.stem_conv3x3(xd, kern, bias, **kw)
+        torch.cuda.synchronize()
+        want = k2.stem_conv3x3_plain(xd, kern, bias, **kw)
+        if got.shape != (b, ho, wo, cout):
+            fail(f"K2 output shape {tuple(got.shape)}")
+        name = str(dtype).split(".")[1]
+        err, _ = check_close(got, want, K2_TOL[name], f"K2 {cin}->{cout} {name}")
+        lib = None
+        if dtype == torch.bfloat16:
+            xl = xd[:, 6:h - 6, 6:w - 6].permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            wl = kern.to(dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            bl = bias.to(dtype)
+            lib = lambda: F.conv2d(xl, wl, bl)  # noqa: E731
+        tm = compare_timed(lambda: k2.stem_conv3x3(xd, kern, bias, **kw),
+                           lambda: k2.stem_conv3x3_plain(xd, kern, bias, **kw),
+                           torch, library=lib)
+        ebytes = 2 if dtype == torch.bfloat16 else 4
+        nbytes = (b * (ho + 2) * (wo + 2) * cin + b * ho * wo * cout) * ebytes \
+            + kern.numel() * 4 + bias.numel() * 4
+        bound_ms, bound_by = bound(nbytes, 2 * b * ho * wo * cout * 9 * cin, name)
+        row = dict(shape=(b, h, w, cin, cout), dtype=name, max_abs_err=err,
+                   ms=tm["kernel"], plain_ms=tm["plain"],
+                   library_ms=tm["library"], bound_ms=bound_ms,
+                   bound_by=bound_by)
+        print(f"K2 stem_conv3x3 {name}: {row}", flush=True)
+        rows[name] = row
+        del got, want, xd
+    torch.cuda.empty_cache()
+    return rows["bfloat16"]
+
+
+def k4_phase(torch, k4, rng, t, dev):
+    """K4 at every 4xl 540p shape, bf16 and fp32, against its twin, with
+    two controls (zero bias; for shift 3, the kernel run unshifted) that
+    must fail; bf16 timed beside SDPA with a float mask built once."""
+    import torch.nn.functional as F
+    from nunif_tpu_torch.modules.attention import (expand_relative_bias,
+                                                   shifted_window_mask)
+    rows = []
+    heads, ws, n = 12, 6, 36
+    for (c, h, w, shift) in K4_FRAME:
+        n_wh, n_ww = h // ws, w // ws
+        nw = n_wh * n_ww
+        hd = c // heads
+        qkv = rng.standard_normal((nw, n, 3 * c), dtype=np.float32)
+        # std 1, not the init's 0.02, so that the bias moves the output
+        # well past the bf16 tolerance (control below)
+        bias = expand_relative_bias(t(rng.standard_normal((121, heads))), ws)
+        kw = dict(num_heads=heads, window=ws, shift=shift, n_wh=n_wh, n_ww=n_ww)
+        what = f"K4 C={c} {h}x{w} shift={shift}"
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            qd = t(qkv, dtype)
+            got = k4.fused_window_attention(qd, bias, **kw)
+            torch.cuda.synchronize()
+            want = k4.window_attention_plain(qd, bias, **kw)
+            err, rel_l2 = check_close(got, want, K4_TOL[name], f"{what} {name}")
+            ctrl = [compare(k4.fused_window_attention(
+                qd, torch.zeros_like(bias), **kw), want, K4_TOL[name])]
+            if shift:
+                ctrl.append(compare(k4.fused_window_attention(
+                    qd, bias, **dict(kw, shift=0)), want, K4_TOL[name]))
+            if any(ok for ok, _e, _r in ctrl):
+                fail(f"{what} {name}: a control (zero bias or no wrap mask) "
+                     f"passes the check ({ctrl}): the check is blind")
+            del got, want
+            row = dict(C=c, H=h, W=w, shift=shift, dtype=name,
+                       max_abs_err=err, control_errs=[e for _o, e, _r in ctrl])
+            if dtype == torch.bfloat16:
+                q, k, v = qd.view(nw, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+                mask = bias[None].expand(nw, heads, n, n)
+                if shift:
+                    wrap = torch.from_numpy(shifted_window_mask(h, w, ws, shift))
+                    mask = mask + wrap.to(dev)[:, None]
+                mask = mask.to(dtype).contiguous()
+                tm = compare_timed(
+                    lambda: k4.fused_window_attention(qd, bias, **kw),
+                    lambda: k4.window_attention_plain(qd, bias, **kw), torch,
+                    library=lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask))
+                nbytes = nw * n * 4 * c * 2 + bias.numel() * 4
+                bound_ms, bound_by = bound(nbytes, 4 * nw * n * n * c)
+                row.update(ms=tm["kernel"], plain_ms=tm["plain"],
+                           library_ms=tm["library"], bound_ms=bound_ms,
+                           bound_by=bound_by)
+                del q, k, v, mask
+            print(f"{what} {name}: {row}", flush=True)
+            rows.append(row)
+            del qd
+            torch.cuda.empty_cache()
+    return rows
+
+
+def render_twin_psnr(torch, program, frame, y, pairs):
+    """PSNR of the kernel path's frame y against the same frame rendered
+    with the given kernels replaced by their twins, and the share of
+    identical pixels."""
+    with twins(*pairs):
+        y_twin = program(frame)
+        torch.cuda.synchronize()
+    return uint8_psnr(y, y_twin), float((y == y_twin).float().mean())
+
+
+def profile_frame(torch, program, frame, top=12):
+    """torch.profiler over one frame: the device time (sum over kernels),
+    the top ops by the device time of the kernels they launch, and the top
+    kernels by name (the port's own kernels, launched through ctypes, belong
+    to no op and show only there)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        program(frame)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    ops = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    total = sum(dev_us(e) for e in kernels)
+    print(f"profile: device time {total / 1e3:.2f} ms in one frame", flush=True)
+    for label, rows in (("op", ops), ("kernel", kernels)):
+        for e in sorted(rows, key=dev_us, reverse=True)[:top]:
+            if dev_us(e) <= 0:
+                break
+            print(f"profile {label}: {dev_us(e) / 1e3:8.3f} ms "
+                  f"{100 * dev_us(e) / total:5.1f}% x{e.count:<4d} "
+                  f"{e.key[:110]}", flush=True)
+    return total / 1e3
+
+
 def main() -> int:
     try:
         import torch
@@ -253,17 +461,20 @@ def main() -> int:
     sys.path.insert(0, here)
     os.chdir(here)
 
+    import torch.nn.functional as F
     from nunif_tpu_torch.ops import _build
     from nunif_tpu_torch.ops import conv3x3 as k2
-    from nunif_tpu_torch.ops import swin_attention as k1
+    from nunif_tpu_torch.ops import swin_attention as k1  # K1 and K4
     from nunif_tpu_torch.modules.attention import expand_relative_bias
     from nunif_tpu_torch.models import from_flax, load_model, save_model
     from nunif_tpu_torch.utils.tiling import TiledRenderer
-    from nunif_tpu_torch.waifu2x.models.swin_unet import (SwinUNet2x,
-                                                          tamed_flax_params)
+    from nunif_tpu_torch.waifu2x.models.swin_unet import (
+        SwinUNet, SwinUNet2x, SwinUNet4x, SwinUNetDownscaled, swin_unet_4xl,
+        tamed_flax_params)
     from nunif_tpu_torch.waifu2x.runtime import Waifu2x
     from nunif_tpu_torch.modules import grid_sample as k3
     from nunif_tpu_torch.ops import sdpa as k7
+    k4 = k1
 
     dev = torch.device("cuda")
 
@@ -296,29 +507,11 @@ def main() -> int:
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
 
-    # 3. K2 at patch_conv1's main-path shape
+    # 3. K2 at patch_conv1's main-path shapes: swin_unet_2x at 1080p, the
+    #    4xl at 540p (one 592x976 tile)
     phase("k2")
-    k2_rows = []
-    x = rng.normal(0, 0.5, (1, 1118, 1934, 48))
-    kern = t(rng.normal(0, 1 / np.sqrt(9 * 48), (3, 3, 48, 96)))
-    bias = t(rng.normal(0, 0.1, (96,)))
-    for dtype in (torch.bfloat16, torch.float32):
-        xd = t(x, dtype)
-        kw = dict(crop=6, lrelu_slope=0.1)
-        got = k2.stem_conv3x3(xd, kern, bias, **kw)
-        torch.cuda.synchronize()
-        want = k2.stem_conv3x3_plain(xd, kern, bias, **kw)
-        if got.shape != (1, 1104, 1920, 96):
-            fail(f"K2 output shape {tuple(got.shape)}")
-        name = str(dtype).split(".")[1]
-        err, _ = check_close(got, want, K2_TOL[name], f"K2 {name}")
-        ms, plain_ms = compare_timed(
-            lambda: k2.stem_conv3x3(xd, kern, bias, **kw),
-            lambda: k2.stem_conv3x3_plain(xd, kern, bias, **kw), torch)
-        row = dict(dtype=name, max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        print(f"K2 stem_conv3x3 {name}: {row}", flush=True)
-        k2_rows.append(row)
-        del got, want, xd
+    k2_rows = [k2_row(torch, k2, rng, t, dev, (1, 1118, 1934), 48, 96),
+               k2_row(torch, k2, rng, t, dev, (1, 590, 974), 96, 192)]
 
     # 4. K1 at every main-path shape
     phase("k1")
@@ -361,19 +554,28 @@ def main() -> int:
                 fail(f"{what}: the kernel without relative bias passes the "
                      f"check (max abs err {ctrl_err}): the check is blind")
             del got, want
-            ms, plain_ms = compare_timed(
+            tm = compare_timed(
                 lambda: k1.fused_swin_block_image(xd, *weights, **kw),
                 lambda: k1.swin_block_image_plain(xd, *weights, **kw), torch)
+            tokens = h * w
+            ebytes = 2 if dtype == torch.bfloat16 else 4
+            nbytes = tokens * c * ebytes * (3 if with_skip else 2) + \
+                sum(a.numel() for a in weights[:8]) * ebytes + \
+                weights[8].numel() * 4
+            bound_ms, bound_by = bound(
+                nbytes, tokens * (16 * c * c + 4 * 36 * c), name)
             row = dict(C=c, H=h, W=w, shift=shift, skip=with_skip, dtype=name,
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                       max_abs_err=err, ms=tm["kernel"], plain_ms=tm["plain"],
+                       bound_ms=bound_ms, bound_by=bound_by)
             print(f"{what}: err {err:.3g} rel-L2 {rel_l2:.3g} (no-bias "
-                  f"control err {ctrl_err:.3g}) kernel {ms:.3f} ms plain "
-                  f"{plain_ms:.3f} ms", flush=True)
+                  f"control err {ctrl_err:.3g}) kernel {tm['kernel']:.3f} ms "
+                  f"plain {tm['plain']:.3f} ms bound {bound_ms:.3f} ms "
+                  f"({bound_by})", flush=True)
             k1_rows.append(row)
             del xd, sd
             torch.cuda.empty_cache()
 
-    # 5. one 1080p frame through the port's main path
+    # 5. one 1080p frame through the port's swin_unet_2x path
     phase("frame")
     tmp = tempfile.TemporaryDirectory()
     model_dir = tmp.name
@@ -388,14 +590,17 @@ def main() -> int:
     frame_d = torch.from_numpy(frame).to(dev)
     k2.stem_conv3x3.launches = 0
     k1.fused_swin_block_image.launches = 0
+    k4.fused_window_attention.launches = 0
     y = program(frame_d)
     torch.cuda.synchronize()
     launches = {"stem_conv3x3": k2.stem_conv3x3.launches,
-                "fused_swin_block_image": k1.fused_swin_block_image.launches}
+                "fused_swin_block_image": k1.fused_swin_block_image.launches,
+                "fused_window_attention": k4.fused_window_attention.launches}
     print(f"frame launches: {launches}", flush=True)
     if tuple(y.shape) != (2160, 3840, 3) or y.dtype != torch.uint8:
         fail(f"frame output {tuple(y.shape)} {y.dtype}")
-    if launches != {"stem_conv3x3": 1, "fused_swin_block_image": 14}:
+    if launches != {"stem_conv3x3": 1, "fused_swin_block_image": 14,
+                    "fused_window_attention": 0}:
         fail(f"frame did not run each kernel as expected: {launches}")
     frame_ms = []
     for _ in range(3):
@@ -403,23 +608,11 @@ def main() -> int:
         program(frame_d)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    # the same frame through the twins, on the card
-    saved = (k2.stem_conv3x3, k1.fused_swin_block_image)
-    k2.stem_conv3x3 = k2.stem_conv3x3_plain
-    k1.fused_swin_block_image = k1.swin_block_image_plain
-    try:
-        y_twin = program(frame_d)
-        torch.cuda.synchronize()
-    finally:
-        k2.stem_conv3x3, k1.fused_swin_block_image = saved
-    d = y.float() - y_twin.float()
-    mse = float((d * d).mean())
-    psnr = float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
-    same = float((d == 0).float().mean())
+    psnr, same = render_twin_psnr(torch, program, frame_d, y, (
+        (k2, "stem_conv3x3"), (k1, "fused_swin_block_image")))
     print(f"frame 1080p->4K: median {statistics.median(frame_ms):.1f} ms "
           f"(runs {[round(v, 1) for v in frame_ms]}); vs twins PSNR "
-          f"{psnr:.2f} dB, identical px {same:.4f}, max diff "
-          f"{float(d.abs().max()):.0f}", flush=True)
+          f"{psnr:.2f} dB, identical px {same:.4f}", flush=True)
     if psnr < FRAME_PSNR_MIN:
         fail(f"frame PSNR vs twins {psnr:.2f} dB < {FRAME_PSNR_MIN}")
     yf = y.float() / 255.0
@@ -442,8 +635,8 @@ def main() -> int:
         from PIL import Image
     except ImportError:
         Image = None
+    from nunif_tpu_torch.waifu2x import cli
     if Image is not None:
-        from nunif_tpu_torch.waifu2x import cli
         src = os.path.join(model_dir, "in.png")
         out = os.path.join(model_dir, "out.png")
         Image.fromarray((img * 255).astype(np.uint8)).save(src)
@@ -455,10 +648,128 @@ def main() -> int:
                 fail(f"CLI output size {im.size}")
         ran += " + cli.main"
     print(f"multi-tile 540x960 tile 256 batch 8 ran: {ran}", flush=True)
-    del program, renderer, model, w2x, y, y_twin, frame_d
+    del program, renderer, model, w2x, y, frame_d
     torch.cuda.empty_cache()
 
-    # 7. K3 at the iw3 path's shape: both eyes of 8 frames, max_shift 28
+    # 7. K4 at every 4xl 540p shape
+    phase("k4")
+    k4_rows = k4_phase(torch, k4, rng, t, dev)
+
+    # 8. one 540p frame through the port's swin_unet_4xl path
+    phase("frame 4xl")
+    cpu_model = swin_unet_4xl()
+    from_flax(cpu_model, tamed_flax_params(cpu_model, seed=0))
+    save_model(cpu_model, os.path.join(model_dir, "scale4x.nztm"))
+    del cpu_model
+    model, meta = load_model(os.path.join(model_dir, "scale4x.nztm"), device=dev)
+    if (meta["name"], model.base_dim, model.layer_norm) != (
+            "waifu2x.swin_unet_4x", 192, True):
+        fail(f"4xl checkpoint meta {meta['name']} {meta['kwargs']}")
+    program = TiledRenderer(model).frame_program(540, 960, tile_size=(592, 976))
+    frame_d = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (540, 960, 3), dtype=np.uint8)).to(dev)
+    k2.stem_conv3x3.launches = 0
+    k1.fused_swin_block_image.launches = 0
+    k4.fused_window_attention.launches = 0
+    y = program(frame_d)
+    torch.cuda.synchronize()
+    launches_4xl = {
+        "stem_conv3x3": k2.stem_conv3x3.launches,
+        "fused_swin_block_image": k1.fused_swin_block_image.launches,
+        "fused_window_attention": k4.fused_window_attention.launches}
+    print(f"4xl frame launches: {launches_4xl}", flush=True)
+    if tuple(y.shape) != (2160, 3840, 3) or y.dtype != torch.uint8:
+        fail(f"4xl frame output {tuple(y.shape)} {y.dtype}")
+    if launches_4xl != {"stem_conv3x3": 1, "fused_swin_block_image": 0,
+                        "fused_window_attention": 14}:
+        fail(f"4xl frame did not run each kernel as expected: {launches_4xl}")
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms_4xl = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        program(frame_d)
+        torch.cuda.synchronize()
+        frame_ms_4xl.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    psnr_4xl, same = render_twin_psnr(torch, program, frame_d, y, (
+        (k2, "stem_conv3x3"), (k4, "fused_window_attention")))
+    mean_4xl = float(y.float().mean()) / 255.0
+    print(f"4xl frame 540p->4K: median {statistics.median(frame_ms_4xl):.1f} "
+          f"ms (runs {[round(v, 1) for v in frame_ms_4xl]}); peak device "
+          f"memory {peak_gb:.2f} GB; vs twins PSNR {psnr_4xl:.2f} dB, "
+          f"identical px {same:.4f}; mean {mean_4xl:.4f}", flush=True)
+    if psnr_4xl < FRAME_PSNR_MIN:
+        fail(f"4xl frame PSNR vs twins {psnr_4xl:.2f} dB < {FRAME_PSNR_MIN}")
+    if not 0.05 < mean_4xl < 0.95:
+        fail(f"4xl frame mean {mean_4xl} outside the tamed model's range")
+    profile_frame(torch, program, frame_d)
+    del program, model, y, frame_d
+    torch.cuda.empty_cache()
+
+    # 9. the 4xl through the runtime and the CLI: --method scale4x loads
+    #    scale4x.nztm; --arch builds the 4xl from the registry
+    phase("entry points 4xl")
+    w2x = Waifu2x(model_dir, device=dev)
+    img = np.random.default_rng(7).random((270, 480, 3), dtype=np.float32)
+    rgb, alpha = w2x.convert(img, method="scale4x", tile_size=256, batch_size=8)
+    torch.cuda.synchronize()
+    if tuple(rgb.shape) != (1080, 1920, 3) or alpha is not None:
+        fail(f"scale4x convert output {tuple(rgb.shape)}")
+    if not (bool(rgb.isfinite().all()) and 0.05 < float(rgb.mean()) < 0.95):
+        fail("scale4x convert output not finite or outside the tamed range")
+    ran = "Waifu2x.convert(method=scale4x)"
+    if Image is not None:
+        src = os.path.join(model_dir, "in4.png")
+        out = os.path.join(model_dir, "out4.png")
+        Image.fromarray((img * 255).astype(np.uint8)).save(src)
+        cli.main(["-i", src, "-o", out, "--method", "scale4x", "--model-dir",
+                  model_dir, "--tile-size", "256", "--batch-size", "8",
+                  "--device", "cuda"])
+        with Image.open(out) as im:
+            if im.size != (1920, 1080):
+                fail(f"scale4x CLI output size {im.size}")
+        Image.fromarray((img[:64, :64] * 255).astype(np.uint8)).save(src)
+        cli.main(["-i", src, "-o", out, "--method", "scale4x", "--arch",
+                  "waifu2x.swin_unet_4xl", "--device", "cuda"])
+        with Image.open(out) as im:
+            if im.size != (256, 256):
+                fail(f"--arch waifu2x.swin_unet_4xl CLI output size {im.size}")
+        ran += " + cli.main --method scale4x (--model-dir, --arch)"
+    print(f"4xl 270x480 tile 256 batch 8 ran: {ran}", flush=True)
+    del w2x, rgb
+    torch.cuda.empty_cache()
+
+    # 10. the other scales at a small size, through the renderer
+    phase("other scales")
+    for ctor in (SwinUNet, SwinUNet4x, lambda: SwinUNetDownscaled(
+            downscale_factor=2)):
+        m = ctor()
+        from_flax(m, tamed_flax_params(m, seed=1))
+        m = m.to(dev).eval().requires_grad_(False)
+        prog = TiledRenderer(m).frame_program(256, 256)
+        fr = torch.from_numpy(np.random.default_rng(8).integers(
+            0, 256, (256, 256, 3), dtype=np.uint8)).to(dev)
+        k2.stem_conv3x3.launches = 0
+        k1.fused_swin_block_image.launches = 0
+        k4.fused_window_attention.launches = 0
+        y = prog(fr)
+        torch.cuda.synchronize()
+        got = (k2.stem_conv3x3.launches, k1.fused_swin_block_image.launches,
+               k4.fused_window_attention.launches)
+        s = m.i2i_scale
+        psnr_s, _same = render_twin_psnr(torch, prog, fr, y, (
+            (k2, "stem_conv3x3"), (k1, "fused_swin_block_image")))
+        what = f"{m.model_name} (scale {s}) 256x256"
+        print(f"{what}: launches K2/K1/K4 {got}; vs twins PSNR {psnr_s:.2f} dB",
+              flush=True)
+        if tuple(y.shape) != (256 * s, 256 * s, 3) or got != (1, 14, 0):
+            fail(f"{what}: output {tuple(y.shape)}, launches {got}")
+        if psnr_s < FRAME_PSNR_MIN:
+            fail(f"{what}: PSNR vs twins {psnr_s:.2f} dB < {FRAME_PSNR_MIN}")
+        del m, prog, y
+    torch.cuda.empty_cache()
+
+    # 11. K3 at the iw3 path's shape: both eyes of 8 frames, max_shift 28
     phase("k3")
     b2, (h, w) = 2 * IW3_BATCH, IW3_HW
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -476,21 +787,39 @@ def main() -> int:
         fail(f"K3: the kernel given a zero delta passes the check (max abs "
              f"err {ctrl_err}): the check is blind")
     del got, want
-    k3_ms, k3_plain_ms = compare_timed(lambda: k3.warp_x_bounded(xw, dw, 28),
-                                       lambda: k3.warp_x_bounded_plain(xw, dw, 28),
-                                       torch)
+    # the library call: grid_sample with the row-only grid, built once
+    x_nchw = xw.permute(0, 3, 1, 2).contiguous()
+    gx = (torch.arange(w, device=dev, dtype=torch.float32) + dw) / (w - 1) * 2 - 1
+    gy = (torch.arange(h, device=dev, dtype=torch.float32) / (h - 1) * 2 - 1
+          ).reshape(1, h, 1).expand(b2, h, w)
+    grid = torch.stack([gx, gy], dim=-1)
+    lib_out = F.grid_sample(x_nchw, grid, mode="bilinear",
+                            padding_mode="border", align_corners=True)
+    print(f"K3 grid_sample vs twin max abs diff "
+          f"{float((lib_out.permute(0, 2, 3, 1) - k3.warp_x_bounded_plain(xw, dw, 28)).abs().max()):.3g}",
+          flush=True)
+    del lib_out
+    k3_tm = compare_timed(
+        lambda: k3.warp_x_bounded(xw, dw, 28),
+        lambda: k3.warp_x_bounded_plain(xw, dw, 28), torch,
+        library=lambda: F.grid_sample(x_nchw, grid, mode="bilinear",
+                                      padding_mode="border", align_corners=True))
+    # as the path calls it: fp32 image and delta in, fp32 out
+    k3_bound = bound(xw.numel() * 4 * 2 + dw.numel() * 4, 3 * xw.numel(),
+                     "float32")
     xb = xw.to(torch.bfloat16)
     k3_raw_ms = statistics.median(
         cuda_time(lambda: k3.warp_x_bounded_kernel(xb, dw), torch)
         for _ in range(5))
     print(f"K3 warp_x_bounded {tuple(xw.shape)} max_shift 28: err {k3_err:.3g} "
-          f"(zero-delta control err {ctrl_err:.3g}) wrapper {k3_ms:.3f} ms "
-          f"(kernel alone on bf16 x {k3_raw_ms:.3f} ms) plain {k3_plain_ms:.3f} ms",
-          flush=True)
-    del xw, dw, xb
+          f"(zero-delta control err {ctrl_err:.3g}) wrapper "
+          f"{k3_tm['kernel']:.3f} ms (kernel alone on bf16 x {k3_raw_ms:.3f} ms) "
+          f"plain {k3_tm['plain']:.3f} ms grid_sample {k3_tm['library']:.3f} ms "
+          f"bound {k3_bound[0]:.3f} ms ({k3_bound[1]})", flush=True)
+    del xw, dw, xb, x_nchw, grid, gx, gy
     torch.cuda.empty_cache()
 
-    # 8. K7 at DINOv2-S shapes: 1373 = the 1080p path's 28x49 patches + cls
+    # 12. K7 at DINOv2-S shapes: 1373 = the 1080p path's 28x49 patches + cls
     phase("k7")
     k7_rows = {}
     for n in (1373, 1344, 197):
@@ -509,20 +838,26 @@ def main() -> int:
         if c_ok and c_rel <= K7_REL_L2:
             fail(f"K7 N={n}: the kernel without the last 29 keys passes the "
                  f"check (err {c_err}, rel L2 {c_rel}): the check is blind")
-        ms, plain_ms = compare_timed(lambda: k7.sdpa(q, k, v),
-                                     lambda: k7.sdpa_plain(q, k, v), torch)
-        k7_rows[n] = dict(max_abs_err=err, rel_l2=rel_l2, ms=ms, plain_ms=plain_ms)
+        tm = compare_timed(lambda: k7.sdpa(q, k, v),
+                           lambda: k7.sdpa_plain(q, k, v), torch,
+                           library=lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms, bound_by = bound(4 * q.numel() * 2, 4 * IW3_BATCH * 6 * n * n * 64)
+        k7_rows[n] = dict(max_abs_err=err, rel_l2=rel_l2, ms=tm["kernel"],
+                          plain_ms=tm["plain"], library_ms=tm["library"],
+                          bound_ms=bound_ms, bound_by=bound_by)
         print(f"K7 sdpa (8, 6, {n}, 64): err {err:.3g} rel-L2 {rel_l2:.3g} "
               f"(cut-keys control err {c_err:.3g} rel-L2 {c_rel:.3g}) kernel "
-              f"{ms:.3f} ms plain {plain_ms:.3f} ms", flush=True)
+              f"{tm['kernel']:.3f} ms plain {tm['plain']:.3f} ms SDPA "
+              f"{tm['library']:.3f} ms bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
         del q, k, v, got, want, cut
     torch.cuda.empty_cache()
 
-    # 9. iw3: 8 uint8 1080p frames through the port's frame processor
+    # 13. iw3: 8 uint8 1080p frames through the port's frame processor
     phase("iw3 batch")
     iw3_ms, iw3_launches, iw3_psnr = iw3_batch(torch, dev, model_dir, k3, k7)
 
-    # 10. the iw3 CLI on an image (when PIL exists)
+    # 14. the iw3 CLI on an image (when PIL exists)
     phase("iw3 cli")
     ran = iw3_cli(model_dir)
     print(f"iw3 image CLI ran: {ran}", flush=True)
@@ -537,36 +872,74 @@ def main() -> int:
         (192, 552, 3, False): 2, (192, 276, 0, False): 3,
         (192, 276, 3, False): 3}
 
-    def frame_sum(key):
+    def k1_sum(key):
         return sum(r[key] * per_frame[(r["C"], r["H"], r["shift"], r["skip"])]
                    for r in k1_bf16)
 
-    k2_bf16 = k2_rows[0]
+    k4_bf16 = [r for r in k4_rows if r["dtype"] == "bfloat16"]
+
+    def k4_sum(key):
+        return sum(r[key] * K4_FRAME[(r["C"], r["H"], r["W"], r["shift"])]
+                   for r in k4_bf16)
+
+    def bound_by(rows, mult):
+        """The limit (bytes or operations) of the larger share of a frame's
+        summed per-launch bounds."""
+        share = {"bytes": 0.0, "operations": 0.0}
+        for r in rows:
+            share[r["bound_by"]] += r["bound_ms"] * mult(r)
+        return max(share, key=share.get)
+
+    def k2_sum(key):  # one launch in each path's frame
+        return sum(r[key] for r in k2_rows)
+
+    k7_main = k7_rows[1373]
     kernels = {"kernels": [
         {"name": "stem_conv3x3", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/conv3x3.cu",
          "replaces": "nunif_tpu/ops/conv3x3.py:58",
-         "launches": launches["stem_conv3x3"],
-         "max_abs_err": k2_bf16["max_abs_err"], "ms": k2_bf16["ms"],
-         "plain_ms": k2_bf16["plain_ms"]},
+         "launches": launches["stem_conv3x3"] + launches_4xl["stem_conv3x3"],
+         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+         "ms": k2_sum("ms"), "plain_ms": k2_sum("plain_ms"),
+         "bound_ms": k2_sum("bound_ms"),
+         "bound_by": bound_by(k2_rows, lambda r: 1),
+         "library_ms": k2_sum("library_ms")},
         {"name": "fused_swin_block_image", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/swin_block.cu",
          "replaces": "nunif_tpu/ops/swin_attention.py:976",
          "launches": launches["fused_swin_block_image"],
          "max_abs_err": max(r["max_abs_err"] for r in k1_bf16),
-         "ms": frame_sum("ms"), "plain_ms": frame_sum("plain_ms")},
+         "ms": k1_sum("ms"), "plain_ms": k1_sum("plain_ms"),
+         "bound_ms": k1_sum("bound_ms"),
+         "bound_by": bound_by(k1_bf16, lambda r: per_frame[
+             (r["C"], r["H"], r["shift"], r["skip"])]),
+         "library_ms": None},
         {"name": "warp_x_bounded", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/warp_x.cu",
          "replaces": "nunif_tpu/modules/grid_sample.py:176",
          "launches": iw3_launches["warp_x_bounded"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_tm["kernel"], "plain_ms": k3_tm["plain"],
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": k3_tm["library"]},
+        {"name": "fused_window_attention", "route": "cuda",
+         "source": "nunif_tpu_torch/csrc/window_attn.cu",
+         "replaces": "nunif_tpu/ops/swin_attention.py:141",
+         "launches": launches_4xl["fused_window_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in k4_bf16),
+         "ms": k4_sum("ms"), "plain_ms": k4_sum("plain_ms"),
+         "bound_ms": k4_sum("bound_ms"),
+         "bound_by": bound_by(k4_bf16, lambda r: K4_FRAME[
+             (r["C"], r["H"], r["W"], r["shift"])]),
+         "library_ms": k4_sum("library_ms")},
         {"name": "sdpa", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/flash_attn.cu",
          "replaces": "nunif_tpu/ops/sdpa.py:49",
          "launches": iw3_launches["sdpa"],
          "max_abs_err": max(r["max_abs_err"] for r in k7_rows.values()),
          # 12 launches a batch, all at (8, 6, 1373, 64)
-         "ms": 12 * k7_rows[1373]["ms"], "plain_ms": 12 * k7_rows[1373]["plain_ms"]},
+         "ms": 12 * k7_main["ms"], "plain_ms": 12 * k7_main["plain_ms"],
+         "bound_ms": 12 * k7_main["bound_ms"], "bound_by": k7_main["bound_by"],
+         "library_ms": 12 * k7_main["library_ms"]},
     ]}
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps(kernels))

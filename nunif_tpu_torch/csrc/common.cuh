@@ -42,6 +42,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// max / sum over the four lanes of an mma accumulator row (lanes 4g .. 4g + 3)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 16-byte global -> shared copy, asynchronous (sm_80+); pred false
+// zero-fills the 16 bytes
+__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem, bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
+  const int bytes = pred ? 16 : 0;  // 0: zero-fill the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
+}
+
 // ldmatrix / mma.sync m16n8k16 (bf16 in, fp32 accumulate).  Lane l = 4g + t
 // of an m16n8 accumulator holds c[0..1] at (row g, cols 2t, 2t+1) and
 // c[2..3] at (row g + 8, same cols); B fragments of a (K, N) row-major

@@ -49,20 +49,6 @@ struct FlashArgs {
   float scale_log2;  // scale * log2(e): the softmax runs on exp2
 };
 
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem, bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  const int bytes = pred ? 16 : 0;  // 0: zero-fill the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
-}
-
 // Stage rows row0 .. row0 + 63 of a (rows, D) matrix with row stride
 // stride_n into shared memory (row stride D + 8); rows >= n_rows read as 0.
 template <int D>
@@ -76,16 +62,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16*
     const __nv_bfloat16* src = ok ? g + (long long)(row0 + r) * stride_n + c * 8 : g;
     cp_async16(s + r * LD + c * 8, src, ok);
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <int D>

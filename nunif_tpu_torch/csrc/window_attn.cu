@@ -1,0 +1,170 @@
+// K4: (shifted-)window attention on projected qkv, with relative position
+// bias and the roll wrap mask.
+//
+// Replaces nunif_tpu/ops/swin_attention.py:fused_window_attention (Pallas,
+// kernel _kernel), which ShiftedWindowAttention calls for every Swin block
+// with a LayerNorm (nunif_tpu/modules/attention.py:133-146).  qkv is
+// (nw, N, 3C) with the window order (batch, window row, window column) of
+// the rolled image, already projected; per head h
+//   out[w, i, h] = softmax_j(q_i . k_j * scale + bias[h, i, j]
+//                             [-100 across wrap regions]) v_j
+// with fp32 scores and softmax, the normalised probabilities rounded to the
+// compute type before P V, fp32 accumulation and one rounding of the output.
+// The mask is computed from the window's grid position, never stored
+// (window_attention.cuh).  The TPU kernel's window packing (128 // N
+// windows per MXU pass, block-diagonal -inf) is a trick for the 128-wide
+// MXU and has no counterpart here.
+//
+// What bounds it on the H100: per token it reads 3C and writes C values and
+// does 4 N C multiply-adds (Q K^T and P V), 144 flops a byte at N = 36 in
+// bf16, below the ridge of ~295: memory-bound.  One 540p frame of
+// swin_unet_4xl moves ~7.4 GB through it (~2.2 ms at 3.35 TB/s).  Design: a
+// block of 8 warps owns one window and a group of heads whose q, k and v
+// columns are at most 192 wide each (all 12 heads at C = 192, 6 at C = 384),
+// so a block stages ~41 KB (bf16) and four blocks fit an SM; cp.async copies
+// the rows in 16-byte pieces, all in flight at once, and the padding rows of
+// the last 16-row MMA tile are zero-filled.  The attention itself is K1's
+// (window_attention.cuh): one warp per (head, 16-query block), Q K^T and
+// P V on mma.sync m16n8k16 with the scores and softmax in registers.  The
+// output overwrites q in shared memory and leaves in 16-byte stores.
+// The fp32 variant keeps the data flow with FMA loops (attention_fma).
+#include "common.cuh"
+#include "window_attention.cuh"
+
+namespace nunif {
+namespace {
+
+constexpr int kWaThreads = 256;
+constexpr int kWaWarps = kWaThreads / 32;
+constexpr int kMaxGroupCols = 192;  // columns of q (and of k, v) a block stages
+
+struct WinArgs {
+  const void* qkv;
+  const float* relbias;  // (heads, N, N)
+  void* out;
+  int nw, N, C, heads, hd, ws, shift, n_wh, n_ww;
+  float scale;
+  int group;  // heads per block
+  int rows;   // staged rows: N, rounded up to 16 for bf16 (MMA tiles)
+  int ld;     // shared-memory row stride in elements: 3 * group * hd + pad
+};
+
+template <typename T>
+__host__ __device__ size_t wa_smem_bytes(const WinArgs& p) {
+  const size_t rows = (size_t)p.rows * p.ld * sizeof(T);
+  const size_t probs = IsBF16<T>::value ? 0 : (size_t)kWaWarps * p.N * sizeof(float);
+  return align_up(rows, 128) + probs;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWaThreads) window_attn_kernel(WinArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* S = reinterpret_cast<T*>(smem);
+  const int groups = p.heads / p.group;
+  const int w = blockIdx.x / groups, grp = blockIdx.x % groups;
+  const int N = p.N, C = p.C, cg = p.group * p.hd;
+  const int warp = threadIdx.x / 32;
+
+  // 1. stage q, k and v of this head group: shared row r holds q at
+  //    columns 0 .. cg, k at cg .., v at 2 cg ..; rows N .. rows-1 are zero
+  constexpr int VEC = 16 / sizeof(T);
+  const int vseg = cg / VEC;
+  const T* src = static_cast<const T*>(p.qkv) + (size_t)w * N * 3 * C + grp * cg;
+  for (int e = threadIdx.x; e < p.rows * 3 * vseg; e += kWaThreads) {
+    const int r = e / (3 * vseg), rem = e % (3 * vseg);
+    const int seg = rem / vseg, v = rem % vseg;
+    const bool ok = r < N;
+    cp_async16(S + (size_t)r * p.ld + seg * cg + v * VEC,
+               ok ? src + (size_t)r * 3 * C + seg * C + v * VEC : src, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. attention of every head of the group
+  const int rem = w % (p.n_wh * p.n_ww);
+  const bool last_r = p.shift > 0 && rem / p.n_ww == p.n_wh - 1;
+  const bool last_c = p.shift > 0 && rem % p.n_ww == p.n_ww - 1;
+  const int cut = p.ws - p.shift;
+  const float* rb = p.relbias + (size_t)grp * p.group * N * N;
+  if constexpr (IsBF16<T>::value) {
+    const int qblocks = (N + 15) / 16;
+    for (int u = warp; u < p.group * qblocks; u += kWaWarps) {
+      const int h = u / qblocks, mi = u % qblocks;
+      attention_bf16(S, p.ld, cg, h, p.hd, N, mi, p.scale, rb + (size_t)h * N * N, p.ws, cut,
+                     last_r, last_c);
+    }
+  } else {
+    float* pr = reinterpret_cast<float*>(smem + align_up((size_t)p.rows * p.ld * sizeof(T), 128)) +
+                warp * N;
+    for (int h = warp; h < p.group; h += kWaWarps)
+      attention_fma(S, p.ld, cg, h, p.hd, N, p.scale, rb + (size_t)h * N * N, p.ws, cut, last_r,
+                    last_c, pr);
+  }
+  __syncthreads();
+
+  // 3. the output (in q's columns) to out[w, r, grp * cg ..]
+  T* out = static_cast<T*>(p.out) + (size_t)w * N * C + grp * cg;
+  for (int e = threadIdx.x; e < N * vseg; e += kWaThreads) {
+    const int r = e / vseg, v = e % vseg;
+    *reinterpret_cast<uint4*>(out + (size_t)r * C + v * VEC) =
+        *reinterpret_cast<const uint4*>(S + (size_t)r * p.ld + v * VEC);
+  }
+}
+
+template <typename T>
+cudaError_t launch_window_attn(WinArgs p, cudaStream_t stream) {
+  const int vec = 16 / (int)sizeof(T);
+  if (p.N < 1 || p.N > kAttnTiles * 16 || p.heads < 1 || p.C % p.heads || p.hd % 16 ||
+      p.hd > kMaxHeadDim || p.shift < 0 || p.shift >= p.ws || p.n_wh < 1 || p.n_ww < 1 ||
+      p.nw % (p.n_wh * p.n_ww))
+    return cudaErrorInvalidValue;
+  // the largest divisor of heads whose columns fit kMaxGroupCols
+  p.group = 1;
+  for (int g = p.heads; g >= 1; --g) {
+    if (p.heads % g == 0 && g * p.hd <= kMaxGroupCols) {
+      p.group = g;
+      break;
+    }
+  }
+  if ((p.group * p.hd) % vec) return cudaErrorInvalidValue;
+  p.rows = IsBF16<T>::value ? (p.N + 15) / 16 * 16 : p.N;
+  p.ld = 3 * p.group * p.hd + vec;  // +16 bytes: conflict-free ldmatrix rows
+  const size_t smem = wa_smem_bytes<T>(p);
+  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(window_attn_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)p.nw * (p.heads / p.group);
+  if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  window_attn_kernel<T><<<(unsigned)blocks, kWaThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace nunif
+
+extern "C" int nunif_window_attn(int dtype, const void* qkv, const void* relbias, void* out, int nw,
+                                 int N, int C, int heads, int ws, int shift, int n_wh, int n_ww,
+                                 float scale, void* stream) {
+  using namespace nunif;
+  WinArgs p{};
+  p.qkv = qkv;
+  p.relbias = static_cast<const float*>(relbias);
+  p.out = out;
+  p.nw = nw;
+  p.N = N;
+  p.C = C;
+  p.heads = heads;
+  p.hd = heads > 0 ? C / heads : 0;
+  p.ws = ws;
+  p.shift = shift;
+  p.n_wh = n_wh;
+  p.n_ww = n_ww;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == kDtypeBF16 ? launch_window_attn<__nv_bfloat16>(p, s)
+                    : dtype == kDtypeF32 ? launch_window_attn<float>(p, s)
+                                         : cudaErrorInvalidValue;
+  return (int)err;
+}

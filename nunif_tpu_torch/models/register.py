@@ -20,6 +20,12 @@ def register_model(cls):
     return cls
 
 
+def register_model_factory(name: str, factory: Callable[..., nn.Module]):
+    """Register a function that builds a model under another name (e.g. a
+    registered class with fixed arguments)."""
+    _models[name] = factory
+
+
 def create_model(name: str, **kwargs) -> nn.Module:
     if name not in _models:
         raise ValueError(f"unknown model: {name!r} (known: {sorted(_models)})")

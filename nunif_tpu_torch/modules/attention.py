@@ -1,11 +1,11 @@
 """Swin window-attention blocks on NHWC tensors (counterpart of
 ``nunif_tpu/modules/attention.py``).
 
-Swin blocks: only ``norm="none"`` is ported: its whole block is kernel K1
-(``ops/swin_attention.py``).  Blocks with a LayerNorm need the attention-only
-kernel K4, which is not ported yet.  ``WindowScoreBias`` and ``WindowMHA2d``
-(row_flow_v3's rectangular-window attention) are plain PyTorch, as the JAX
-package leaves them to XLA.
+Swin blocks: with ``norm="none"`` the whole block is kernel K1; with a
+LayerNorm the block runs on window-ordered tokens and its attention is
+kernel K4 (both in ``ops/swin_attention.py``).  ``WindowScoreBias`` and
+``WindowMHA2d`` (row_flow_v3's rectangular-window attention) are plain
+PyTorch, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -17,7 +17,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.dtypes import cast_param
-from ..ops import swin_attention as _k1
+from ..ops import swin_attention as _kernels
+from .norm import LayerNorm
+from .permute import window_partition2, window_reverse2
 
 
 @functools.lru_cache(maxsize=32)
@@ -58,54 +60,34 @@ def shifted_window_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
     return np.where(diff, -100.0, 0.0).astype(np.float32)
 
 
-class WindowAttention(nn.Module):
-    """Parameters of the Swin V1 window attention (flax path ``attn``)."""
+class ShiftedWindowAttention(nn.Module):
+    """Swin V1 (shifted-)window MHA with relative position bias (flax path
+    ``attn``; reference ``ShiftedWindowAttention``).
 
-    def __init__(self, dim: int, num_heads: int, window_size: int = 6):
+    ``forward(x)`` takes an image (B, H, W, C); ``forward(xw, windows=(b,
+    nh, nw))`` takes the windows of the rolled image (b*nh*nw, N, C) and
+    returns that layout.  qkv and proj are Linear layers; the attention is
+    kernel K4.  The norm-free block reads only the parameters: K1 computes
+    its whole block."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int = 6,
+                 shift_size: int = 0):
         super().__init__()
+        self.num_heads = num_heads
+        self.window_size = window_size
+        self.shift_size = shift_size
         n_rel = (2 * window_size - 1) ** 2
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros(n_rel, num_heads))
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
-
-
-class MLP(nn.Module):
-    """Parameters of the block MLP, Linear-GELU-Linear (flax path ``mlp``)."""
-
-    def __init__(self, dim: int, hidden: int):
-        super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
-
-
-class SwinTransformerBlock(nn.Module):
-    """Swin V1 block with norm="none": x + attn(x); x + mlp(x), in one K1
-    launch on CUDA (its plain twin on the CPU)."""
-
-    def __init__(self, dim: int, num_heads: int, window_size: int = 6,
-                 shift_size: int = 0, mlp_ratio: float = 2.0,
-                 norm: str = "none"):
-        super().__init__()
-        if norm != "none":
-            raise NotImplementedError(
-                f"SwinTransformerBlock(norm={norm!r}) needs the window-attention "
-                "kernel K4, which is not ported yet")
-        self.dim = dim
-        self.num_heads = num_heads
-        self.window_size = window_size
-        self.shift_size = shift_size
-        self.attn = WindowAttention(dim, num_heads, window_size)
-        self.mlp = MLP(dim, int(dim * mlp_ratio))
         self._rel_key = None
         self._rel_bias = None
-        self._packed_key = None
-        self._packed = None
 
     def relative_bias(self) -> torch.Tensor:
         """(heads, N, N) fp32 bias, gathered again only when the table's
         storage or version changes (a weight load)."""
-        t = self.attn.relative_position_bias_table
+        t = self.relative_position_bias_table
         key = (t.data_ptr(), t.device, t._version)
         if key != self._rel_key:
             with torch.no_grad():
@@ -114,38 +96,120 @@ class SwinTransformerBlock(nn.Module):
             self._rel_key = key
         return self._rel_bias
 
+    def forward(self, x: torch.Tensor, windows=None) -> torch.Tensor:
+        ws = self.window_size
+        if windows is None:
+            b, h, w, _c = x.shape
+            nh, nw = h // ws, w // ws
+        else:
+            b, nh, nw = windows
+        shift = self.shift_size if (nh > 1 or nw > 1) else 0
+        xw = x
+        if windows is None:
+            if shift:
+                x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+            xw = window_partition2(x, ws)
+        out = _kernels.fused_window_attention(
+            dense(xw, self.qkv), self.relative_bias(), num_heads=self.num_heads,
+            window=ws, shift=shift, n_wh=nh, n_ww=nw)
+        out = dense(out, self.proj)
+        if windows is not None:
+            return out
+        out = window_reverse2(out, ws, nh * ws, nw * ws)
+        if shift:
+            out = torch.roll(out, (shift, shift), dims=(1, 2))
+        return out
+
+
+class MLPBlock(nn.Module):
+    """The block MLP, Linear-GELU(exact)-Linear in x's dtype (flax path
+    ``mlp``)."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(F.gelu(dense(x, self.fc1), approximate="none"), self.fc2)
+
+
+NORMS = ("none", "layernorm_nobias", "layernorm")
+
+
+class SwinTransformerBlock(nn.Module):
+    """Swin V1 block: x + attn(norm1(x)); x + mlp(norm2(x)).
+
+    ``norm="none"`` (waifu2x swin_unet's default) runs the whole block as
+    one K1 launch on CUDA.  With a LayerNorm the block runs as the JAX
+    module path does: skip add, roll, window partition, norm1, attention
+    (K4), residual, norm2, MLP, residual, window reverse, roll back, the
+    stream kept in window order in between."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int = 6,
+                 shift_size: int = 0, mlp_ratio: float = 2.0,
+                 norm: str = "none"):
+        super().__init__()
+        if norm not in NORMS:
+            raise ValueError(f"norm {norm!r} not in {NORMS}")
+        self.dim = dim
+        self.num_heads = num_heads
+        self.window_size = window_size
+        self.shift_size = shift_size
+        self.norm = norm
+        if norm != "none":
+            self.norm1 = LayerNorm(dim, use_bias=norm == "layernorm")
+            self.norm2 = LayerNorm(dim, use_bias=norm == "layernorm")
+        self.attn = ShiftedWindowAttention(dim, num_heads, window_size,
+                                           shift_size)
+        self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
+        self._packed_key = None
+        self._packed = None
+
     def _weights(self):
         """K1's weight arguments: Dense-shaped matrices, biases, rel bias."""
         a, m = self.attn, self.mlp
         return (a.qkv.weight.t(), a.qkv.bias, a.proj.weight.t(), a.proj.bias,
                 m.fc1.weight.t(), m.fc1.bias, m.fc2.weight.t(), m.fc2.bias,
-                self.relative_bias())
+                a.relative_bias())
 
     def packed_weights(self, dtype: torch.dtype):
-        """The kernel's form of the weights for x of ``dtype``, packed again
-        only when a parameter's storage or version changes (a weight load)."""
+        """K1's form of the weights for x of ``dtype``, packed again only
+        when a parameter's storage or version changes (a weight load)."""
         key = (dtype,) + tuple((p.data_ptr(), p.device, p._version)
                                for p in self.parameters())
         if key != self._packed_key:
             with torch.no_grad():
-                self._packed = _k1.pack_weights(
+                self._packed = _kernels.pack_weights(
                     *(w.detach() for w in self._weights()), dtype)
             self._packed_key = key
         return self._packed
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None):
         """x (B, H, W, C); ``skip`` is added to x before the block."""
-        _b, h, w, _c = x.shape
+        b, h, w, _c = x.shape
         ws = self.window_size
         shift = self.shift_size if (h > ws or w > ws) else 0
-        if skip is not None and shift:
+        if self.norm == "none":
+            if skip is not None and shift:
+                x = x + skip
+                skip = None
+            # packed weights are the kernel's; the CPU twin reads the raw ones
+            packed = self.packed_weights(x.dtype) if x.is_cuda else None
+            return _kernels.fused_swin_block_image(
+                x.contiguous(), *self._weights(), num_heads=self.num_heads,
+                window=ws, shift=shift, skip=skip, packed=packed)
+        if skip is not None:
             x = x + skip
-            skip = None
-        # packed weights are the kernel's; the CPU twin reads the raw ones
-        packed = self.packed_weights(x.dtype) if x.is_cuda else None
-        return _k1.fused_swin_block_image(
-            x.contiguous(), *self._weights(), num_heads=self.num_heads,
-            window=ws, shift=shift, skip=skip, packed=packed)
+        if shift:
+            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+        xw = window_partition2(x, ws)
+        xw = xw + self.attn(self.norm1(xw), windows=(b, h // ws, w // ws))
+        xw = xw + self.mlp(self.norm2(xw))
+        x = window_reverse2(xw, ws, h, w)
+        if shift:
+            x = torch.roll(x, (shift, shift), dims=(1, 2))
+        return x
 
 
 class SwinTransformerBlocks(nn.Module):
@@ -234,7 +298,6 @@ class WindowMHA2d(nn.Module):
         self.head_proj = nn.Linear(self.qkv_dim * num_heads, in_channels)
 
     def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
-        from .permute import window_partition2, window_reverse2
         wh, ww = self.window_size
         sh, sw = self.shift
         pad_h = wh // 2 if sh else 0

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels in ``nunif_tpu_torch/csrc``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  The library lands in ``build/nunif_tpu_torch/`` at
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, which is loaded
+with ``ctypes``.  The library lands in ``build/nunif_tpu_torch/`` at
 the repository root, keyed by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the previous build.  Nothing here runs
 at import time: CPU-only installs import every module without a toolkit.
@@ -24,8 +25,9 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "nunif_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 DTYPE_F32 = 0
 DTYPE_BF16 = 1
@@ -45,6 +47,9 @@ _SIGNATURES = {
     # q, k, v, out, B, H, N, M, D, (batch, head, row) strides of q, k, v,
     # out, scale, stream
     "nunif_flash_attn": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # dtype, qkv, relbias, out, nw, N, C, heads, ws, shift, n_wh, n_ww,
+    # scale, stream
+    "nunif_window_attn": [_I, _P, _P, _P] + [_I] * 8 + [_F, _P],
 }
 
 
@@ -90,16 +95,30 @@ def build() -> tuple[pathlib.Path, float, str]:
     if lib.exists():
         return lib, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(tmp),
-           *map(str, srcs)]
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = lib.with_name(f"{tag}.so.tmp")
+    nvcc = _nvcc()
+    compiles = [[nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(srcs, objs)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in compiles]
+    outputs = [proc.communicate() for proc in procs]
+    log = "".join(f"$ {' '.join(cmd)}\n{out}{err}"
+                  for cmd, (out, err) in zip(compiles, outputs))
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}"
+        failed = [proc.returncode] if proc.returncode != 0 else []
     seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+        raise KernelBuildError(f"nvcc failed (rc {failed[0]}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)
     return lib, seconds, log

@@ -1,18 +1,24 @@
-"""K1: one whole Swin-V1 block (norm "none") on an NHWC image.
+"""Swin window attention kernels K1 and K4.
 
-Replaces ``nunif_tpu/ops/swin_attention.py:fused_swin_block_image`` (Pallas;
-kernel ``_kernel_block_img``, body ``_block_compute``).  The Hopper kernel is
-``csrc/swin_block.cu``; its header notes what bounds it on the H100 and what
-its design does about that.  On swin_unet_2x's 1080p main path it runs 14
+K1: one whole Swin-V1 block (norm "none") on an NHWC image.  Replaces
+``nunif_tpu/ops/swin_attention.py:fused_swin_block_image`` (Pallas; kernel
+``_kernel_block_img``, body ``_block_compute``).  The Hopper kernel is
+``csrc/swin_block.cu``.  On swin_unet_2x's 1080p main path it runs 14
 times per frame: C = 96 at 1104x1920 and C = 192 at 552x960 and 276x480,
-6 heads, 6x6 windows, hidden 2C.
+6 heads, 6x6 windows, hidden 2C.  Unlike the TPU function, ``x`` is the
+unpadded image for shifted blocks too: the kernel forms the cyclically
+shifted windows by index arithmetic, so there is no pad or crop around the
+call.
 
-Unlike the TPU function, ``x`` is the unpadded image for shifted blocks too:
-the kernel forms the cyclically shifted windows by index arithmetic, so
-there is no pad or crop around the call.
+K4: window attention on already projected qkv, for the blocks with a
+LayerNorm.  Replaces ``nunif_tpu/ops/swin_attention.py:fused_window_attention``
+(Pallas; kernel ``_kernel``).  The Hopper kernel is ``csrc/window_attn.cu``.
+On swin_unet_4xl's 540p main path it runs 14 times per frame: C = 192 at
+576x960, C = 384 at 288x480, 144x240 and 576x960, 12 heads, 6x6 windows.
 
-``fused_swin_block_image`` takes its plain twin only for CPU tensors; for a
-CUDA tensor it launches the kernel or raises.
+Each kernel's header notes what bounds it on the H100 and what its design
+does about that.  The wrappers take their plain twins only for CPU
+tensors; for a CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -187,3 +193,80 @@ def fused_swin_block_image(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
 
 
 fused_swin_block_image.launches = 0
+
+
+def window_attention_plain(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
+    """Plain PyTorch twin of ``fused_window_attention``: the attention of
+    the unfused module path, fp32 scores of the qkv values, the relative
+    bias and the ``shifted_window_mask`` constant, an fp32 softmax whose
+    probabilities are rounded to qkv's dtype, fp32 P V rounded to qkv's
+    dtype."""
+    from ..modules.attention import shifted_window_mask
+
+    dt = qkv.dtype
+    nw, n, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // num_heads
+    q, k, v = qkv.float().reshape(nw, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    attn = (q @ k.transpose(-1, -2)) * (hd ** -0.5) + bias.float()[None]
+    if shift:
+        mask = torch.from_numpy(shifted_window_mask(
+            n_wh * window, n_ww * window, window, shift)).to(qkv.device)
+        attn = attn.reshape(-1, n_wh * n_ww, num_heads, n, n) + mask[None, :, None]
+        attn = attn.reshape(nw, num_heads, n, n)
+    probs = torch.softmax(attn, dim=-1).to(dt).float()
+    out = (probs @ v).to(dt)
+    return out.transpose(1, 2).reshape(nw, n, c)
+
+
+def fused_window_attention(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
+    """Window attention on projected qkv (nw, N, 3C), N = window^2, windows
+    in (batch, window row, window column) order of an image of n_wh x n_ww
+    windows, rolled by ``shift`` when ``shift`` > 0 (the -100 wrap mask is
+    computed, not stored).  bias: (heads, N, N) relative position bias, used
+    in fp32.  Returns (nw, N, C) in qkv's dtype.
+
+    On CUDA: bf16 or fp32, contiguous 16-byte aligned qkv, N <= 48 and a
+    head dim that is a multiple of 16 and at most 64.
+    """
+    kw = dict(num_heads=num_heads, window=window, shift=shift, n_wh=n_wh,
+              n_ww=n_ww)
+    if qkv.device.type == "cpu":
+        return window_attention_plain(qkv, bias, **kw)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_window_attention: unsupported device {qkv.device}")
+    code = _build.dtype_code(qkv.dtype)
+    if qkv.dim() != 3 or not qkv.is_contiguous():
+        raise ValueError(f"fused_window_attention: qkv must be a contiguous "
+                         f"(nw, N, 3C), got {tuple(qkv.shape)} strides "
+                         f"{qkv.stride()}")
+    nw, n, c3 = qkv.shape
+    c = c3 // 3
+    if n != window * window or n > 48:
+        raise ValueError(f"fused_window_attention: N={n} must be window^2 "
+                         f"for window {window} and at most 48")
+    if c3 % 3 or c % num_heads or (c // num_heads) % 16 or c // num_heads > 64:
+        raise ValueError(f"fused_window_attention: 3C={c3} with {num_heads} "
+                         "heads needs a head dim that is a multiple of 16 "
+                         "and at most 64")
+    if not 0 <= shift < window or nw % (n_wh * n_ww):
+        raise ValueError(f"fused_window_attention: shift {shift}, {nw} "
+                         f"windows for a {n_wh}x{n_ww} window grid")
+    if tuple(bias.shape) != (num_heads, n, n) or bias.device != qkv.device:
+        raise ValueError(f"fused_window_attention: bias {tuple(bias.shape)} "
+                         f"on {bias.device} != ({num_heads}, {n}, {n}) on "
+                         f"{qkv.device}")
+    if qkv.data_ptr() % 16:
+        raise ValueError("fused_window_attention: qkv must be 16-byte aligned")
+    bias = bias.float().contiguous()
+    out = torch.empty((nw, n, c), dtype=qkv.dtype, device=qkv.device)
+    rc = _build.library().nunif_window_attn(
+        code, qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), nw, n, c,
+        num_heads, window, shift, n_wh, n_ww, float((c // num_heads) ** -0.5),
+        _build.stream_ptr(qkv.device))
+    _build.check(rc, "fused_window_attention")
+    fused_window_attention.launches += 1
+    return out
+
+
+fused_window_attention.launches = 0

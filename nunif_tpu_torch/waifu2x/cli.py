@@ -5,6 +5,10 @@ Usage:
       --arch waifu2x.swin_unet_2x          # seeded random weights
   python -m nunif_tpu_torch.waifu2x.cli -i in_dir/ -o out_dir/ --method scale \\
       --model-dir DIR                      # DIR/scale2x.nztm
+  python -m nunif_tpu_torch.waifu2x.cli -i in.png -o out.png --method scale4x \\
+      --model-dir DIR                      # DIR/scale4x.nztm (e.g. a swin_unet_4xl)
+  python -m nunif_tpu_torch.waifu2x.cli -i in.png -o out.png --method scale4x \\
+      --arch waifu2x.swin_unet_4xl         # seeded random weights
 
 Images only: a video input raises ``NotImplementedError``.  ``--device``
 defaults to ``cuda`` and fails where CUDA is missing.

@@ -26,6 +26,12 @@ rescales online where the twin rounds normalised ones: abs 1e-2 and
 relative L2 1e-2 (measured <= 7.8e-3 and 3.1e-3 at N(0, 1) inputs); its
 control, the kernel given only the first N - 29 keys, must fail, which
 shows that a ragged last key tile counts.
+
+K4 (window attention) rounds at the twin's two points (probabilities,
+output): bf16 1/64 relative + 1e-2 absolute, fp32 2e-5 (the JAX package's
+own bound) at N(0, 1) qkv.  Its controls: the kernel with the relative bias
+zeroed must fail, and for a shifted grid the kernel run unshifted must fail,
+which shows that the computed wrap mask counts.
 """
 import numpy as np
 import pytest
@@ -253,3 +259,98 @@ def test_iw3_kernels_reject_bad_inputs(cuda, monkeypatch):
     q = torch.zeros((1, 2, 10, 68), device=cuda, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="strides"):
         k7.sdpa(q, q, q)
+
+
+K4_TOL = {torch.bfloat16: (1 / 64, 1e-2), torch.float32: (0.0, 2e-5)}
+# (batch, n_wh, n_ww, window, shift, C, heads): head dims 16 and 32 (the
+# 4xl's), window 4 (N = 16, one query tile), a single window row
+K4_CASES = [
+    (1, 3, 5, 6, 0, 192, 12), (1, 3, 5, 6, 3, 192, 12),
+    (2, 3, 4, 6, 3, 384, 12), (1, 4, 4, 4, 2, 64, 4), (1, 1, 5, 6, 3, 32, 2),
+]
+
+
+def _k4_inputs(rng, nw, ws, c, heads, device, dtype):
+    n = ws * ws
+    qkv = _t(rng.standard_normal((nw, n, 3 * c)), device, dtype)
+    table = _t(rng.standard_normal(((2 * ws - 1) ** 2, heads)), device)
+    return qkv, expand_relative_bias(table, ws)
+
+
+def _k4_close(got, want, dtype):
+    rel, atol = K4_TOL[dtype]
+    d = (got.float() - want.float()).abs()
+    return bool((d <= want.float().abs() * rel + atol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n_wh,n_ww,ws,shift,c,heads", K4_CASES)
+def test_window_attn_kernel_matches_twin(cuda, dtype, b, n_wh, n_ww, ws, shift,
+                                         c, heads):
+    nw = b * n_wh * n_ww
+    qkv, bias = _k4_inputs(_rng(7), nw, ws, c, heads, cuda, dtype)
+    kw = dict(num_heads=heads, window=ws, shift=shift, n_wh=n_wh, n_ww=n_ww)
+    before = k1.fused_window_attention.launches
+    got = k1.fused_window_attention(qkv, bias, **kw)
+    torch.cuda.synchronize()
+    assert k1.fused_window_attention.launches == before + 1
+    want = k1.window_attention_plain(qkv, bias, **kw)
+    assert got.shape == want.shape == (nw, ws * ws, c) and got.dtype == dtype
+    assert _k4_close(got, want, dtype)
+    # controls: the same check must see a dropped bias and a dropped mask
+    assert not _k4_close(k1.fused_window_attention(
+        qkv, torch.zeros_like(bias), **kw), want, dtype)
+    if shift:
+        assert not _k4_close(k1.fused_window_attention(
+            qkv, bias, **dict(kw, shift=0)), want, dtype)
+
+
+@pytest.mark.parametrize("norm", ["none", "layernorm_nobias"])
+def test_window_attention_module_runs_kernel(cuda, norm):
+    """The attention module passes its qkv projection and cached bias to
+    K4 unchanged; a LayerNorm block launches K4 once, a norm-free one
+    launches K1 and not K4."""
+    from nunif_tpu_torch.modules.attention import (ShiftedWindowAttention,
+                                                   SwinTransformerBlock, dense)
+    torch.manual_seed(0)
+    attn = ShiftedWindowAttention(64, 4, 6, 3).to(cuda)
+    xw = _t(_rng(8).normal(0, 1, (15, 36, 64)), cuda, torch.bfloat16)
+    with torch.no_grad():
+        got = attn(xw, windows=(1, 3, 5))
+        want = dense(k1.fused_window_attention(
+            dense(xw, attn.qkv), attn.relative_bias(), num_heads=4, window=6,
+            shift=3, n_wh=3, n_ww=5), attn.proj)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    blk = SwinTransformerBlock(64, 4, 6, shift_size=3, norm=norm).to(cuda)
+    x = _t(_rng(9).normal(0, 1, (1, 18, 30, 64)), cuda, torch.bfloat16)
+    before = (k1.fused_window_attention.launches,
+              k1.fused_swin_block_image.launches)
+    with torch.no_grad():
+        y = blk(x)
+    torch.cuda.synchronize()
+    after = (k1.fused_window_attention.launches,
+             k1.fused_swin_block_image.launches)
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    assert bool(y.float().isfinite().all())
+    expect = (1, 0) if norm != "none" else (0, 1)
+    assert (after[0] - before[0], after[1] - before[1]) == expect
+
+
+def test_window_attn_rejects_bad_inputs(cuda):
+    bias = torch.zeros((2, 36, 36), device=cuda)
+    kw = dict(num_heads=2, window=6, shift=3, n_wh=3, n_ww=5)
+    qkv = torch.zeros((15, 35, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="window"):
+        k1.fused_window_attention(qkv, bias, **kw)
+    qkv = torch.zeros((15, 36, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        k1.fused_window_attention(qkv, bias, **dict(kw, num_heads=3))
+    flat = torch.zeros(15 * 36 * 96 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        k1.fused_window_attention(flat[1:].view(15, 36, 96), bias, **kw)
+    with pytest.raises(TypeError):
+        k1.fused_window_attention(qkv.half(), bias, **kw)
+    with pytest.raises(ValueError, match="bias"):
+        k1.fused_window_attention(qkv, bias[:1], **kw)
+    with pytest.raises(ValueError, match="window grid"):
+        k1.fused_window_attention(qkv, bias, **dict(kw, n_wh=4))

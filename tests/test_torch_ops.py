@@ -165,15 +165,16 @@ def test_permute_ops_match_jax():
 
 def test_block_module_caches_relative_bias_per_weight_load():
     blk = tattn.SwinTransformerBlock(32, 2, 6, shift_size=3)
-    first = blk.relative_bias()
-    assert blk.relative_bias() is first
+    first = blk.attn.relative_bias()
+    assert blk.attn.relative_bias() is first
     with torch.no_grad():
         blk.attn.relative_position_bias_table.add_(1.0)
-    second = blk.relative_bias()
+    second = blk.attn.relative_bias()
     assert second is not first
     torch.testing.assert_close(second, first + 1.0)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tattn.SwinTransformerBlock(32, 2, 6, norm="layernorm")
+    # a LayerNorm block keeps the same cache in its attention module (K4)
+    ln = tattn.SwinTransformerBlock(32, 2, 6, norm="layernorm")
+    assert ln.attn.relative_bias() is ln.attn.relative_bias()
 
 
 def test_block_module_packs_kernel_weights_per_weight_load():
@@ -195,7 +196,7 @@ def test_block_module_packs_kernel_weights_per_weight_load():
     assert fp32.dtype == torch.float32
     torch.testing.assert_close(fp32.mats[0], blk.attn.qkv.weight.detach().t(),
                                rtol=0, atol=0)
-    torch.testing.assert_close(fp32.rel_bias, blk.relative_bias(), rtol=0,
+    torch.testing.assert_close(fp32.rel_bias, blk.attn.relative_bias(), rtol=0,
                                atol=0)
     # the twin computes from the raw weights whether or not packed is given
     x = torch.from_numpy(np.random.default_rng(6).normal(

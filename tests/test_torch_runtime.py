@@ -210,3 +210,68 @@ def test_pil_io_round_trip(tmp_path):
 def test_pixel_unshuffle_helper_inverts_port_shuffle():
     x = torch.arange(2 * 8 * 12 * 3, dtype=torch.float32).reshape(2, 8, 12, 3)
     assert torch.equal(pixel_shuffle(pixel_unshuffle(x, 4), 4), x)
+
+
+def test_benchmark_matches_jax(model_dir, tmp_path):
+    """The quality benchmark: the JAX package's resize, PSNR, noise table
+    and image listing, and a run over two images with a checkpoint, the
+    baselines and JPEG noise whose baseline scores equal the JAX
+    package's."""
+    import csv
+    from nunif_tpu.waifu2x import benchmark as jbench
+    from nunif_tpu.waifu2x.training import dataset as jdataset, degrade
+    from nunif_tpu_torch.waifu2x import benchmark as bench
+    rng = np.random.default_rng(6)
+    a, b = rng.random((2, 23, 31, 3)).astype(np.float32)
+    np.testing.assert_array_equal(bench._np_resize(a, 11, 15),
+                                  jbench._np_resize(a, 11, 15))
+    assert bench.psnr(a, b) == jbench.psnr(a, b)
+    assert bench.y_psnr(a, b) == jbench.y_psnr(a, b)
+    assert bench.EVAL_QUALITY == degrade.EVAL_QUALITY
+    d = tmp_path / "eval"
+    (d / "sub").mkdir(parents=True)
+    _write_png(d / "a.png", (40, 52, 3))
+    _write_png(d / "sub" / "b.png", (36, 30, 3))
+    (d / "notes.txt").write_text("not an image")
+    assert bench.listdir_images(str(d)) == jdataset.listdir_images(str(d))
+    out = tmp_path / "scores.csv"
+    rc = bench.main(["-i", str(d), "--model-file", str(model_dir / "scale2x.nztm"),
+                     "--baseline", "--noise-level", "1", "--tile-size", "64",
+                     "--device", "cpu", "-o", str(out)])
+    assert rc == 0
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    assert [r["file"] for r in rows] == ["a.png", "b.png"]
+    for row, path in zip(rows, bench.listdir_images(str(d))):
+        assert 10.0 < float(row["psnr"]) < 60.0
+        hr = pil_io.load_image(path)[0][..., :3]
+        h, w = hr.shape[0] // 2 * 2, hr.shape[1] // 2 * 2
+        hr = hr[:h, :w]
+        from PIL import Image
+        im = Image.fromarray((jbench._np_resize(hr, h // 2, w // 2) * 255
+                              + 0.5).astype(np.uint8))
+        lr = np.asarray(degrade.add_jpeg_noise(im, 75, "4:2:0"),
+                        np.float32) / 255.0
+        up = jbench._np_resize(lr, h, w, mode="catrom", antialias=False)
+        assert float(row["catrom_psnr"]) == round(jbench.psnr(up, hr), 4)
+    assert bench.main(["-i", str(tmp_path / "empty_dir"), "--device", "cpu"]) == 1
+
+
+def test_cli_scale4x_model_dir_and_arch(tmp_path):
+    """--method scale4x loads DIR/scale4x.nztm (here a 4x LayerNorm model);
+    --arch waifu2x.swin_unet_4xl builds the 4xl from the registry."""
+    from PIL import Image
+    from nunif_tpu_torch.waifu2x.models.swin_unet import SwinUNet4x
+    model = SwinUNet4x(base_dim=32, layer_norm=True)
+    from_flax(model, tamed_flax_params(model, seed=2))
+    save_model(model, str(tmp_path / "scale4x.nztm"))
+    src = tmp_path / "in.png"
+    _write_png(src, (20, 24, 3))
+    for extra in (["--model-dir", str(tmp_path)],
+                  ["--arch", "waifu2x.swin_unet_4xl"]):
+        out = tmp_path / "out.png"
+        rc = cli.main(["-i", str(src), "-o", str(out), "--method", "scale4x",
+                       "--tile-size", "64", "--device", "cpu", *extra])
+        assert rc == 0
+        with Image.open(out) as im:
+            assert im.size == (96, 80)

@@ -71,6 +71,21 @@ def test_model_matches_jax(pair, dtype):
         np.testing.assert_allclose(got, want, atol=1e-2)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="K4"):
-        SwinUNet2x(base_dim=32, layer_norm=True)
+def test_layer_norm_model_matches_jax():
+    """layer_norm=True builds LayerNorm blocks (K4 attention) and matches
+    the JAX model in fp32."""
+    model = SwinUNet2x(base_dim=32, layer_norm=True)
+    flat = tamed_flax_params(model, seed=1)
+    from_flax(model, flat)
+    model.eval().requires_grad_(False)
+    jmodel = JaxSwinUNet2x(base_dim=32, layer_norm=True)
+    params = unflatten_params({k: jnp.asarray(v) for k, v in flat.items()})
+    assert "unet/swin1/block0/norm1/scale" in flat
+    x = np.random.default_rng(2).random((1, 64, 64, 3), dtype=np.float32)
+    want = np.asarray(jax.jit(lambda p, v: jmodel.apply(
+        {"params": p}, v, train=True))(params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), train=True).numpy()
+    assert got.shape == want.shape == (1, 96, 96, 3)
+    assert 0.0 < want.min() and want.max() < 1.0  # tamed: no clipping
+    np.testing.assert_allclose(got, want, atol=1e-4)
