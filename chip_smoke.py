@@ -7,37 +7,52 @@ the port's main paths, each with seeded weights loaded from ``.nztm`` files
 written by the port:
 
 - waifu2x swin_unet_2x: holds K1 and K2 against their plain PyTorch twins
-  at the shapes of the 1080p path, renders one 1080p frame to 4K through
-  ``TiledRenderer.frame_program``, checks that the frame went through the
-  kernels (launch counters) and agrees with the twin path, and drives
+  at the shapes of the 1080p path, and K5 (the block on window-ordered
+  tokens) at the six shapes of the window path and one batch-2 shape, with
+  controls that must fail (zero bias; the roll mask where pad was asked);
+  renders one 1080p frame to 4K through ``TiledRenderer.frame_program``,
+  checks that the frame went through the kernels (launch counters) and
+  agrees with the twin path; renders it again with
+  ``NUNIF_TPU_SWIN_IMG=0`` (launches K5 14, K1 0, K2 1) against the twin
+  path and the K1 path's frame, timed beside it; and drives
   ``Waifu2x.convert`` (and the CLI when PIL is present) on a multi-tile
   image;
-- waifu2x swin_unet_4xl (LayerNorm blocks): holds K4 (window attention) at
-  the eight shapes of the 540p path and K2 at its 96 -> 192 stem, each K4
-  check with controls that must fail, renders one 540p frame to 4K (launches
-  K4 14, K2 1, K1 0) against the twin path, profiles it, and drives
-  ``Waifu2x.convert`` and the CLI with ``--method scale4x`` and ``--arch
-  waifu2x.swin_unet_4xl``; then renders swin_unet_1x, swin_unet_4x and the
-  downscaled 2x model on a small image;
+- waifu2x swin_unet_4xl (LayerNorm blocks): holds K4 (window attention) and
+  K6 (the same in image layout) at the eight shapes of the 540p path and
+  K2 at its 96 -> 192 stem, each K4 / K6 check with controls that must
+  fail, K6 timed beside K4 with the window partition and reverse copies;
+  runs the image-form attention module (K6) at the frame's 14 block
+  shapes; renders one 540p frame to 4K (launches K4 14, K2 1, K1 0)
+  against the twin path, profiles it, and drives ``Waifu2x.convert`` and
+  the CLI with ``--method scale4x`` and ``--arch waifu2x.swin_unet_4xl``;
+  then renders swin_unet_1x, swin_unet_4x and the downscaled 2x model on a
+  small image;
 - iw3: holds K3 (stereo warp) and K7 (DINOv2 attention) against their twins
   at the shapes of the 1080p half-SBS path, each with a control that must
   fail, runs a batch of 8 uint8 1080p frames through ``Iw3FrameProcessor``
   (Any_V2_S depth, row_flow_v3, divergence 2, edge dilation 2, half-SBS),
   checks the launch counters, the time and the agreement with the twin
-  path, and drives the iw3 CLI on an image when PIL is present.
+  path, and drives the iw3 CLI on an image when PIL is present;
+- the probes: holds T1 (strip relayout), T3 (window dot pair, bf16 and
+  int8) and T4 (repeated dot pair, 8 shapes) against their twins at the
+  tools' shapes, then runs the three ``nunif_tpu_torch.tools`` probes,
+  which time them.
 
 Every kernel is timed with CUDA events in turns (plain, kernel, library,
 library, kernel, plain) beside its twin and, where one PyTorch call computes
 the same function, that call (``library_ms``); ``bound_ms`` is the least
 time the card could take for the same work, from this run's shapes: the
 larger of the bytes it must move over 3.35 TB/s and its operations over the
-dense peak of its type (989 TFLOP/s bf16, 67 TFLOP/s fp32).
+dense peak of its type (989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s
+fp32).
 
 Prints, before the last line, the card's name and power limit
 (``nvidia-smi``) and one JSON line of per-kernel results (bf16; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` add up the launches of one
-frame of each path that runs the kernel (K1, K2, K4) or of one iw3 batch of
-8 frames (K3, K7), each shape timed on its own); the last line is
+frame of each path that runs the kernel (K1, K2, K4, K5, K6) or of one iw3
+batch of 8 frames (K3, K7), each shape timed on its own; a probe's row is
+one call at its tool's main shape, and its launches those of its tool's
+run); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero and
 prints no result.  Needs CUDA: without it, or without the repository beside
 this file, it exits 1.
@@ -71,7 +86,7 @@ K7_ATOL, K7_REL_L2 = 1e-2, 1e-2
 IW3_BATCH, IW3_HW = 8, (1080, 1920)
 # the card's published peaks (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # K4 at the 4xl's 540p shapes (C, H, W, shift) and its launches a frame:
 # swin1 at C = 192, swin2 and swin4 at 288x480, swin3 at 144x240, swin5 at
 # 576x960 (the 4x trunk runs swin5 at 2C)
@@ -79,6 +94,16 @@ K4_FRAME = {(192, 576, 960, 0): 1, (192, 576, 960, 3): 1,
             (384, 288, 480, 0): 2, (384, 288, 480, 3): 2,
             (384, 144, 240, 0): 3, (384, 144, 240, 3): 3,
             (384, 576, 960, 0): 1, (384, 576, 960, 3): 1}
+# K5 on the window path of swin_unet_2x at 1080p: (C, unpadded H, W, shift)
+# and launches a frame; shifted blocks run on a grid padded by one window
+K5_FRAME = {(96, 1104, 1920, 0): 2, (96, 1104, 1920, 3): 2,
+            (192, 552, 960, 0): 2, (192, 552, 960, 3): 2,
+            (192, 276, 480, 0): 3, (192, 276, 480, 3): 3}
+# the probes' tolerances (tests/test_torch_probes.py): T3 bf16 / int8
+# (relative, absolute), at least 99% of elements bit-equal; T4 bf16
+# relative (int8 and T1 exact)
+T3_TOL = {"bfloat16": (2 ** -7, 1e-2), "int8": (2 ** -7, 2e-2)}
+T4_RTOL = 1e-3
 
 
 def fail(msg: str):
@@ -115,14 +140,16 @@ def cuda_time(fn, torch):
     return start.elapsed_time(end)
 
 
-def compare_timed(kernel, plain, torch, library=None, rounds=2):
-    """Warm each, then time in turns plain, kernel, [library, library,]
-    kernel, plain; medians by name ("library" is None without one)."""
-    fns = {"kernel": kernel, "plain": plain}
-    order = ["plain", "kernel", "kernel", "plain"]
+def compare_timed(kernel, plain, torch, library=None, rounds=2, more=None):
+    """Warm each, then time in turns plain, kernel, [library, more...,
+    more..., library,] kernel, plain; medians by name ("library" is None
+    without one).  ``more`` names further functions to time in the same
+    turns."""
+    fns = {"plain": plain, "kernel": kernel}
     if library is not None:
         fns["library"] = library
-        order = ["plain", "kernel", "library", "library", "kernel", "plain"]
+    fns.update(more or {})
+    order = list(fns) + list(fns)[::-1]
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -169,7 +196,9 @@ class twins:
 
     def __enter__(self):
         plain = {"fused_swin_block_image": "swin_block_image_plain",
+                 "fused_swin_block": "swin_block_plain",
                  "fused_window_attention": "window_attention_plain",
+                 "fused_window_attention_image": "window_attention_image_plain",
                  "stem_conv3x3": "stem_conv3x3_plain",
                  "warp_x_bounded": "warp_x_bounded_plain",
                  "sdpa": "sdpa_plain"}
@@ -409,6 +438,234 @@ def k4_phase(torch, k4, rng, t, dev):
     return rows
 
 
+def block_weights(t, rng, c, heads=6):
+    """A Swin block's seeded weights (Dense-shaped) and relative bias, drawn
+    at std 1 so that the bias moves the output well past the bf16
+    tolerance (the zero-bias control)."""
+    from nunif_tpu_torch.modules.attention import expand_relative_bias
+    hid = 2 * c
+    return [t(rng.standard_normal((c, 3 * c)) / np.sqrt(c)),
+            t(rng.normal(0, 0.02, (3 * c,))),
+            t(rng.standard_normal((c, c)) / np.sqrt(c)),
+            t(rng.normal(0, 0.02, (c,))),
+            t(rng.standard_normal((c, hid)) / np.sqrt(c)),
+            t(rng.normal(0, 0.02, (hid,))),
+            t(rng.standard_normal((hid, c)) / np.sqrt(hid)),
+            t(rng.normal(0, 0.02, (c,))),
+            expand_relative_bias(t(rng.standard_normal((121, heads))), 6)]
+
+
+def k5_phase(torch, k5, rng, t):
+    """K5 at the window path's six shapes (shifted blocks on the grid padded
+    by one window, shift_mode "pad") and one batch-2 shape, bf16 and fp32,
+    against its twin with K1's tolerances; controls that must fail: the
+    zero-bias kernel and, shifted, the roll mask where pad was asked.  bf16
+    timed beside the twin (no single PyTorch call computes a block)."""
+    rows = []
+    cases = [key + (1,) for key in K5_FRAME] + [list(K5_FRAME)[-1] + (2,)]
+    for c, h, w, shift, batch in cases:
+        n_wh, n_ww = h // 6 + (shift > 0), w // 6 + (shift > 0)
+        nw = batch * n_wh * n_ww
+        weights = block_weights(t, rng, c)
+        no_bias = weights[:-1] + [torch.zeros_like(weights[-1])]
+        x = rng.normal(0, 0.5, (nw, 36, c))
+        kw = dict(num_heads=6, window=6, shift=shift, n_wh=n_wh, n_ww=n_ww,
+                  shift_mode="pad")
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            what = (f"K5 C={c} grid {n_wh}x{n_ww} (image {h}x{w}) "
+                    f"shift={shift} batch={batch} {name}")
+            xd = t(x, dtype)
+            got = k5.fused_swin_block(xd, *weights, **kw)
+            torch.cuda.synchronize()
+            want = k5.swin_block_plain(xd, *weights, **kw)
+            err, rel_l2 = check_close(got, want, K1_TOL[name], what)
+            ctrl = [compare(k5.fused_swin_block(xd, *no_bias, **kw), want,
+                            K1_TOL[name])]
+            if shift:
+                ctrl.append(compare(k5.fused_swin_block(
+                    xd, *weights, **dict(kw, shift_mode="roll")), want,
+                    K1_TOL[name]))
+            if any(ok for ok, _e, _r in ctrl):
+                fail(f"{what}: a control (zero bias, roll mask) passes the "
+                     f"check ({ctrl}): the check is blind")
+            del got, want
+            row = dict(C=c, H=h, W=w, shift=shift, batch=batch, dtype=name,
+                       max_abs_err=err, control_errs=[e for _o, e, _r in ctrl])
+            if dtype == torch.bfloat16 and batch == 1:
+                tm = compare_timed(lambda: k5.fused_swin_block(xd, *weights, **kw),
+                                   lambda: k5.swin_block_plain(xd, *weights, **kw),
+                                   torch)
+                tokens = nw * 36
+                nbytes = tokens * c * 2 * 2 + \
+                    sum(a.numel() for a in weights[:8]) * 2 + weights[8].numel() * 4
+                bound_ms, bound_by = bound(nbytes, tokens * (16 * c * c + 4 * 36 * c))
+                row.update(ms=tm["kernel"], plain_ms=tm["plain"],
+                           bound_ms=bound_ms, bound_by=bound_by)
+            print(f"{what}: {row}", flush=True)
+            rows.append(row)
+            del xd
+            torch.cuda.empty_cache()
+    return rows
+
+
+def k6_phase(torch, k6, rng, t, dev):
+    """K6 (image layout) at the 4xl's eight K4 shapes, bf16 and fp32, with
+    K4's tolerances and controls; bf16 timed beside its twin, SDPA on the
+    windowed views (as for K4), and K4 with the window partition and
+    reverse copies around it.  Then the image-form attention module at the
+    4xl's 14 block shapes: K6's launches."""
+    import torch.nn.functional as F
+    from nunif_tpu_torch.modules.attention import (
+        ShiftedWindowAttention, expand_relative_bias, shifted_window_mask)
+    from nunif_tpu_torch.modules.permute import window_partition2, window_reverse2
+    rows = []
+    heads, ws, n = 12, 6, 36
+    for (c, h, w, shift) in K4_FRAME:
+        n_wh, n_ww = h // ws, w // ws
+        nw = n_wh * n_ww
+        hd = c // heads
+        qkv = rng.standard_normal((1, h, w, 3 * c), dtype=np.float32)
+        bias = expand_relative_bias(t(rng.standard_normal((121, heads))), ws)
+        kw = dict(num_heads=heads, window=ws, shift=shift)
+        what = f"K6 C={c} {h}x{w} shift={shift}"
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            qd = t(qkv, dtype)
+            got = k6.fused_window_attention_image(qd, bias, **kw)
+            torch.cuda.synchronize()
+            want = k6.window_attention_image_plain(qd, bias, **kw)
+            err, _ = check_close(got, want, K4_TOL[name], f"{what} {name}")
+            ctrl = [compare(k6.fused_window_attention_image(
+                qd, torch.zeros_like(bias), **kw), want, K4_TOL[name])]
+            if shift:
+                ctrl.append(compare(k6.fused_window_attention_image(
+                    qd, bias, **dict(kw, shift=0)), want, K4_TOL[name]))
+            if any(ok for ok, _e, _r in ctrl):
+                fail(f"{what} {name}: a control (zero bias or no wrap mask) "
+                     f"passes the check ({ctrl}): the check is blind")
+            del got, want
+            row = dict(C=c, H=h, W=w, shift=shift, dtype=name,
+                       max_abs_err=err, control_errs=[e for _o, e, _r in ctrl])
+            if dtype == torch.bfloat16:
+                wkw = dict(kw, n_wh=n_wh, n_ww=n_ww)
+                qw = window_partition2(qd, ws).contiguous()
+                q, k, v = qw.view(nw, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+                mask = bias[None].expand(nw, heads, n, n)
+                if shift:
+                    wrap = torch.from_numpy(shifted_window_mask(h, w, ws, shift))
+                    mask = mask + wrap.to(dev)[:, None]
+                mask = mask.to(dtype).contiguous()
+                tm = compare_timed(
+                    lambda: k6.fused_window_attention_image(qd, bias, **kw),
+                    lambda: k6.window_attention_image_plain(qd, bias, **kw),
+                    torch,
+                    library=lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask),
+                    more={"k4_copies": lambda: window_reverse2(
+                        k6.fused_window_attention(
+                            window_partition2(qd, ws).contiguous(), bias, **wkw),
+                        ws, h, w)})
+                bound_ms, bound_by = bound(h * w * 4 * c * 2 + bias.numel() * 4,
+                                           4 * h * w * n * c)
+                row.update(ms=tm["kernel"], plain_ms=tm["plain"],
+                           library_ms=tm["library"],
+                           k4_copies_ms=tm["k4_copies"], bound_ms=bound_ms,
+                           bound_by=bound_by)
+                del q, k, v, mask, qw
+            print(f"{what} {name}: {row}", flush=True)
+            rows.append(row)
+            del qd
+            torch.cuda.empty_cache()
+    # the image-form attention module (roll, qkv projection, K6, proj, roll
+    # back) at each block shape of the 4xl's frame
+    k6.fused_window_attention_image.launches = 0
+    ran = 0
+    for (c, h, w, shift), count in K4_FRAME.items():
+        attn = ShiftedWindowAttention(c, heads, ws, shift).to(dev)
+        x = t(rng.normal(0, 1, (1, h, w, c)), torch.bfloat16)
+        with torch.no_grad():
+            for _ in range(count):
+                y = attn(x)
+                ran += 1
+        torch.cuda.synchronize()
+        if tuple(y.shape) != (1, h, w, c) or not bool(y.float().isfinite().all()):
+            fail(f"K6 module C={c} {h}x{w}: output {tuple(y.shape)} not finite")
+        del attn, x, y
+    launches = k6.fused_window_attention_image.launches
+    print(f"K6 image-form attention module at the 4xl's {ran} block shapes: "
+          f"{launches} launches", flush=True)
+    if launches != ran:
+        fail(f"K6 module path launched K6 {launches} times for {ran} calls")
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def probe_phase(torch, probes, dev):
+    """T1, T3 and T4 against their twins at the tools' shapes (T1 and T4
+    int8 exact), then the three tools' runs, which time them and give their
+    launches."""
+    from nunif_tpu_torch.tools import (microbench_int8_attn as t3_tool,
+                                       microbench_mxu_dots as t4_tool,
+                                       microbench_strip as t1_tool)
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((1, t1_tool.H, t1_tool.W, t1_tool.C), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    want = probes.strip_plain(x)
+    for rh, cw in t1_tool.BLOCKS:
+        if (t1_tool.H // 6) % rh or (t1_tool.W // 6) % cw:
+            continue
+        for fn in (probes.strip_pass, probes.strip_relayout):
+            if not torch.equal(fn(x, rh, cw), want):
+                fail(f"T1 {fn.__name__} rh={rh} cw={cw} differs from x * scale")
+    errs["strip_relayout"] = 0.0
+    del x, want
+    for dtype in (torch.bfloat16, torch.int8):
+        name = str(dtype).split(".")[1]
+        ins = t3_tool.inputs(dtype, seed=10)
+        got = probes.window_dots(*ins)
+        torch.cuda.synchronize()
+        want = probes.window_dots_plain(*ins)
+        err, _ = check_close(got, want, T3_TOL[name], f"T3 window_dots {name}")
+        same = float((got == want).float().mean())
+        print(f"T3 window_dots {name} ({ins[0].shape[0]} windows): max abs err "
+              f"{err:.3g}, "
+              f"bit-equal {same:.4f}", flush=True)
+        if same < 0.99:
+            fail(f"T3 {name}: only {same:.4f} of elements bit-equal")
+        errs[f"window_dots_{name}"] = err
+        del ins, got, want
+    for label, n, c, p, int8 in t4_tool.SHAPES:
+        ins = t4_tool.inputs(n, c, p, int8, seed=11)
+        got = probes.window_dots_repeat(*ins)
+        torch.cuda.synchronize()
+        want = probes.window_dots_repeat_plain(*ins)
+        tol = (0.0, 0.0) if int8 else (T4_RTOL, 0.0)
+        err, _ = check_close(got, want, tol, f"T4 {label}")
+        if not float(want[0, 0]) or not bool((got == got[0, 0]).all()):
+            fail(f"T4 {label}: zero or uneven fill {got[0, :4].tolist()}")
+        errs.setdefault("window_dots_repeat", 0.0)
+        errs["window_dots_repeat"] = max(errs["window_dots_repeat"], err)
+        del ins, got, want
+    torch.cuda.empty_cache()
+    print(f"probe checks passed: {errs}", flush=True)
+    for fn in (probes.strip_pass, probes.strip_relayout, probes.window_dots,
+               probes.window_dots_repeat):
+        fn.launches = 0
+    t1 = t1_tool.run()
+    t3 = t3_tool.run()
+    t4 = t4_tool.run()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in (
+        probes.strip_pass, probes.strip_relayout, probes.window_dots,
+        probes.window_dots_repeat)}
+    print(f"probe tool launches: {launches}", flush=True)
+    if not all(launches.values()):
+        fail(f"a probe kernel was not launched by its tool: {launches}")
+    return t1, t3, t4, launches, errs
+
+
 def render_twin_psnr(torch, program, frame, y, pairs):
     """PSNR of the kernel path's frame y against the same frame rendered
     with the given kernels replaced by their twins, and the share of
@@ -464,8 +721,7 @@ def main() -> int:
     import torch.nn.functional as F
     from nunif_tpu_torch.ops import _build
     from nunif_tpu_torch.ops import conv3x3 as k2
-    from nunif_tpu_torch.ops import swin_attention as k1  # K1 and K4
-    from nunif_tpu_torch.modules.attention import expand_relative_bias
+    from nunif_tpu_torch.ops import swin_attention as k1  # K1, K4, K5, K6
     from nunif_tpu_torch.models import from_flax, load_model, save_model
     from nunif_tpu_torch.utils.tiling import TiledRenderer
     from nunif_tpu_torch.waifu2x.models.swin_unet import (
@@ -473,8 +729,9 @@ def main() -> int:
         tamed_flax_params)
     from nunif_tpu_torch.waifu2x.runtime import Waifu2x
     from nunif_tpu_torch.modules import grid_sample as k3
+    from nunif_tpu_torch.ops import probes
     from nunif_tpu_torch.ops import sdpa as k7
-    k4 = k1
+    k4 = k5 = k6 = k1
 
     dev = torch.device("cuda")
 
@@ -521,18 +778,7 @@ def main() -> int:
               (192, 552, 960, 3, False), (192, 276, 480, 0, False),
               (192, 276, 480, 3, False)]
     for c, h, w, shift, with_skip in shapes:
-        hid = 2 * c
-        weights = [t(rng.standard_normal((c, 3 * c)) / np.sqrt(c)),
-                   t(rng.normal(0, 0.02, (3 * c,))),
-                   t(rng.standard_normal((c, c)) / np.sqrt(c)),
-                   t(rng.normal(0, 0.02, (c,))),
-                   t(rng.standard_normal((c, hid)) / np.sqrt(c)),
-                   t(rng.normal(0, 0.02, (hid,))),
-                   t(rng.standard_normal((hid, c)) / np.sqrt(hid)),
-                   t(rng.normal(0, 0.02, (c,))),
-                   # std 1, not the init's 0.02, so that the bias moves the
-                   # output well past the bf16 tolerance (control below)
-                   expand_relative_bias(t(rng.standard_normal((121, 6))), 6)]
+        weights = block_weights(t, rng, c)
         no_bias = weights[:-1] + [torch.zeros_like(weights[-1])]
         x = rng.normal(0, 0.5, (1, h, w, c))
         s = rng.normal(0, 0.5, (1, h, w, c)) if with_skip else None
@@ -575,6 +821,10 @@ def main() -> int:
             del xd, sd
             torch.cuda.empty_cache()
 
+    # 4b. K5 at every shape of the window path
+    phase("k5")
+    k5_rows = k5_phase(torch, k5, rng, t)
+
     # 5. one 1080p frame through the port's swin_unet_2x path
     phase("frame")
     tmp = tempfile.TemporaryDirectory()
@@ -588,19 +838,22 @@ def main() -> int:
     frame = np.random.default_rng(1).integers(0, 256, (1080, 1920, 3),
                                               dtype=np.uint8)
     frame_d = torch.from_numpy(frame).to(dev)
-    k2.stem_conv3x3.launches = 0
-    k1.fused_swin_block_image.launches = 0
-    k4.fused_window_attention.launches = 0
-    y = program(frame_d)
-    torch.cuda.synchronize()
-    launches = {"stem_conv3x3": k2.stem_conv3x3.launches,
-                "fused_swin_block_image": k1.fused_swin_block_image.launches,
-                "fused_window_attention": k4.fused_window_attention.launches}
+    counted = ((k2, "stem_conv3x3"), (k1, "fused_swin_block_image"),
+               (k5, "fused_swin_block"), (k4, "fused_window_attention"))
+
+    def counted_run():
+        for mod, name in counted:
+            getattr(mod, name).launches = 0
+        out = program(frame_d)
+        torch.cuda.synchronize()
+        return out, {name: getattr(mod, name).launches for mod, name in counted}
+
+    y, launches = counted_run()
     print(f"frame launches: {launches}", flush=True)
     if tuple(y.shape) != (2160, 3840, 3) or y.dtype != torch.uint8:
         fail(f"frame output {tuple(y.shape)} {y.dtype}")
     if launches != {"stem_conv3x3": 1, "fused_swin_block_image": 14,
-                    "fused_window_attention": 0}:
+                    "fused_swin_block": 0, "fused_window_attention": 0}:
         fail(f"frame did not run each kernel as expected: {launches}")
     frame_ms = []
     for _ in range(3):
@@ -618,6 +871,47 @@ def main() -> int:
     yf = y.float() / 255.0
     if not 0.05 < float(yf.mean()) < 0.95:
         fail(f"frame mean {float(yf.mean())} outside the tamed model's range")
+    del yf
+
+    # 5b. the same frame on the window path (NUNIF_TPU_SWIN_IMG=0): every
+    #     block pads, partitions, runs K5 and reverses
+    phase("frame window path")
+    saved_env = os.environ.get("NUNIF_TPU_SWIN_IMG")
+    os.environ["NUNIF_TPU_SWIN_IMG"] = "0"
+    try:
+        y5, launches_k5 = counted_run()
+        print(f"window-path frame launches: {launches_k5}", flush=True)
+        if launches_k5 != {"stem_conv3x3": 1, "fused_swin_block_image": 0,
+                           "fused_swin_block": 14, "fused_window_attention": 0}:
+            fail(f"window-path frame did not run each kernel as expected: "
+                 f"{launches_k5}")
+        if tuple(y5.shape) != (2160, 3840, 3) or y5.dtype != torch.uint8:
+            fail(f"window-path frame output {tuple(y5.shape)} {y5.dtype}")
+        frame_ms_k5 = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            program(frame_d)
+            torch.cuda.synchronize()
+            frame_ms_k5.append((time.perf_counter() - t0) * 1e3)
+        psnr_k5, same_k5 = render_twin_psnr(torch, program, frame_d, y5, (
+            (k2, "stem_conv3x3"), (k5, "fused_swin_block")))
+    finally:
+        if saved_env is None:
+            os.environ.pop("NUNIF_TPU_SWIN_IMG", None)
+        else:
+            os.environ["NUNIF_TPU_SWIN_IMG"] = saved_env
+    psnr_k1k5 = uint8_psnr(y5, y)
+    print(f"window-path frame 1080p->4K: median "
+          f"{statistics.median(frame_ms_k5):.1f} ms (runs "
+          f"{[round(v, 1) for v in frame_ms_k5]}) against the K1 path's "
+          f"{statistics.median(frame_ms):.1f} ms; vs twins PSNR {psnr_k5:.2f} "
+          f"dB (identical px {same_k5:.4f}); vs the K1 path's frame PSNR "
+          f"{psnr_k1k5:.2f} dB (identical px "
+          f"{float((y5 == y).float().mean()):.4f})", flush=True)
+    if psnr_k5 < FRAME_PSNR_MIN or psnr_k1k5 < FRAME_PSNR_MIN:
+        fail(f"window-path frame PSNR {psnr_k5:.2f} dB vs twins, "
+             f"{psnr_k1k5:.2f} dB vs the K1 path < {FRAME_PSNR_MIN}")
+    del y5
 
     # 6. multi-tile image through the runtime (and the CLI when PIL exists)
     phase("multitile")
@@ -654,6 +948,10 @@ def main() -> int:
     # 7. K4 at every 4xl 540p shape
     phase("k4")
     k4_rows = k4_phase(torch, k4, rng, t, dev)
+
+    # 7b. K6 at every 4xl shape in image layout, and its module path
+    phase("k6")
+    k6_rows, k6_launches = k6_phase(torch, k6, rng, t, dev)
 
     # 8. one 540p frame through the port's swin_unet_4xl path
     phase("frame 4xl")
@@ -863,6 +1161,10 @@ def main() -> int:
     print(f"iw3 image CLI ran: {ran}", flush=True)
     tmp.cleanup()
 
+    # 15. the probes T1, T3, T4 against their twins, then their tools
+    phase("probes")
+    t1, t3, t4, probe_launches, probe_errs = probe_phase(torch, probes, dev)
+
     k1_bf16 = [r for r in k1_rows if r["dtype"] == "bfloat16"]
     # launches per frame of each K1 main-path shape; swin4's first block
     # (C = 192, with skip) is counted at the timed shape without skip
@@ -894,6 +1196,27 @@ def main() -> int:
         return sum(r[key] for r in k2_rows)
 
     k7_main = k7_rows[1373]
+    k5_bf16 = [r for r in k5_rows if r["dtype"] == "bfloat16"]
+    k5_main = [r for r in k5_bf16 if r["batch"] == 1]
+
+    def k5_sum(key):
+        return sum(r[key] * K5_FRAME[(r["C"], r["H"], r["W"], r["shift"])]
+                   for r in k5_main)
+
+    k6_bf16 = [r for r in k6_rows if r["dtype"] == "bfloat16"]
+
+    def k6_sum(key):
+        return sum(r[key] * K4_FRAME[(r["C"], r["H"], r["W"], r["shift"])]
+                   for r in k6_bf16)
+
+    # the probes: T1 at the tool's first block (8 x 8 windows), T3 in bf16
+    # (int8 beside it), T4 at each shape (the bf16 headpack shape first)
+    t1_main = next(r for r in t1["rows"] if (r["rh"], r["cw"]) == (8, 8))
+    t1_bound = bound(t1["nbytes"], 0)
+    t3_bound = bound(t3["bf16"]["nbytes"], t3["bf16"]["flops"])
+    t3_bound_i8 = bound(t3["int8"]["nbytes"], t3["int8"]["flops"], "int8")
+    t4_bounds = [bound(r["nbytes"], r["flops"], "int8" if r["int8"] else "bfloat16")
+                 for r in t4]
     kernels = {"kernels": [
         {"name": "stem_conv3x3", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/conv3x3.cu",
@@ -940,6 +1263,60 @@ def main() -> int:
          "ms": 12 * k7_main["ms"], "plain_ms": 12 * k7_main["plain_ms"],
          "bound_ms": 12 * k7_main["bound_ms"], "bound_by": k7_main["bound_by"],
          "library_ms": 12 * k7_main["library_ms"]},
+        {"name": "fused_swin_block", "route": "cuda",
+         "source": "nunif_tpu_torch/csrc/swin_block.cu",
+         "replaces": "nunif_tpu/ops/swin_attention.py:780",
+         "launches": launches_k5["fused_swin_block"],
+         "max_abs_err": max(r["max_abs_err"] for r in k5_bf16),
+         "ms": k5_sum("ms"), "plain_ms": k5_sum("plain_ms"),
+         "bound_ms": k5_sum("bound_ms"),
+         "bound_by": bound_by(k5_main, lambda r: K5_FRAME[
+             (r["C"], r["H"], r["W"], r["shift"])]),
+         "library_ms": None},
+        {"name": "fused_window_attention_image", "route": "cuda",
+         "source": "nunif_tpu_torch/csrc/window_attn.cu",
+         "replaces": "nunif_tpu/ops/swin_attention.py:1221",
+         "launches": k6_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in k6_bf16),
+         "ms": k6_sum("ms"), "plain_ms": k6_sum("plain_ms"),
+         "bound_ms": k6_sum("bound_ms"),
+         "bound_by": bound_by(k6_bf16, lambda r: K4_FRAME[
+             (r["C"], r["H"], r["W"], r["shift"])]),
+         "library_ms": k6_sum("library_ms"),
+         "k4_copies_ms": k6_sum("k4_copies_ms")},
+        {"name": "strip_relayout", "route": "cuda",
+         "source": "nunif_tpu_torch/csrc/probe_strip.cu",
+         "replaces": "tools/microbench_strip.py:54",
+         "launches": probe_launches["strip_relayout"],
+         "pass_launches": probe_launches["strip_pass"],
+         "max_abs_err": probe_errs["strip_relayout"],
+         "ms": t1_main["relayout_ms"], "pass_ms": t1_main["pass_ms"],
+         "plain_ms": t1["plain_ms"], "bound_ms": t1_bound[0],
+         "bound_by": t1_bound[1], "library_ms": t1["library_ms"],
+         "blocks": t1["rows"]},
+        {"name": "window_dots", "route": "cuda",
+         "source": "nunif_tpu_torch/csrc/probe_window_dots.cu",
+         "replaces": "tools/microbench_int8_attn.py:56",
+         "launches": probe_launches["window_dots"],
+         "max_abs_err": probe_errs["window_dots_bfloat16"],
+         "ms": t3["bf16"]["ms"], "plain_ms": t3["bf16"]["plain_ms"],
+         "bound_ms": t3_bound[0], "bound_by": t3_bound[1],
+         "library_ms": t3["bf16"]["library_ms"],
+         "int8": dict(ms=t3["int8"]["ms"], plain_ms=t3["int8"]["plain_ms"],
+                      max_abs_err=probe_errs["window_dots_int8"],
+                      bound_ms=t3_bound_i8[0], bound_by=t3_bound_i8[1])},
+        {"name": "window_dots_repeat", "route": "cuda",
+         "source": "nunif_tpu_torch/csrc/probe_window_dots.cu",
+         "replaces": "tools/microbench_mxu_dots.py:52",
+         "launches": probe_launches["window_dots_repeat"],
+         "max_abs_err": probe_errs["window_dots_repeat"],
+         "ms": t4[0]["ms"], "plain_ms": t4[0]["plain_ms"],
+         "bound_ms": t4_bounds[0][0], "bound_by": t4_bounds[0][1],
+         "library_ms": t4[0]["library_ms"],
+         "shapes": [dict(label=r["label"], ms=r["ms"], ns=r["ns"],
+                         plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                         bound_ms=b[0], bound_by=b[1])
+                    for r, b in zip(t4, t4_bounds)]},
     ]}
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps(kernels))

@@ -1,14 +1,26 @@
 // K1: one whole Swin-V1 block (norm "none") on an NHWC image, fused.
+// K5: the same block on window-ordered tokens (nw, N, C).
 //
-// Replaces nunif_tpu/ops/swin_attention.py:fused_swin_block_image (Pallas,
-// kernel _kernel_block_img, body _block_compute).  Per window of ws x ws
+// K1 replaces nunif_tpu/ops/swin_attention.py:fused_swin_block_image
+// (Pallas, kernel _kernel_block_img, body _block_compute); K5 replaces
+// fused_swin_block (kernel _kernel_block, the same body), which the JAX
+// block module calls under NUNIF_TPU_SWIN_IMG=0.  Per window of ws x ws
 // tokens:
 //   qkv = x Wqkv + b;  per head softmax(q k^T * scale + relbias [-100 across
 //   shift regions]) v;  y1 = attn Wproj + b + x;
 //   out = gelu_erf(y1 Wfc1 + b) Wfc2 + b + y1
-// with an optional `skip` added to x on the first read.
+// with an optional `skip` added to x on the first read (K1 only; K5's
+// caller adds it).
 //
-// Shift: the window grid is the cyclically rolled one of the module path
+// K5 differs from K1 only in the token table: token t of window w is row
+// (w N + t) of x, and the window's grid position (w mod n_wh n_ww) selects
+// the mask: "roll" for the rolled grid, "pad" for a grid padded by shift /
+// ws - shift whose keys outside the unpadded image get -100
+// (window_attention.cuh).  The TPU kernel pads the window count to a
+// multiple of its block with garbage windows; here the last block just
+// holds fewer windows.
+//
+// Shift (K1): the window grid is the cyclically rolled one of the module path
 // (nunif_tpu/modules/attention.py:333-348).  Rolled row R reads image row
 // (R + shift) % H, so neither a roll copy nor the TPU caller's pad/crop
 // copies exist; the -100 region mask matches shifted_window_mask.  Every
@@ -67,6 +79,8 @@ struct SwinArgs {
   int B, H, W, C, heads, hidden, ws, shift;
   float scale;
   int n_wh, n_ww, n_windows;
+  int windowed;  // K5: x and out are (nw, N, C) window-ordered tokens
+  int pad_mode;  // K5: shift_mode "pad" (else the roll regions)
   int wpb;       // windows per block
   int rows_pad;  // wpb * N rounded up to 16
   int ldx, ldq;  // shared-memory row strides, in elements
@@ -198,18 +212,21 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
   const int win0 = blockIdx.x * p.wpb;
   const int per_img = p.n_wh * p.n_ww;
 
-  // 1. element offset of every token's pixel (-1: padding row or window
-  //    past the end)
+  // 1. element offset of every token (-1: padding row or window past the
+  //    end): its pixel (K1) or its row (K5)
   for (int r = tid; r < p.rows_pad; r += kThreads) {
     long long off = -1;
-    const int w = win0 + r / N;
+    const int w = win0 + r / N, t = r % N;
     if (r < p.wpb * N && w < p.n_windows) {
-      const int b = w / per_img, rem = w % per_img;
-      const int wr = rem / p.n_ww, wc = rem % p.n_ww;
-      const int t = r % N;
-      const int row = (wr * p.ws + t / p.ws + p.shift) % p.H;
-      const int col = (wc * p.ws + t % p.ws + p.shift) % p.W;
-      off = (((long long)b * p.H + row) * p.W + col) * C;
+      if (p.windowed) {
+        off = ((long long)w * N + t) * C;
+      } else {
+        const int b = w / per_img, rem = w % per_img;
+        const int wr = rem / p.n_ww, wc = rem % p.n_ww;
+        const int row = (wr * p.ws + t / p.ws + p.shift) % p.H;
+        const int col = (wc * p.ws + t % p.ws + p.shift) % p.W;
+        off = (((long long)b * p.H + row) * p.W + col) * C;
+      }
     }
     tok[r] = off;
   }
@@ -247,7 +264,6 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
 
   // 4. window attention: bf16, one warp per (window, head, 16-query
   //    block); fp32, one warp per (window, head)
-  const int cut = p.ws - p.shift;
   const int qblocks = IsBF16<T>::value ? (N + 15) / 16 : 1;
   for (int u = warp; u < p.wpb * p.heads * qblocks; u += kWarps) {
     const int pair = u / qblocks, mi = u % qblocks;
@@ -255,16 +271,17 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
     const int w = win0 + wl;
     if (w >= p.n_windows) continue;
     const int rem = w % per_img;
-    const bool last_r = p.shift > 0 && rem / p.n_ww == p.n_wh - 1;
-    const bool last_c = p.shift > 0 && rem % p.n_ww == p.n_ww - 1;
+    const WindowMask mask =
+        p.pad_mode ? pad_mask(p.ws, p.shift, rem / p.n_ww, rem % p.n_ww, p.n_wh, p.n_ww)
+                   : roll_mask(p.ws, p.shift, rem / p.n_ww, rem % p.n_ww, p.n_wh, p.n_ww);
     T* base = Q + (size_t)wl * N * p.ldq;
     const float* rb = p.relbias + (size_t)h * N * N;
     if constexpr (IsBF16<T>::value) {
-      attention_bf16(base, p.ldq, C, h, hd, N, mi, p.scale, rb, p.ws, cut, last_r, last_c);
+      attention_bf16(base, p.ldq, C, h, hd, N, mi, p.scale, rb, mask);
     } else {
       // the output of query i overwrites q_i, which only this warp reads
       float* pr = reinterpret_cast<float*>(smem + L.prob_off) + warp * N;
-      attention_fma(base, p.ldq, C, h, hd, N, p.scale, rb, p.ws, cut, last_r, last_c, pr);
+      attention_fma(base, p.ldq, C, h, hd, N, p.scale, rb, mask, pr);
     }
   }
   __syncthreads();
@@ -287,7 +304,8 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
                 });
   __syncthreads();
 
-  // 7. fc2 + residual 2, scattered back to the image
+  // 7. fc2 + residual 2, scattered back to the image (K1) or the token rows
+  //    (K5)
   block_gemm<T>(Q, p.ldq, p.wfc2, p.bfc2, p.hidden, C, p.rows_pad,
                 [&](int r, int c, float v0, float v1) {
                   const long long off = tok[r];
@@ -330,19 +348,12 @@ cudaError_t launch_swin_block(SwinArgs p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace nunif
-
-extern "C" int nunif_swin_block_image(int dtype, const void* x, const void* skip,
-                                      const void* wqkv, const void* bqkv, const void* wproj,
-                                      const void* bproj, const void* wfc1, const void* bfc1,
-                                      const void* wfc2, const void* bfc2, const void* relbias,
-                                      void* out, int B, int H, int W, int C, int heads,
-                                      int hidden, int ws, int shift, float scale, void* stream) {
-  using namespace nunif;
+SwinArgs swin_args(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+                   const void* bproj, const void* wfc1, const void* bfc1, const void* wfc2,
+                   const void* bfc2, const void* relbias, void* out, int C, int heads,
+                   int hidden, int ws, int shift, float scale) {
   SwinArgs p{};
   p.x = x;
-  p.skip = skip;
   p.wqkv = wqkv;
   p.bqkv = static_cast<const float*>(bqkv);
   p.wproj = wproj;
@@ -353,21 +364,66 @@ extern "C" int nunif_swin_block_image(int dtype, const void* x, const void* skip
   p.bfc2 = static_cast<const float*>(bfc2);
   p.relbias = static_cast<const float*>(relbias);
   p.out = out;
-  p.B = B;
-  p.H = H;
-  p.W = W;
   p.C = C;
   p.heads = heads;
   p.hidden = hidden;
   p.ws = ws;
   p.shift = shift;
   p.scale = scale;
-  p.n_wh = H / ws;
-  p.n_ww = W / ws;
-  p.n_windows = B * p.n_wh * p.n_ww;
+  return p;
+}
+
+int launch_swin(int dtype, const SwinArgs& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == kDtypeBF16 ? launch_swin_block<__nv_bfloat16>(p, s)
                     : dtype == kDtypeF32 ? launch_swin_block<float>(p, s)
                                          : cudaErrorInvalidValue;
   return (int)err;
+}
+
+}  // namespace
+}  // namespace nunif
+
+extern "C" int nunif_swin_block_image(int dtype, const void* x, const void* skip,
+                                      const void* wqkv, const void* bqkv, const void* wproj,
+                                      const void* bproj, const void* wfc1, const void* bfc1,
+                                      const void* wfc2, const void* bfc2, const void* relbias,
+                                      void* out, int B, int H, int W, int C, int heads,
+                                      int hidden, int ws, int shift, float scale, void* stream) {
+  using namespace nunif;
+  SwinArgs p = swin_args(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, relbias, out, C,
+                         heads, hidden, ws, shift, scale);
+  p.skip = skip;
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.n_wh = H / ws;
+  p.n_ww = W / ws;
+  p.n_windows = B * p.n_wh * p.n_ww;
+  return launch_swin(dtype, p, stream);
+}
+
+// K5: x and out are (nw, N, C), nw a multiple of n_wh * n_ww; pad_mode
+// selects shift_mode "pad" (else "roll").
+extern "C" int nunif_swin_block_windows(int dtype, const void* x, const void* wqkv,
+                                        const void* bqkv, const void* wproj, const void* bproj,
+                                        const void* wfc1, const void* bfc1, const void* wfc2,
+                                        const void* bfc2, const void* relbias, void* out, int nw,
+                                        int C, int heads, int hidden, int ws, int shift,
+                                        int pad_mode, int n_wh, int n_ww, float scale,
+                                        void* stream) {
+  using namespace nunif;
+  if (n_wh < 1 || n_ww < 1 || nw < 1 || nw % (n_wh * n_ww) || shift < 0 || shift >= ws)
+    return (int)cudaErrorInvalidValue;
+  SwinArgs p = swin_args(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, relbias, out, C,
+                         heads, hidden, ws, shift, scale);
+  p.windowed = 1;
+  p.pad_mode = pad_mode != 0;
+  p.B = nw / (n_wh * n_ww);
+  p.H = n_wh * ws;
+  p.W = n_ww * ws;
+  p.n_wh = n_wh;
+  p.n_ww = n_ww;
+  p.n_windows = nw;
+  return launch_swin(dtype, p, stream);
 }

@@ -7,11 +7,16 @@
 // 2C + h*hd.  The output of query i overwrites q_i (columns h*hd ..), which
 // no other query block reads.
 //
-// Shift: with the cyclically rolled window grid of the module path, only
-// the last window row / column straddles the wrap-around; a token's region
-// is 2 bits (shift_region) and pairs in different regions get -100, the
-// value of the reference's shifted_window_mask.  Every query keeps its own
-// key, so no softmax row is empty.
+// Shift masks (WindowMask): with the cyclically rolled window grid of the
+// module path, only the last window row / column straddles the wrap-around;
+// a token's region is 2 bits (shift_region) and pairs in different regions
+// get -100, the value of the reference's shifted_window_mask.  With the
+// padded grid of the window-ordered block (K5, shift_mode "pad"), a key
+// outside the unpadded image gets -100 for every query, as the reference's
+// key-validity mask (nunif_tpu/ops/swin_attention.py:_block_compute).  Both
+// are region labels compared in `logit`: a pad-mode query is in region 0 and
+// a key in region 1 when it lies outside.  Every valid query keeps its own
+// key, so no softmax row of a valid query is empty.
 #pragma once
 
 #include "common.cuh"
@@ -27,9 +32,59 @@ __device__ __forceinline__ int shift_region(int t, int ws, int cut, bool last_r,
   return ((last_r && t / ws >= cut) ? 1 : 0) + ((last_c && t % ws >= cut) ? 2 : 0);
 }
 
+// The -100 mask of one window.
+struct WindowMask {
+  int ws;
+  bool pad;              // pad mode: key validity; else the roll regions
+  bool active;           // false: no pair of this window is masked
+  int cut;               // roll: ws - shift
+  bool last_r, last_c;   // roll: the window straddles the wrap-around
+  int row0, col0;        // pad: image coordinates of token 0
+  int h_valid, w_valid;  // pad: the unpadded extent
+
+  __device__ __forceinline__ int key_region(int t) const {
+    if (!active) return 0;
+    if (!pad) return shift_region(t, ws, cut, last_r, last_c);
+    const int row = row0 + t / ws, col = col0 + t % ws;
+    return (row >= 0 && row < h_valid && col >= 0 && col < w_valid) ? 0 : 1;
+  }
+  __device__ __forceinline__ int query_region(int t) const {
+    return (active && !pad) ? shift_region(t, ws, cut, last_r, last_c) : 0;
+  }
+};
+
+// Window (wr, wc) of the cyclically rolled grid of n_wh x n_ww windows.
+__device__ __forceinline__ WindowMask roll_mask(int ws, int shift, int wr, int wc, int n_wh,
+                                                int n_ww) {
+  WindowMask m{};
+  m.ws = ws;
+  m.cut = ws - shift;
+  m.last_r = shift > 0 && wr == n_wh - 1;
+  m.last_c = shift > 0 && wc == n_ww - 1;
+  m.active = m.last_r || m.last_c;
+  return m;
+}
+
+// Window (wr, wc) of the grid of an image padded by `shift` top-left and
+// ws - shift bottom-right: key t is valid iff wr ws - shift + t / ws lies in
+// [0, (n_wh - 1) ws) and wc ws - shift + t % ws in [0, (n_ww - 1) ws).
+__device__ __forceinline__ WindowMask pad_mask(int ws, int shift, int wr, int wc, int n_wh,
+                                               int n_ww) {
+  WindowMask m{};
+  m.ws = ws;
+  m.pad = true;
+  m.row0 = wr * ws - shift;
+  m.col0 = wc * ws - shift;
+  m.h_valid = (n_wh - 1) * ws;
+  m.w_valid = (n_ww - 1) * ws;
+  m.active = shift > 0 && (m.row0 < 0 || m.row0 + ws > m.h_valid || m.col0 < 0 ||
+                           m.col0 + ws > m.w_valid);
+  return m;
+}
+
 // The one definition of a logit, for both attention paths: raw dot product
 // s of a query in region rq with key `key` in region rk, scaled, plus the
-// query's relative-bias row, -100 across shift regions.
+// query's relative-bias row, -100 across regions.
 __device__ __forceinline__ float logit(float s, float scale, const float* rb_row, int key, int rq,
                                        int rk) {
   return s * scale + __ldg(rb_row + key) - (rk != rq ? 100.f : 0.f);
@@ -38,12 +93,12 @@ __device__ __forceinline__ float logit(float s, float scale, const float* rb_row
 // Logits of query i against keys j < N from raw dot products s[j]; returns
 // the row max.
 __device__ __forceinline__ float logits_row(float* s, int i, int N, float scale, const float* rb,
-                                            int ws, int cut, bool last_r, bool last_c) {
-  const int reg_i = shift_region(i, ws, cut, last_r, last_c);
+                                            WindowMask mask) {
+  const int reg_i = mask.query_region(i);
   const float* rbi = rb + (size_t)i * N;
   float m = __int_as_float(0xff800000);  // -inf
   for (int j = 0; j < N; ++j) {
-    s[j] = logit(s[j], scale, rbi, j, reg_i, shift_region(j, ws, cut, last_r, last_c));
+    s[j] = logit(s[j], scale, rbi, j, reg_i, mask.key_region(j));
     m = fmaxf(m, s[j]);
   }
   return m;
@@ -55,11 +110,10 @@ __device__ __forceinline__ float logits_row(float* s, int i, int N, float scale,
 // scores are dropped and their outputs are not stored.
 __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int C, int h, int hd,
                                                int N, int mi, float scale, const float* rb,
-                                               int ws, int cut, bool last_r, bool last_c) {
+                                               WindowMask mask) {
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int nt = (N + 15) / 16, kt = hd / 16;
-  const bool masked = last_r || last_c;  // only edge windows straddle the wrap
   const __nv_bfloat16* kbase = base + C + h * hd;
   const __nv_bfloat16* vbase = base + 2 * C + h * hd;
   uint32_t qa[kMaxHeadDim / 16][4];
@@ -88,8 +142,8 @@ __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int
   }
   // logits, softmax over keys < N; the four lanes of a row share it
   const int q0 = mi * 16 + g, q1 = q0 + 8;
-  const int r0 = masked ? shift_region(q0, ws, cut, last_r, last_c) : 0;
-  const int r1 = masked ? shift_region(q1, ws, cut, last_r, last_c) : 0;
+  const int r0 = mask.query_region(q0);
+  const int r1 = mask.query_region(q1);
   const float* rb0 = rb + (size_t)(q0 < N ? q0 : 0) * N;
   const float* rb1 = rb + (size_t)(q1 < N ? q1 : 0) * N;
   const float ninf = __int_as_float(0xff800000);
@@ -100,7 +154,7 @@ __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int
     for (int e = 0; e < 2; ++e) {
       const int key = jn * 8 + 2 * t + e;
       if (jn < 2 * nt && key < N) {
-        const int rk = masked ? shift_region(key, ws, cut, last_r, last_c) : 0;
+        const int rk = mask.key_region(key);
         s[jn][e] = logit(s[jn][e], scale, rb0, key, r0, rk);
         s[jn][2 + e] = logit(s[jn][2 + e], scale, rb1, key, r1, rk);
         m0 = fmaxf(m0, s[jn][e]);
@@ -165,8 +219,8 @@ __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int
 // row of N floats in shared memory.  Reads rows < N only.
 template <typename T>
 __device__ __forceinline__ void attention_fma(T* base, int ldq, int C, int h, int hd, int N,
-                                              float scale, const float* rb, int ws, int cut,
-                                              bool last_r, bool last_c, float* pr) {
+                                              float scale, const float* rb,
+                                              WindowMask mask, float* pr) {
   const int lane = threadIdx.x % 32;
   for (int i = 0; i < N; ++i) {
     const T* qi = base + (size_t)i * ldq + h * hd;
@@ -178,7 +232,7 @@ __device__ __forceinline__ void attention_fma(T* base, int ldq, int C, int h, in
     }
     __syncwarp();
     float m = 0.f;
-    if (lane == 0) m = logits_row(pr, i, N, scale, rb, ws, cut, last_r, last_c);
+    if (lane == 0) m = logits_row(pr, i, N, scale, rb, mask);
     m = __shfl_sync(0xffffffffu, m, 0);
     __syncwarp();
     float sloc = 0.f;

@@ -1,5 +1,6 @@
 // K4: (shifted-)window attention on projected qkv, with relative position
 // bias and the roll wrap mask.
+// K6: the same attention on qkv and out in image layout.
 //
 // Replaces nunif_tpu/ops/swin_attention.py:fused_window_attention (Pallas,
 // kernel _kernel), which ShiftedWindowAttention calls for every Swin block
@@ -28,6 +29,15 @@
 // P V on mma.sync m16n8k16 with the scores and softmax in registers.  The
 // output overwrites q in shared memory and leaves in 16-byte stores.
 // The fp32 variant keeps the data flow with FMA loops (attention_fma).
+//
+// K6 replaces nunif_tpu/ops/swin_attention.py:fused_window_attention_image
+// (Pallas, kernel _kernel_img): qkv (B, H, W, 3C), already rolled, in;
+// out (B, H, W, C).  Token t of window (b, wr, wc) is pixel (b, wr ws +
+// t / ws, wc ws + t % ws): the block stages its window's six 6-pixel row
+// segments with the same cp.async copies and stores the output at the same
+// pixels, so no window partition or reverse touches device memory.  The
+// roll mask comes from (wr, wc).  The TPU kernel's sublane transposes,
+// 128 // N window packing and W chunking have no counterpart here.
 #include "common.cuh"
 #include "window_attention.cuh"
 
@@ -43,6 +53,7 @@ struct WinArgs {
   const float* relbias;  // (heads, N, N)
   void* out;
   int nw, N, C, heads, hd, ws, shift, n_wh, n_ww;
+  int image;  // K6: qkv and out in image layout (B, n_wh ws, n_ww ws, .)
   float scale;
   int group;  // heads per block
   int rows;   // staged rows: N, rounded up to 16 for bf16 (MMA tiles)
@@ -54,6 +65,14 @@ __host__ __device__ size_t wa_smem_bytes(const WinArgs& p) {
   const size_t rows = (size_t)p.rows * p.ld * sizeof(T);
   const size_t probs = IsBF16<T>::value ? 0 : (size_t)kWaWarps * p.N * sizeof(float);
   return align_up(rows, 128) + probs;
+}
+
+// Row of token t of window w in a tensor of `width` values a token.
+__device__ __forceinline__ long long token_offset(const WinArgs& p, int w, int t, int width) {
+  if (!p.image) return ((long long)w * p.N + t) * width;
+  const int per_img = p.n_wh * p.n_ww, rem = w % per_img;
+  const int row = rem / p.n_ww * p.ws + t / p.ws, col = rem % p.n_ww * p.ws + t % p.ws;
+  return (((long long)(w / per_img) * p.n_wh * p.ws + row) * p.n_ww * p.ws + col) * width;
 }
 
 template <typename T>
@@ -69,13 +88,13 @@ __global__ void __launch_bounds__(kWaThreads) window_attn_kernel(WinArgs p) {
   //    columns 0 .. cg, k at cg .., v at 2 cg ..; rows N .. rows-1 are zero
   constexpr int VEC = 16 / sizeof(T);
   const int vseg = cg / VEC;
-  const T* src = static_cast<const T*>(p.qkv) + (size_t)w * N * 3 * C + grp * cg;
+  const T* src = static_cast<const T*>(p.qkv) + grp * cg;
   for (int e = threadIdx.x; e < p.rows * 3 * vseg; e += kWaThreads) {
     const int r = e / (3 * vseg), rem = e % (3 * vseg);
     const int seg = rem / vseg, v = rem % vseg;
     const bool ok = r < N;
     cp_async16(S + (size_t)r * p.ld + seg * cg + v * VEC,
-               ok ? src + (size_t)r * 3 * C + seg * C + v * VEC : src, ok);
+               ok ? src + token_offset(p, w, r, 3 * C) + seg * C + v * VEC : src, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -83,31 +102,28 @@ __global__ void __launch_bounds__(kWaThreads) window_attn_kernel(WinArgs p) {
 
   // 2. attention of every head of the group
   const int rem = w % (p.n_wh * p.n_ww);
-  const bool last_r = p.shift > 0 && rem / p.n_ww == p.n_wh - 1;
-  const bool last_c = p.shift > 0 && rem % p.n_ww == p.n_ww - 1;
-  const int cut = p.ws - p.shift;
+  const WindowMask mask = roll_mask(p.ws, p.shift, rem / p.n_ww, rem % p.n_ww, p.n_wh, p.n_ww);
   const float* rb = p.relbias + (size_t)grp * p.group * N * N;
   if constexpr (IsBF16<T>::value) {
     const int qblocks = (N + 15) / 16;
     for (int u = warp; u < p.group * qblocks; u += kWaWarps) {
       const int h = u / qblocks, mi = u % qblocks;
-      attention_bf16(S, p.ld, cg, h, p.hd, N, mi, p.scale, rb + (size_t)h * N * N, p.ws, cut,
-                     last_r, last_c);
+      attention_bf16(S, p.ld, cg, h, p.hd, N, mi, p.scale, rb + (size_t)h * N * N, mask);
     }
   } else {
     float* pr = reinterpret_cast<float*>(smem + align_up((size_t)p.rows * p.ld * sizeof(T), 128)) +
                 warp * N;
     for (int h = warp; h < p.group; h += kWaWarps)
-      attention_fma(S, p.ld, cg, h, p.hd, N, p.scale, rb + (size_t)h * N * N, p.ws, cut, last_r,
-                    last_c, pr);
+      attention_fma(S, p.ld, cg, h, p.hd, N, p.scale, rb + (size_t)h * N * N, mask, pr);
   }
   __syncthreads();
 
-  // 3. the output (in q's columns) to out[w, r, grp * cg ..]
-  T* out = static_cast<T*>(p.out) + (size_t)w * N * C + grp * cg;
+  // 3. the output (in q's columns) to token r's row of out, columns
+  //    grp * cg ..
+  T* out = static_cast<T*>(p.out) + grp * cg;
   for (int e = threadIdx.x; e < N * vseg; e += kWaThreads) {
     const int r = e / vseg, v = e % vseg;
-    *reinterpret_cast<uint4*>(out + (size_t)r * C + v * VEC) =
+    *reinterpret_cast<uint4*>(out + token_offset(p, w, r, C) + v * VEC) =
         *reinterpret_cast<const uint4*>(S + (size_t)r * p.ld + v * VEC);
   }
 }
@@ -141,13 +157,8 @@ cudaError_t launch_window_attn(WinArgs p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace nunif
-
-extern "C" int nunif_window_attn(int dtype, const void* qkv, const void* relbias, void* out, int nw,
-                                 int N, int C, int heads, int ws, int shift, int n_wh, int n_ww,
-                                 float scale, void* stream) {
-  using namespace nunif;
+WinArgs win_args(const void* qkv, const void* relbias, void* out, int nw, int N, int C,
+                 int heads, int ws, int shift, int n_wh, int n_ww, float scale) {
   WinArgs p{};
   p.qkv = qkv;
   p.relbias = static_cast<const float*>(relbias);
@@ -162,9 +173,36 @@ extern "C" int nunif_window_attn(int dtype, const void* qkv, const void* relbias
   p.n_wh = n_wh;
   p.n_ww = n_ww;
   p.scale = scale;
+  return p;
+}
+
+int launch_win(int dtype, const WinArgs& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == kDtypeBF16 ? launch_window_attn<__nv_bfloat16>(p, s)
                     : dtype == kDtypeF32 ? launch_window_attn<float>(p, s)
                                          : cudaErrorInvalidValue;
   return (int)err;
+}
+
+}  // namespace
+}  // namespace nunif
+
+extern "C" int nunif_window_attn(int dtype, const void* qkv, const void* relbias, void* out, int nw,
+                                 int N, int C, int heads, int ws, int shift, int n_wh, int n_ww,
+                                 float scale, void* stream) {
+  using namespace nunif;
+  return launch_win(dtype, win_args(qkv, relbias, out, nw, N, C, heads, ws, shift, n_wh, n_ww,
+                                    scale), stream);
+}
+
+// K6: qkv (B, H, W, 3C) and out (B, H, W, C), H and W multiples of ws.
+extern "C" int nunif_window_attn_image(int dtype, const void* qkv, const void* relbias, void* out,
+                                       int B, int H, int W, int C, int heads, int ws, int shift,
+                                       float scale, void* stream) {
+  using namespace nunif;
+  if (ws < 1 || B < 1 || H % ws || W % ws) return (int)cudaErrorInvalidValue;
+  WinArgs p = win_args(qkv, relbias, out, B * (H / ws) * (W / ws), ws * ws, C, heads, ws, shift,
+                       H / ws, W / ws, scale);
+  p.image = 1;
+  return launch_win(dtype, p, stream);
 }

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.device import resolve_device
 from .flax_params import from_flax, to_flax
 from .model import model_kwargs
 from .register import create_model, get_model_names
@@ -76,9 +77,11 @@ def read_checkpoint(model_path: str) -> Tuple[dict, dict]:
     return meta, flat
 
 
-def load_model(model_path: str, device=None) -> Tuple[nn.Module, dict]:
+def load_model(model_path: str, device="cuda") -> Tuple[nn.Module, dict]:
     """(model, meta): the architecture named by the file, its weights
-    loaded, in eval mode on ``device`` (CPU when None)."""
+    loaded, in eval mode on ``device`` (the card unless the caller names
+    another; ``device="cpu"`` for the plain twins on the CPU).  Raises if
+    CUDA is asked for and absent."""
     meta, flat = read_checkpoint(model_path)
     name = meta["name"]
     package = _APP_PACKAGES.get(name.split(".", 1)[0])
@@ -88,11 +91,11 @@ def load_model(model_path: str, device=None) -> Tuple[nn.Module, dict]:
         raise NotPortedError(
             f"{model_path}: architecture {name!r} is not ported to "
             f"nunif_tpu_torch yet (ported: {get_model_names()})")
+    device = resolve_device(device)
     model = create_model(name, **(meta.get("kwargs") or {}))
     from_flax(model, flat)
     model.eval().requires_grad_(False)
-    if device is not None:
-        model.to(torch.device(device))
+    model.to(device)
     return model, meta
 
 

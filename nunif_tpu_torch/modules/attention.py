@@ -1,15 +1,17 @@
 """Swin window-attention blocks on NHWC tensors (counterpart of
 ``nunif_tpu/modules/attention.py``).
 
-Swin blocks: with ``norm="none"`` the whole block is kernel K1; with a
-LayerNorm the block runs on window-ordered tokens and its attention is
-kernel K4 (both in ``ops/swin_attention.py``).  ``WindowScoreBias`` and
-``WindowMHA2d`` (row_flow_v3's rectangular-window attention) are plain
-PyTorch, as the JAX package leaves them to XLA.
+Swin blocks: with ``norm="none"`` the whole block is kernel K1, or K5 on
+window-ordered tokens when ``NUNIF_TPU_SWIN_IMG`` is not "1" (as in the JAX
+module); with a LayerNorm the block runs on window-ordered tokens and its
+attention is kernel K4 (all in ``ops/swin_attention.py``).
+``WindowScoreBias`` and ``WindowMHA2d`` (row_flow_v3's rectangular-window
+attention) are plain PyTorch, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -60,6 +62,22 @@ def shifted_window_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
     return np.where(diff, -100.0, 0.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def padded_window_key_mask(n_wh: int, n_ww: int, window: int,
+                           shift: int) -> np.ndarray:
+    """(n_wh*n_ww, 1, N) float32 for the window grid of an image padded by
+    ``shift`` top-left and ``window - shift`` bottom-right: -100 for keys
+    outside the unpadded image, 0 inside (the JAX kernel's pad-shift
+    mask)."""
+    t = np.arange(window * window)
+    row = np.arange(n_wh)[:, None, None] * window - shift + t // window
+    col = np.arange(n_ww)[None, :, None] * window - shift + t % window
+    valid = ((row >= 0) & (row < (n_wh - 1) * window)
+             & (col >= 0) & (col < (n_ww - 1) * window))
+    return np.where(valid, 0.0, -100.0).astype(np.float32).reshape(
+        n_wh * n_ww, 1, window * window)
+
+
 class ShiftedWindowAttention(nn.Module):
     """Swin V1 (shifted-)window MHA with relative position bias (flax path
     ``attn``; reference ``ShiftedWindowAttention``).
@@ -67,8 +85,11 @@ class ShiftedWindowAttention(nn.Module):
     ``forward(x)`` takes an image (B, H, W, C); ``forward(xw, windows=(b,
     nh, nw))`` takes the windows of the rolled image (b*nh*nw, N, C) and
     returns that layout.  qkv and proj are Linear layers; the attention is
-    kernel K4.  The norm-free block reads only the parameters: K1 computes
-    its whole block."""
+    kernel K4 on windows and kernel K6 on the image form, which rolls,
+    projects and attends in image layout without a window partition (the
+    flow of the JAX package's image-kernel test; its module partitions and
+    runs K4, the same function).  The norm-free block reads only the
+    parameters: K1 or K5 computes its whole block."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 6,
                  shift_size: int = 0):
@@ -98,24 +119,22 @@ class ShiftedWindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, windows=None) -> torch.Tensor:
         ws = self.window_size
-        if windows is None:
-            b, h, w, _c = x.shape
-            nh, nw = h // ws, w // ws
-        else:
-            b, nh, nw = windows
-        shift = self.shift_size if (nh > 1 or nw > 1) else 0
-        xw = x
-        if windows is None:
-            if shift:
-                x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-            xw = window_partition2(x, ws)
-        out = _kernels.fused_window_attention(
-            dense(xw, self.qkv), self.relative_bias(), num_heads=self.num_heads,
-            window=ws, shift=shift, n_wh=nh, n_ww=nw)
-        out = dense(out, self.proj)
         if windows is not None:
-            return out
-        out = window_reverse2(out, ws, nh * ws, nw * ws)
+            b, nh, nw = windows
+            shift = self.shift_size if (nh > 1 or nw > 1) else 0
+            out = _kernels.fused_window_attention(
+                dense(x, self.qkv), self.relative_bias(),
+                num_heads=self.num_heads, window=ws, shift=shift, n_wh=nh,
+                n_ww=nw)
+            return dense(out, self.proj)
+        _b, h, w, _c = x.shape
+        shift = self.shift_size if (h > ws or w > ws) else 0
+        if shift:
+            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+        out = _kernels.fused_window_attention_image(
+            dense(x, self.qkv).contiguous(), self.relative_bias(),
+            num_heads=self.num_heads, window=ws, shift=shift)
+        out = dense(out, self.proj)
         if shift:
             out = torch.roll(out, (shift, shift), dims=(1, 2))
         return out
@@ -141,8 +160,11 @@ class SwinTransformerBlock(nn.Module):
     """Swin V1 block: x + attn(norm1(x)); x + mlp(norm2(x)).
 
     ``norm="none"`` (waifu2x swin_unet's default) runs the whole block as
-    one K1 launch on CUDA.  With a LayerNorm the block runs as the JAX
-    module path does: skip add, roll, window partition, norm1, attention
+    one K1 launch on CUDA; with ``NUNIF_TPU_SWIN_IMG`` set to anything but
+    "1" it runs the JAX module's window path instead: skip add, pad by
+    shift / window - shift when shifted, window partition, K5 with the pad
+    key mask, window reverse, crop.  With a LayerNorm the block runs as the
+    JAX module path does: skip add, roll, window partition, norm1, attention
     (K4), residual, norm2, MLP, residual, window reverse, roll back, the
     stream kept in window order in between."""
 
@@ -191,11 +213,13 @@ class SwinTransformerBlock(nn.Module):
         ws = self.window_size
         shift = self.shift_size if (h > ws or w > ws) else 0
         if self.norm == "none":
+            # packed weights are the kernel's; the CPU twin reads the raw ones
+            packed = self.packed_weights(x.dtype) if x.is_cuda else None
+            if os.environ.get("NUNIF_TPU_SWIN_IMG", "1") != "1":
+                return self._window_path(x, skip, shift, packed)
             if skip is not None and shift:
                 x = x + skip
                 skip = None
-            # packed weights are the kernel's; the CPU twin reads the raw ones
-            packed = self.packed_weights(x.dtype) if x.is_cuda else None
             return _kernels.fused_swin_block_image(
                 x.contiguous(), *self._weights(), num_heads=self.num_heads,
                 window=ws, shift=shift, skip=skip, packed=packed)
@@ -210,6 +234,26 @@ class SwinTransformerBlock(nn.Module):
         if shift:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         return x
+
+    def _window_path(self, x, skip, shift, packed):
+        """The norm-free block on window-ordered tokens (K5), as
+        ``nunif_tpu/modules/attention.py:308-329``."""
+        _b, h, w, _c = x.shape
+        ws = self.window_size
+        if skip is not None:
+            x = x + skip
+        nh, nw = h // ws, w // ws
+        if shift:
+            x = F.pad(x, (0, 0, shift, ws - shift, shift, ws - shift))
+            nh, nw = nh + 1, nw + 1
+        y = _kernels.fused_swin_block(
+            window_partition2(x, ws).contiguous(), *self._weights(),
+            num_heads=self.num_heads, window=ws, shift=shift, n_wh=nh,
+            n_ww=nw, shift_mode="pad", packed=packed)
+        y = window_reverse2(y, ws, nh * ws, nw * ws)
+        if shift:
+            y = y[:, shift:shift + h, shift:shift + w]
+        return y.contiguous()
 
 
 class SwinTransformerBlocks(nn.Module):

@@ -50,6 +50,18 @@ _SIGNATURES = {
     # dtype, qkv, relbias, out, nw, N, C, heads, ws, shift, n_wh, n_ww,
     # scale, stream
     "nunif_window_attn": [_I, _P, _P, _P] + [_I] * 8 + [_F, _P],
+    # dtype, x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, relbias,
+    # out, nw, C, heads, hidden, ws, shift, pad_mode, n_wh, n_ww, scale,
+    # stream
+    "nunif_swin_block_windows": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
+    # dtype, qkv, relbias, out, B, H, W, C, heads, ws, shift, scale, stream
+    "nunif_window_attn_image": [_I, _P, _P, _P] + [_I] * 7 + [_F, _P],
+    # relayout, x, out, H, W, C, ws, rh, cw, scale, stream
+    "nunif_strip": [_I, _P, _P] + [_I] * 6 + [_F, _P],
+    # dtype, q, khat, vhat, out, nw, N, C, P, Cv, Cout, stream
+    "nunif_window_dots": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    # dtype, q, kt, vt, out, nw, N, C, P, reps, bw, stream
+    "nunif_window_dots_repeat": [_I] + [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

@@ -32,6 +32,11 @@ output): bf16 1/64 relative + 1e-2 absolute, fp32 2e-5 (the JAX package's
 own bound) at N(0, 1) qkv.  Its controls: the kernel with the relative bias
 zeroed must fail, and for a shifted grid the kernel run unshifted must fail,
 which shows that the computed wrap mask counts.
+
+K5 (K1 on window-ordered tokens) has K1's tolerances and controls, plus,
+for a shifted grid, the kernel run with the other shift mode must fail.
+K6 (K4 in image layout) has K4's.  The probes' tolerances are stated
+beside their tests.
 """
 import numpy as np
 import pytest
@@ -354,3 +359,175 @@ def test_window_attn_rejects_bad_inputs(cuda):
         k1.fused_window_attention(qkv, bias[:1], **kw)
     with pytest.raises(ValueError, match="window grid"):
         k1.fused_window_attention(qkv, bias, **dict(kw, n_wh=4))
+
+
+# K5: K1's block on window-ordered tokens (nw, N, C); its twin rounds at
+# K1's points, so K1's tolerances hold.  (batch, n_wh, n_ww, C, heads,
+# shift, shift_mode): a window count not a multiple of 4, batch 2, C = 192,
+# head dim 64.
+K5_CASES = [
+    (1, 4, 5, 96, 6, 0, "roll"), (1, 4, 5, 96, 6, 3, "roll"),
+    (1, 5, 6, 96, 6, 3, "pad"), (2, 3, 7, 96, 6, 3, "pad"),
+    (1, 3, 4, 192, 6, 3, "pad"), (1, 3, 3, 128, 2, 3, "roll"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n_wh,n_ww,c,heads,shift,mode", K5_CASES)
+def test_swin_block_windows_kernel_matches_twin(cuda, dtype, b, n_wh, n_ww, c,
+                                                heads, shift, mode):
+    rng = _rng(10)
+    nw = b * n_wh * n_ww
+    x = _t(rng.normal(0, 0.5, (nw, 36, c)), cuda, dtype)
+    args = _block_inputs(rng, c, heads, cuda)
+    kw = dict(num_heads=heads, window=6, shift=shift, n_wh=n_wh, n_ww=n_ww,
+              shift_mode=mode)
+    before = k1.fused_swin_block.launches
+    got = k1.fused_swin_block(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert k1.fused_swin_block.launches == before + 1
+    want = k1.swin_block_plain(x, *args, **kw)
+    assert got.shape == want.shape == x.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=K1_ATOL[dtype],
+                               rtol=0)
+    # controls: a kernel that drops the bias, or (shifted) applies the other
+    # mask, must fail the same comparison
+    bad = [k1.fused_swin_block(x, *args[:-1], torch.zeros_like(args[-1]), **kw)]
+    if shift:
+        other = "roll" if mode == "pad" else "pad"
+        bad.append(k1.fused_swin_block(x, *args, **dict(kw, shift_mode=other)))
+    for y in bad:
+        assert float((y.float() - want.float()).abs().max()) > 4 * K1_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shift,skip", [(0, True), (3, False)])
+def test_swin_block_window_path_matches_k1_path(cuda, monkeypatch, dtype,
+                                                shift, skip):
+    """NUNIF_TPU_SWIN_IMG=0 runs the block as one K5 launch (pad shift) and
+    no K1; its output is K1's up to the masked keys' e^-100 terms and the
+    rounding order."""
+    from nunif_tpu_torch.modules.attention import SwinTransformerBlock
+    torch.manual_seed(0)
+    blk = SwinTransformerBlock(96, 6, 6, shift_size=shift).to(cuda)
+    with torch.no_grad():
+        blk.attn.relative_position_bias_table.normal_()
+    rng = _rng(11)
+    x = _t(rng.normal(0, 0.5, (2, 24, 30, 96)), cuda, dtype)
+    sk = _t(rng.normal(0, 0.5, (2, 24, 30, 96)), cuda, dtype) if skip else None
+    with torch.no_grad():
+        monkeypatch.setenv("NUNIF_TPU_SWIN_IMG", "1")
+        want = blk(x, skip=sk)
+        monkeypatch.setenv("NUNIF_TPU_SWIN_IMG", "0")
+        before = (k1.fused_swin_block.launches, k1.fused_swin_block_image.launches)
+        got = blk(x, skip=sk)
+        torch.cuda.synchronize()
+    after = (k1.fused_swin_block.launches, k1.fused_swin_block_image.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+    assert got.shape == x.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=K1_ATOL[dtype],
+                               rtol=0)
+
+
+def test_swin_block_windows_rejects_bad_inputs(cuda):
+    args = _block_inputs(_rng(12), 32, 2, cuda)
+    kw = dict(num_heads=2, window=6, shift=3, n_wh=3, n_ww=4)
+    x = torch.zeros((12, 36, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="window grid"):
+        k1.fused_swin_block(x[:11], *args, **kw)
+    with pytest.raises(ValueError, match="window\\^2"):
+        k1.fused_swin_block(torch.zeros((12, 35, 32), device=cuda,
+                                        dtype=torch.bfloat16), *args, **kw)
+    with pytest.raises(ValueError, match="shift_mode"):
+        k1.fused_swin_block(x, *args, shift_mode="wrap", **kw)
+    with pytest.raises(ValueError, match="packed for"):
+        k1.fused_swin_block(x, *args, packed=k1.pack_weights(*args, torch.float32),
+                            **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n_wh,n_ww,ws,shift,c,heads", K4_CASES)
+def test_window_attn_image_kernel_matches_twin(cuda, dtype, b, n_wh, n_ww, ws,
+                                               shift, c, heads):
+    """K6 (image layout) at K4's cases, K4's tolerances and controls."""
+    rng = _rng(13)
+    qkv = _t(rng.standard_normal((b, n_wh * ws, n_ww * ws, 3 * c)), cuda, dtype)
+    bias = expand_relative_bias(
+        _t(rng.standard_normal(((2 * ws - 1) ** 2, heads)), cuda), ws)
+    kw = dict(num_heads=heads, window=ws, shift=shift)
+    before = k1.fused_window_attention_image.launches
+    got = k1.fused_window_attention_image(qkv, bias, **kw)
+    torch.cuda.synchronize()
+    assert k1.fused_window_attention_image.launches == before + 1
+    want = k1.window_attention_image_plain(qkv, bias, **kw)
+    assert got.shape == want.shape == qkv.shape[:3] + (c,)
+    assert _k4_close(got, want, dtype)
+    assert not _k4_close(k1.fused_window_attention_image(
+        qkv, torch.zeros_like(bias), **kw), want, dtype)
+    if shift:
+        assert not _k4_close(k1.fused_window_attention_image(
+            qkv, bias, **dict(kw, shift=0)), want, dtype)
+
+
+# The probes T1, T3, T4 against their twins, with the CPU tests' tolerances
+# (tests/test_torch_probes.py): T1 exact; T3 bf16 atol 1e-2, int8 2e-2,
+# both rtol 2^-7; T4 int8 exact, bf16 rtol 1e-3.
+@pytest.mark.parametrize("rh,cw", [(8, 8), (4, 16), (2, 4), (8, 2)])
+def test_strip_kernels_match_twin(cuda, rh, cw):
+    from nunif_tpu_torch.ops import probes
+    x = _t(_rng(14).normal(0, 1, (1, 48, 96, 96)), cuda, torch.bfloat16)
+    want = probes.strip_plain(x)
+    for fn in (probes.strip_pass, probes.strip_relayout):
+        before = fn.launches
+        got = fn(x, rh, cw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="bf16"):
+        probes.strip_pass(x.float(), rh, cw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_window_dots_kernel_matches_twin(cuda, dtype):
+    from nunif_tpu_torch.ops import probes
+    rng = _rng(15)
+    shapes = ((64, 36, 96), (64, 96, 216), (64, 216, 104))
+    if dtype == torch.int8:
+        ins = [torch.from_numpy(rng.integers(-127, 127, s).astype(np.int8)).to(cuda)
+               for s in shapes]
+    else:
+        ins = [_t(rng.uniform(-1, 1, s), cuda, dtype) for s in shapes]
+    before = probes.window_dots.launches
+    got = probes.window_dots(*ins)
+    torch.cuda.synchronize()
+    assert probes.window_dots.launches == before + 1
+    want = probes.window_dots_plain(*ins)
+    assert got.shape == want.shape == (64, 36, 96)
+    atol = 1e-2 if dtype == torch.bfloat16 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=2 ** -7)
+    assert float((got == want).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n,c,p", [(36, 48, 108), (36, 96, 216),
+                                   (108, 96, 648)])
+def test_window_dots_repeat_kernel_matches_twin(cuda, dtype, n, c, p):
+    from nunif_tpu_torch.ops import probes
+    rng = _rng(16)
+    shapes = ((32, n, c), (32, c, p), (32, p, c))
+    if dtype == torch.int8:
+        ins = [torch.from_numpy(rng.integers(-127, 127, s).astype(np.int8)).to(cuda)
+               for s in shapes]
+    else:
+        ins = [_t(rng.uniform(0, 1, s), cuda, dtype) for s in shapes]
+    before = probes.window_dots_repeat.launches
+    got = probes.window_dots_repeat(*ins)
+    torch.cuda.synchronize()
+    assert probes.window_dots_repeat.launches == before + 1
+    want = probes.window_dots_repeat_plain(*ins)
+    assert float(want[0, 0]) != 0.0 and bool((got == got[0, 0]).all())
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=0)

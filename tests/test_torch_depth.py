@@ -209,7 +209,7 @@ def test_checkpoint_round_trip_both_packages(pair, tmp_path):
     model, flat = pair
     path = str(tmp_path / "depth.nztm")
     save_model(model, path)
-    loaded, meta = load_model(path)
+    loaded, meta = load_model(path, device="cpu")
     assert meta["name"] == "iw3.depth_anything"
     assert meta["kwargs"] == {"encoder": "vits", "max_depth": 0.0}
     for k, v in to_flax(loaded).items():

@@ -43,7 +43,7 @@ def test_jax_checkpoint_loads_in_port(small, tmp_path):
     jax_save_model(JaxSwinUNet2x(base_dim=32),
                    unflatten_params({k: jnp.asarray(v) for k, v in flat.items()}),
                    path)
-    loaded, meta = load_model(path)
+    loaded, meta = load_model(path, device="cpu")
     assert isinstance(loaded, SwinUNet2x) and loaded.base_dim == 32
     assert meta["name"] == "waifu2x.swin_unet_2x"
     assert not loaded.training
@@ -82,11 +82,24 @@ def test_checkpoint_meta_matches_jax_writer(small, tmp_path):
     assert sorted(flat_a) == sorted(flat_b)
 
 
+def test_load_model_defaults_to_the_card(small, tmp_path, monkeypatch):
+    """Without a device the model goes to CUDA; where there is none that is
+    an error, never a silent CPU model.  device="cpu" is the CPU."""
+    model, _flat = small
+    path = str(tmp_path / "m.nztm")
+    save_model(model, path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model(path)
+    loaded, _meta = load_model(path, device="cpu")
+    assert next(loaded.parameters()).device == torch.device("cpu")
+
+
 def test_unported_architecture_raises(tmp_path):
     """The bundled checkpoints are turbo_2x, which the port lacks so far."""
     bundled = REPO / "models" / "waifu2x" / "turbo" / "scale2x.nztm"
     with pytest.raises(NotPortedError, match="waifu2x.turbo_2x.*not ported"):
-        load_model(str(bundled))
+        load_model(str(bundled), device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         create_model("waifu2x.no_such_model")
 

@@ -179,7 +179,7 @@ def test_4xl_checkpoint_round_trip_with_jax(xl, tmp_path):
     for key, arr in jflat.items():
         np.testing.assert_array_equal(arr, flat[key], err_msg=key)
     jax_save_model(jax_create_model("waifu2x.swin_unet_4xl"), params, jax_path)
-    loaded, meta = load_model(jax_path)
+    loaded, meta = load_model(jax_path, device="cpu")
     assert isinstance(loaded, tmodels.SwinUNet4x)
     assert model_kwargs(loaded) == model_kwargs(model)
     for key, arr in to_flax(loaded).items():
