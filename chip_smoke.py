@@ -33,10 +33,16 @@ written by the port:
   (Any_V2_S depth, row_flow_v3, divergence 2, edge dilation 2, half-SBS),
   checks the launch counters, the time and the agreement with the twin
   path, and drives the iw3 CLI on an image when PIL is present;
+- K4 and K6 at windows past 6: imagenet swin_t's four stages (window 7,
+  N = 49, head dim 32, batch 64 at 224 px, shifts 0 and 3) and one
+  window-8 shape (N = 64), against their twins with K4's controls;
 - the probes: holds T1 (strip relayout), T3 (window dot pair, bf16 and
   int8) and T4 (repeated dot pair, 8 shapes) against their twins at the
   tools' shapes, then runs the three ``nunif_tpu_torch.tools`` probes,
-  which time them.
+  which time them; then T2 (the piecewise Swin block, ten variants with
+  W8A8 int8 dense layers and int8 scores) at both of its tool's shapes
+  against its twin, with controls (zero bias table, per-window attention)
+  that must fail, and its tool's run.
 
 Every kernel is timed with CUDA events in turns (plain, kernel, library,
 library, kernel, plain) beside its twin and, where one PyTorch call computes
@@ -104,6 +110,18 @@ K5_FRAME = {(96, 1104, 1920, 0): 2, (96, 1104, 1920, 3): 2,
 # relative (int8 and T1 exact)
 T3_TOL = {"bfloat16": (2 ** -7, 1e-2), "int8": (2 ** -7, 2e-2)}
 T4_RTOL = 1e-3
+# K4 / K6 at imagenet swin_t's stages (batch 64 at 224 px, window 7, head
+# dim 32): (C, H = W, shift); then one window-8 shape (C, H = W, shift,
+# batch).  swin_t's stages hold 2, 2, 6 and 2 blocks, half of them shifted,
+# except the 7x7 stage, which drops its shift (shift 3 there is a kernel
+# check only); swin_t is not ported, so no forward pass runs here.
+SWIN_T = ((96, 56, 0), (96, 56, 3), (192, 28, 0), (192, 28, 3),
+          (384, 14, 0), (384, 14, 3), (768, 7, 0), (768, 7, 3))
+SWIN_T_BATCH = 64
+WINDOW8 = (128, 64, 4, 8)
+# T2 against its twin (tests/test_torch_cuda.py): max abs err and the share
+# of bit-equal elements (the bf16 GEMMs sum in another order than the twin)
+T2_ATOL, T2_BIT_EQUAL = 0.05, 0.95
 
 
 def fail(msg: str):
@@ -122,11 +140,17 @@ def sh(cmd) -> str:
     return proc.stdout.strip()
 
 
-def bound(nbytes, flops, dtype="bfloat16"):
-    """(ms, "bytes" or "operations"): the least time for the work."""
+def bound_ops(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time for the work, whose
+    operations may run at more than one type's peak: {"bfloat16": flops,
+    "int8": ops}."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = sum(n / PEAK_FLOPS[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(nbytes, flops, dtype="bfloat16"):
+    return bound_ops(nbytes, {dtype: flops})
 
 
 def cuda_time(fn, torch):
@@ -666,6 +690,150 @@ def probe_phase(torch, probes, dev):
     return t1, t3, t4, launches, errs
 
 
+def swin_t_phase(torch, k4, rng, t, dev):
+    """K4 and K6 at imagenet swin_t's stage shapes (window 7, N = 49, head
+    dim 32) and one window-8 shape (N = 64), bf16 and fp32, against their
+    twins with K4's tolerances and controls (zero bias; shifted, the kernel
+    run unshifted); bf16 timed beside the twin and SDPA on the windowed
+    views with a float mask."""
+    import torch.nn.functional as F
+    from nunif_tpu_torch.modules.attention import (expand_relative_bias,
+                                                   shifted_window_mask)
+    from nunif_tpu_torch.modules.permute import window_partition2
+    rows = []
+    shapes = [(c, hw, shift, 7, SWIN_T_BATCH) for c, hw, shift in SWIN_T]
+    shapes.append(WINDOW8 + (8,))
+    for c, hw, shift, ws, batch in shapes:
+        heads, n, n_wh = c // 32, ws * ws, hw // ws
+        nw = batch * n_wh * n_wh
+        qkv = rng.standard_normal((batch, hw, hw, 3 * c), dtype=np.float32)
+        bias = expand_relative_bias(
+            t(rng.standard_normal(((2 * ws - 1) ** 2, heads))), ws)
+        for label in ("K4", "K6"):
+            if label == "K4":
+                kernel, plain = k4.fused_window_attention, k4.window_attention_plain
+                kw = dict(num_heads=heads, window=ws, shift=shift, n_wh=n_wh,
+                          n_ww=n_wh)
+            else:
+                kernel = k4.fused_window_attention_image
+                plain = k4.window_attention_image_plain
+                kw = dict(num_heads=heads, window=ws, shift=shift)
+            what = f"{label} window {ws} C={c} {batch}x{hw}x{hw} shift={shift}"
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[1]
+                qd = t(qkv, dtype)
+                arg = window_partition2(qd, ws).contiguous() if label == "K4" else qd
+                got = kernel(arg, bias, **kw)
+                torch.cuda.synchronize()
+                want = plain(arg, bias, **kw)
+                err, _ = check_close(got, want, K4_TOL[name], f"{what} {name}")
+                ctrl = [compare(kernel(arg, torch.zeros_like(bias), **kw), want,
+                                K4_TOL[name])]
+                if shift:
+                    ctrl.append(compare(kernel(arg, bias, **dict(kw, shift=0)),
+                                        want, K4_TOL[name]))
+                if any(ok for ok, _e, _r in ctrl):
+                    fail(f"{what} {name}: a control (zero bias or no wrap mask) "
+                         f"passes the check ({ctrl}): the check is blind")
+                del got, want
+                row = dict(kernel=label, C=c, HW=hw, window=ws, batch=batch,
+                           shift=shift, dtype=name, max_abs_err=err,
+                           control_errs=[e for _o, e, _r in ctrl])
+                if dtype == torch.bfloat16:
+                    qw = window_partition2(qd, ws).contiguous()
+                    q, k, v = qw.view(nw, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+                    mask = bias[None].expand(nw, heads, n, n)
+                    if shift:
+                        wrap = torch.from_numpy(shifted_window_mask(hw, hw, ws, shift))
+                        mask = mask + wrap.to(dev).repeat(batch, 1, 1)[:, None]
+                    mask = mask.to(dtype).contiguous()
+                    tm = compare_timed(
+                        lambda: kernel(arg, bias, **kw),
+                        lambda: plain(arg, bias, **kw), torch,
+                        library=lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask))
+                    bound_ms, bound_by = bound(nw * n * 4 * c * 2 + bias.numel() * 4,
+                                               4 * nw * n * n * c)
+                    row.update(ms=tm["kernel"], plain_ms=tm["plain"],
+                               library_ms=tm["library"], bound_ms=bound_ms,
+                               bound_by=bound_by)
+                    del q, k, v, mask, qw
+                print(f"{what} {name}: {row}", flush=True)
+                rows.append(row)
+                del qd, arg
+                torch.cuda.empty_cache()
+    return rows
+
+
+def t2_phase(torch, probes, dev):
+    """T2 at both tool shapes, all ten variants, against its twin on the
+    check tables (weights N(0, 1 / fan-in), biases N(0, 0.1), bias table
+    N(0, 1)); for the whole attention, controls that must fail: a zero bias
+    table and per-window attention (-1000 across windows).  Then the port's
+    tool at both shapes, which times every variant with the tool's draws
+    (bias table N(0, 0.02)) and gives the launches."""
+    from nunif_tpu_torch.tools import microbench_swin_pieces as tool
+
+    def agree(got, want):
+        d = (got.float() - want.float()).abs()
+        err, same = float(d.max()), float((got == want).float().mean())
+        ok = bool(d.isfinite().all()) and err <= T2_ATOL and same >= T2_BIT_EQUAL
+        return ok, err, same
+
+    errs = {}
+    for c in (96, 192):
+        g, cw = tool.default_g(c), tool.default_cw(c)
+        x = tool.image(c, device=dev)
+        win = torch.arange(g * 36, device=dev) // 36
+        same_win = (win[:, None] == win[None, :]).repeat(1, c // 16)
+        for name in tool.VARIANTS:
+            v = tool.variant(name)
+            wts = tool.weights(c, g, v["dense_int8"], check=True, seed=c,
+                               device=dev)
+            kw = dict(G=g, rh=tool.RH, cw=cw, **v)
+            got = probes.swin_pieces(x, *wts, **kw)
+            torch.cuda.synchronize()
+            want = probes.swin_pieces_plain(x, *wts, **kw)
+            ok, err, same = agree(got, want)
+            what = f"T2 {name} C={c} G={g}"
+            if not ok:
+                fail(f"{what}: max abs err {err}, bit-equal {same:.4f} (limits "
+                     f"{T2_ATOL}, {T2_BIT_EQUAL})")
+            if name == "W" and not torch.equal(got, x):
+                fail(f"{what}: not a copy")
+            ctrl = []
+            if v["pieces"] == 4:
+                bias = wts[8]
+                for control in (torch.zeros_like(bias),
+                                torch.where(same_win, bias,
+                                            torch.full_like(bias, -1000.0))):
+                    ctrl.append(agree(probes.swin_pieces(
+                        x, *wts[:8], control, *wts[9:], **kw), want))
+                if any(c_ok for c_ok, _e, _s in ctrl):
+                    fail(f"{what}: a control (zero bias, per-window attention) "
+                         f"passes the check ({ctrl}): the check is blind")
+            print(f"{what}: max abs err {err:.3g}, bit-equal {same:.5f}; "
+                  f"controls (zero bias, per-window) "
+                  f"{[(round(e, 3), round(s_, 4)) for _o, e, s_ in ctrl]}",
+                  flush=True)
+            errs[(c, name)] = err
+            del got, want, wts
+            torch.cuda.empty_cache()
+        del x
+    probes.swin_pieces.launches = 0
+    runs = tool.run(96, None, list(tool.VARIANTS)) + \
+        tool.run(192, None, list(tool.VARIANTS))
+    torch.cuda.synchronize()
+    launches = probes.swin_pieces.launches
+    print(f"T2 tool launches: {launches}", flush=True)
+    if not launches:
+        fail("T2: the tool did not launch the kernel")
+    for r in runs:
+        r["max_abs_err"] = errs[(r["C"], r["name"])]
+        r["bound_ms"], r["bound_by"] = bound_ops(r["nbytes"], r["ops"])
+    return runs, launches
+
+
 def render_twin_psnr(torch, program, frame, y, pairs):
     """PSNR of the kernel path's frame y against the same frame rendered
     with the given kernels replaced by their twins, and the share of
@@ -757,7 +925,8 @@ def main() -> int:
         fail(str(e))
     print(f"built {lib_path} in {seconds:.1f} s", flush=True)
     print("\n".join(line for line in log.splitlines()
-                    if "registers" in line or "spill" in line), flush=True)
+                    if "registers" in line or "spill" in line
+                    or "entry function" in line), flush=True)
 
     rng = np.random.default_rng(0)
 
@@ -952,6 +1121,11 @@ def main() -> int:
     # 7b. K6 at every 4xl shape in image layout, and its module path
     phase("k6")
     k6_rows, k6_launches = k6_phase(torch, k6, rng, t, dev)
+
+    # 7c. K4 and K6 at imagenet swin_t's window-7 stages and a window-8 shape
+    phase("k4 k6 windows 7 and 8")
+    swin_t_rows = [r for r in swin_t_phase(torch, k4, rng, t, dev)
+                   if r["dtype"] == "bfloat16"]
 
     # 8. one 540p frame through the port's swin_unet_4xl path
     phase("frame 4xl")
@@ -1165,6 +1339,10 @@ def main() -> int:
     phase("probes")
     t1, t3, t4, probe_launches, probe_errs = probe_phase(torch, probes, dev)
 
+    # 16. T2 against its twin at both tool shapes, then its tool
+    phase("t2")
+    t2_runs, t2_launches = t2_phase(torch, probes, dev)
+
     k1_bf16 = [r for r in k1_rows if r["dtype"] == "bfloat16"]
     # launches per frame of each K1 main-path shape; swin4's first block
     # (C = 192, with skip) is counted at the timed shape without skip
@@ -1217,6 +1395,14 @@ def main() -> int:
     t3_bound_i8 = bound(t3["int8"]["nbytes"], t3["int8"]["flops"], "int8")
     t4_bounds = [bound(r["nbytes"], r["flops"], "int8" if r["int8"] else "bfloat16")
                  for r in t4]
+    t2_main = next(r for r in t2_runs if (r["C"], r["name"]) == (96, "P4"))
+
+    def wide(label):
+        """K4 or K6 at the window-7 / window-8 shapes: kernel checks only,
+        since swin_t is not ported."""
+        return [dict((k, r[k]) for k in (
+            "C", "HW", "window", "batch", "shift", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")) for r in swin_t_rows if r["kernel"] == label]
     kernels = {"kernels": [
         {"name": "stem_conv3x3", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/conv3x3.cu",
@@ -1253,7 +1439,7 @@ def main() -> int:
          "bound_ms": k4_sum("bound_ms"),
          "bound_by": bound_by(k4_bf16, lambda r: K4_FRAME[
              (r["C"], r["H"], r["W"], r["shift"])]),
-         "library_ms": k4_sum("library_ms")},
+         "library_ms": k4_sum("library_ms"), "windows_7_8": wide("K4")},
         {"name": "sdpa", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/flash_attn.cu",
          "replaces": "nunif_tpu/ops/sdpa.py:49",
@@ -1283,7 +1469,7 @@ def main() -> int:
          "bound_by": bound_by(k6_bf16, lambda r: K4_FRAME[
              (r["C"], r["H"], r["W"], r["shift"])]),
          "library_ms": k6_sum("library_ms"),
-         "k4_copies_ms": k6_sum("k4_copies_ms")},
+         "k4_copies_ms": k6_sum("k4_copies_ms"), "windows_7_8": wide("K6")},
         {"name": "strip_relayout", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/probe_strip.cu",
          "replaces": "tools/microbench_strip.py:54",
@@ -1317,6 +1503,18 @@ def main() -> int:
                          plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                          bound_ms=b[0], bound_by=b[1])
                     for r, b in zip(t4, t4_bounds)]},
+        {"name": "swin_pieces", "route": "cuda",
+         "source": "nunif_tpu_torch/csrc/probe_swin_pieces.cu",
+         "replaces": "tools/microbench_swin_pieces.py:163",
+         "launches": t2_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in t2_runs),
+         # P4 at C = 96 (1104x1920, G 4); every variant and shape below
+         "ms": t2_main["ms"], "plain_ms": t2_main["plain_ms"],
+         "bound_ms": t2_main["bound_ms"], "bound_by": t2_main["bound_by"],
+         "library_ms": t2_main["library_ms"],
+         "variants": [dict((k, r[k]) for k in (
+             "C", "G", "name", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "max_abs_err")) for r in t2_runs]},
     ]}
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps(kernels))

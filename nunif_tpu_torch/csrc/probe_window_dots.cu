@@ -46,30 +46,6 @@ constexpr int kDotWarps = kDotThreads / 32;
 constexpr int kNChunk = 4;  // 8-column MMA tiles a warp accumulates at once
 constexpr double kInt8Scale = 1.0 / (127.0 * 127.0);
 
-// One MMA on 32-bit words: a k-step is 8 words (16 bf16 or 32 int8) for
-// both types, so fragments are addressed alike.  Lane 4g + t holds
-// A words (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) and B^T words
-// (g, t), (g, t + 4); accumulators c[0..1] at (g, 2t..), c[2..3] at (g + 8).
-template <typename T> struct DotMma;
-template <> struct DotMma<__nv_bfloat16> {
-  using Acc = float;
-  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    mma_16816(c, a, b0, b1);
-  }
-};
-template <> struct DotMma<int8_t> {
-  using Acc = int;
-  static __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
 // A B for A in shared memory (m_tiles x 16 rows of k_words words, row stride
 // lda words) and B given as B^T (n_tiles x 8 rows of k_words words, stride
 // ldb); epi(r, c, v_c, v_c+1) for every row r and even column c.  Strides

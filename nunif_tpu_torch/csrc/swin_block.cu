@@ -62,6 +62,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 144;     // token rows per block (9 MMA tiles)
 constexpr int kWarpMTiles = 5;    // MMA row tiles one warp accumulates
+constexpr int kAttnTiles = 3;     // 16-key attention tiles: windows of N <= 48
 
 struct SwinArgs {
   const void* x;
@@ -125,58 +126,11 @@ __host__ __device__ SmemLayout smem_layout(int wpb, int rows_pad, int ldx, int l
 // fp32; for bf16 it is in mma fragment order: for k-step ks and 8-column
 // tile j, lane 4g + t holds W[16 ks + 2t + {0, 1, 8, 9}][8 j + g].
 template <typename T, typename Epi>
-__device__ __forceinline__ void block_gemm(const T* A, int lda, const void* __restrict__ Wg,
+__device__ __forceinline__ void dense_gemm(const T* A, int lda, const void* __restrict__ Wg,
                                            const float* __restrict__ bias, int K, int n_out,
                                            int rows_pad, Epi epi) {
   if constexpr (IsBF16<T>::value) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane >> 2, t = lane & 3;
-    const int mt = rows_pad / 16, ksteps = K / 16, n8 = n_out / 8;
-    // work item = (16-wide column panel, run of <= kWarpMTiles row tiles);
-    // each weight fragment feeds every row tile of its run
-    const int splits = (mt + kWarpMTiles - 1) / kWarpMTiles;
-    const int mper = (mt + splits - 1) / splits;
-    const int items = (n_out / 16) * splits;
-    const uint2* wf = static_cast<const uint2*>(Wg);
-    const T* a_lane = A + (size_t)(lane % 16) * lda + (lane / 16) * 8;
-    for (int it = warp; it < items; it += kWarps) {
-      const int n = it / splits, m0 = (it % splits) * mper;
-      const int mcount = mt - m0 < mper ? mt - m0 : mper;
-      const uint2* wn = wf + (size_t)(2 * n) * 32 + lane;
-      float acc[kWarpMTiles][2][4] = {};
-      uint2 b0 = __ldg(wn), b1 = __ldg(wn + 32);
-      for (int k = 0; k < ksteps; ++k) {
-        uint2 c0 = b0, c1 = b1;
-        if (k + 1 < ksteps) {  // next fragment in flight while this one is used
-          c0 = __ldg(wn + (size_t)(k + 1) * n8 * 32);
-          c1 = __ldg(wn + (size_t)(k + 1) * n8 * 32 + 32);
-        }
-#pragma unroll
-        for (int m = 0; m < kWarpMTiles; ++m) {
-          if (m < mcount) {
-            uint32_t a[4];
-            ldmatrix_x4(a, a_lane + (size_t)(m0 + m) * 16 * lda + k * 16);
-            mma_16816(acc[m][0], a, b0.x, b0.y);
-            mma_16816(acc[m][1], a, b1.x, b1.y);
-          }
-        }
-        b0 = c0;
-        b1 = c1;
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = n * 16 + j * 8 + 2 * t;
-        const float bias0 = __ldg(bias + c), bias1 = __ldg(bias + c + 1);
-#pragma unroll
-        for (int m = 0; m < kWarpMTiles; ++m) {
-          if (m < mcount) {
-            const int r = (m0 + m) * 16 + g;
-            epi(r, c, acc[m][j][0] + bias0, acc[m][j][1] + bias1);
-            epi(r + 8, c, acc[m][j][2] + bias0, acc[m][j][3] + bias1);
-          }
-        }
-      }
-    }
+    block_gemm<T, kWarps, kWarpMTiles>(A, lda * (int)sizeof(T), Wg, bias, K, n_out, rows_pad, epi);
   } else {
     const T* W = static_cast<const T*>(Wg);
     const int half = n_out / 2;
@@ -258,7 +212,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
   __syncthreads();
 
   // 3. qkv projection
-  block_gemm<T>(X, p.ldx, p.wqkv, p.bqkv, C, 3 * C, p.rows_pad,
+  dense_gemm<T>(X, p.ldx, p.wqkv, p.bqkv, C, 3 * C, p.rows_pad,
                 [&](int r, int c, float v0, float v1) { store2(Q + (size_t)r * p.ldq + c, v0, v1); });
   __syncthreads();
 
@@ -277,7 +231,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
     T* base = Q + (size_t)wl * N * p.ldq;
     const float* rb = p.relbias + (size_t)h * N * N;
     if constexpr (IsBF16<T>::value) {
-      attention_bf16(base, p.ldq, C, h, hd, N, mi, p.scale, rb, mask);
+      attention_bf16<kAttnTiles>(base, p.ldq, C, h, hd, N, mi, p.scale, rb, mask);
     } else {
       // the output of query i overwrites q_i, which only this warp reads
       float* pr = reinterpret_cast<float*>(smem + L.prob_off) + warp * N;
@@ -287,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
   __syncthreads();
 
   // 5. out projection + residual 1; y1 overwrites x in place
-  block_gemm<T>(Q, p.ldq, p.wproj, p.bproj, C, C, p.rows_pad,
+  dense_gemm<T>(Q, p.ldq, p.wproj, p.bproj, C, C, p.rows_pad,
                 [&](int r, int c, float v0, float v1) {
                   T* xr = X + (size_t)r * p.ldx + c;
                   const float2 res = load2(xr);
@@ -296,7 +250,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
   __syncthreads();
 
   // 6. fc1 + exact GELU into the qkv buffer
-  block_gemm<T>(X, p.ldx, p.wfc1, p.bfc1, C, p.hidden, p.rows_pad,
+  dense_gemm<T>(X, p.ldx, p.wfc1, p.bfc1, C, p.hidden, p.rows_pad,
                 [&](int r, int c, float v0, float v1) {
                   store2(Q + (size_t)r * p.ldq + c,
                          0.5f * v0 * (1.f + erff(v0 * 0.70710678118654752f)),
@@ -306,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_kernel(SwinArgs p) {
 
   // 7. fc2 + residual 2, scattered back to the image (K1) or the token rows
   //    (K5)
-  block_gemm<T>(Q, p.ldq, p.wfc2, p.bfc2, p.hidden, C, p.rows_pad,
+  dense_gemm<T>(Q, p.ldq, p.wfc2, p.bfc2, p.hidden, C, p.rows_pad,
                 [&](int r, int c, float v0, float v1) {
                   const long long off = tok[r];
                   if (off >= 0) {

@@ -23,7 +23,9 @@
 
 namespace nunif {
 
-constexpr int kAttnTiles = 3;  // bf16 attention: N <= 48 tokens a window
+// bf16 attention covers 16 Tiles keys: 3 tiles (N <= 48: window 6, K1, K5,
+// K4 / K6) or 4 (N <= 64: windows 7 and 8, K4 / K6 only)
+constexpr int kMaxAttnTiles = 4;
 constexpr int kMaxHeadDim = 64;
 
 // Region label of token t in window (last_r, last_c) of the rolled grid:
@@ -105,9 +107,12 @@ __device__ __forceinline__ float logits_row(float* s, int i, int N, float scale,
 }
 
 // bf16 attention of queries 16 mi .. 16 mi + 15 of one (window, head) on
-// tensor cores.  base: the window's first qkv row.  Rows past N (next window
-// or zeroed padding, up to row 16 * ceil(N / 16) - 1) are read but their
-// scores are dropped and their outputs are not stored.
+// tensor cores, N <= 16 Tiles.  base: the window's first qkv row.  Rows past
+// N (next window or zeroed padding, up to row 16 * ceil(N / 16) - 1) are read
+// but their scores are dropped and their outputs are not stored.  Tiles
+// sizes the score registers (8 fp32 a lane a tile), so the smallest count
+// that covers N is instantiated.
+template <int Tiles>
 __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int C, int h, int hd,
                                                int N, int mi, float scale, const float* rb,
                                                WindowMask mask) {
@@ -124,9 +129,9 @@ __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int
                               (lane / 16) * 8);
   // S = Q K^T: 8-key tiles, lane holds keys 8 jn + 2t + {0, 1} of query
   // rows g and g + 8
-  float s[2 * kAttnTiles][4] = {};
+  float s[2 * Tiles][4] = {};
 #pragma unroll
-  for (int jk = 0; jk < kAttnTiles; ++jk) {
+  for (int jk = 0; jk < Tiles; ++jk) {
     if (jk < nt) {
 #pragma unroll
       for (int kk = 0; kk < kMaxHeadDim / 16; ++kk) {
@@ -149,7 +154,7 @@ __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int
   const float ninf = __int_as_float(0xff800000);
   float m0 = ninf, m1 = ninf;
 #pragma unroll
-  for (int jn = 0; jn < 2 * kAttnTiles; ++jn) {
+  for (int jn = 0; jn < 2 * Tiles; ++jn) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int key = jn * 8 + 2 * t + e;
@@ -166,7 +171,7 @@ __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int
   m1 = quad_max(m1);
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int jn = 0; jn < 2 * kAttnTiles; ++jn) {
+  for (int jn = 0; jn < 2 * Tiles; ++jn) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int key = jn * 8 + 2 * t + e;
@@ -180,9 +185,9 @@ __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int
   const float inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
   // normalised probabilities, rounded to bf16, as A fragments of P V: two
   // adjacent 8-key accumulator tiles are one 16-key A tile
-  uint32_t pa[kAttnTiles][4];
+  uint32_t pa[Tiles][4];
 #pragma unroll
-  for (int kc = 0; kc < kAttnTiles; ++kc) {
+  for (int kc = 0; kc < Tiles; ++kc) {
     pa[kc][0] = pack_bf16x2(s[2 * kc][0] * inv0, s[2 * kc][1] * inv0);
     pa[kc][1] = pack_bf16x2(s[2 * kc][2] * inv1, s[2 * kc][3] * inv1);
     pa[kc][2] = pack_bf16x2(s[2 * kc + 1][0] * inv0, s[2 * kc + 1][1] * inv0);
@@ -190,7 +195,7 @@ __device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int
   }
   float o[kMaxHeadDim / 8][4] = {};
 #pragma unroll
-  for (int kc = 0; kc < kAttnTiles; ++kc) {
+  for (int kc = 0; kc < Tiles; ++kc) {
     if (kc < nt) {
 #pragma unroll
       for (int nd = 0; nd < kMaxHeadDim / 16; ++nd) {

@@ -29,6 +29,9 @@
 // P V on mma.sync m16n8k16 with the scores and softmax in registers.  The
 // output overwrites q in shared memory and leaves in 16-byte stores.
 // The fp32 variant keeps the data flow with FMA loops (attention_fma).
+// Windows of up to 64 tokens (window 8; imagenet swin_t's window 7 gives
+// N = 49, head dim 32): the bf16 attention is instantiated with 3 key tiles
+// for N <= 48 and 4 for 48 < N <= 64, so window 6 keeps its registers.
 //
 // K6 replaces nunif_tpu/ops/swin_attention.py:fused_window_attention_image
 // (Pallas, kernel _kernel_img): qkv (B, H, W, 3C), already rolled, in;
@@ -75,7 +78,8 @@ __device__ __forceinline__ long long token_offset(const WinArgs& p, int w, int t
   return (((long long)(w / per_img) * p.n_wh * p.ws + row) * p.n_ww * p.ws + col) * width;
 }
 
-template <typename T>
+// Tiles: the bf16 attention's 16-key tiles (N <= 16 Tiles); unused for fp32.
+template <typename T, int Tiles>
 __global__ void __launch_bounds__(kWaThreads) window_attn_kernel(WinArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
   T* S = reinterpret_cast<T*>(smem);
@@ -108,7 +112,8 @@ __global__ void __launch_bounds__(kWaThreads) window_attn_kernel(WinArgs p) {
     const int qblocks = (N + 15) / 16;
     for (int u = warp; u < p.group * qblocks; u += kWaWarps) {
       const int h = u / qblocks, mi = u % qblocks;
-      attention_bf16(S, p.ld, cg, h, p.hd, N, mi, p.scale, rb + (size_t)h * N * N, mask);
+      attention_bf16<Tiles>(S, p.ld, cg, h, p.hd, N, mi, p.scale, rb + (size_t)h * N * N,
+                            mask);
     }
   } else {
     float* pr = reinterpret_cast<float*>(smem + align_up((size_t)p.rows * p.ld * sizeof(T), 128)) +
@@ -131,7 +136,7 @@ __global__ void __launch_bounds__(kWaThreads) window_attn_kernel(WinArgs p) {
 template <typename T>
 cudaError_t launch_window_attn(WinArgs p, cudaStream_t stream) {
   const int vec = 16 / (int)sizeof(T);
-  if (p.N < 1 || p.N > kAttnTiles * 16 || p.heads < 1 || p.C % p.heads || p.hd % 16 ||
+  if (p.N < 1 || p.N > kMaxAttnTiles * 16 || p.heads < 1 || p.C % p.heads || p.hd % 16 ||
       p.hd > kMaxHeadDim || p.shift < 0 || p.shift >= p.ws || p.n_wh < 1 || p.n_ww < 1 ||
       p.nw % (p.n_wh * p.n_ww))
     return cudaErrorInvalidValue;
@@ -148,12 +153,16 @@ cudaError_t launch_window_attn(WinArgs p, cudaStream_t stream) {
   p.ld = 3 * p.group * p.hd + vec;  // +16 bytes: conflict-free ldmatrix rows
   const size_t smem = wa_smem_bytes<T>(p);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(window_attn_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = window_attn_kernel<T, 3>;
+  if constexpr (IsBF16<T>::value) {
+    if (p.N > 48) kernel = window_attn_kernel<T, 4>;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)p.nw * (p.heads / p.group);
   if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  window_attn_kernel<T><<<(unsigned)blocks, kWaThreads, smem, stream>>>(p);
+  kernel<<<(unsigned)blocks, kWaThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -62,6 +62,10 @@ _SIGNATURES = {
     "nunif_window_dots": [_I] + [_P] * 4 + [_I] * 6 + [_P],
     # dtype, q, kt, vt, out, nw, N, C, P, reps, bw, stream
     "nunif_window_dots_repeat": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    # x, (w, b, s) of qkv, proj, fc1, fc2, bias, out, H, W, C, G, rh, cw,
+    # pieces, dense_int8, scores_int8, w_scale, cut, qscale, eps, inv127,
+    # stream
+    "nunif_swin_pieces": [_P] * 15 + [_I] * 9 + [_F] * 5 + [_P],
 }
 
 
@@ -158,13 +162,17 @@ def check(rc: int, what: str):
 
 
 def mma_weight_layout(w):
-    """(K, N) bf16 weight -> the kernels' mma.sync m16n8k16 B fragments,
-    shape (K/16, N/8, 32, 4): lane 4g + t of the fragment for k-step ks and
-    8-column tile j holds W[16 ks + 2t + (0, 1, 8, 9)][8 j + g], so a kernel
-    fetches a whole fragment with one 8-byte load per lane."""
+    """(K, N) bf16 or int8 weight -> the kernels' mma.sync B fragments,
+    m16n8k16 (bf16) or m16n8k32 (int8): a k-step is 8 32-bit words of e = 2
+    (bf16) or 4 (int8) values, and lane 4g + t of the fragment for k-step ks
+    and 8-column tile j holds words t and t + 4 of column 8 j + g, i.e.
+    W[8 e ks + e t + (0 .. e - 1, 4 e .. 5 e - 1)][8 j + g]; shape
+    (K / 8e, N/8, 32, 2e), so a kernel fetches a whole fragment with one
+    8-byte load per lane."""
     k, n = w.shape
-    return (w.reshape(k // 16, 2, 4, 2, n // 8, 8)
-            .permute(0, 4, 5, 2, 1, 3).reshape(k // 16, n // 8, 32, 4)
+    e = 4 // w.element_size()
+    return (w.reshape(k // (8 * e), 2, 4, e, n // 8, 8)
+            .permute(0, 4, 5, 2, 1, 3).reshape(k // (8 * e), n // 8, 32, 2 * e)
             .contiguous())
 
 

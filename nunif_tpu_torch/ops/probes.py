@@ -1,4 +1,4 @@
-"""Hopper probes T1, T3 and T4: the questions of the JAX package's
+"""Hopper probes T1-T4: the questions of the JAX package's
 ``tools/microbench_*`` Pallas probes, asked of the H100.
 
 T1 ``strip_pass`` / ``strip_relayout``: replaces
@@ -14,6 +14,12 @@ device memory (``csrc/probe_window_dots.cu``).
 T4 ``window_dots_repeat``: replaces ``tools/microbench_mxu_dots.py:bench``
 (``_mk_kernel``).  The dot pair repeated on resident operands with a data
 dependency (``csrc/probe_window_dots.cu``).
+
+T2 ``swin_pieces``: replaces ``tools/microbench_swin_pieces.py:build``
+(``_kernel``).  A whole Swin block on groups of G windows, cut after each
+piece, with W8A8 int8 dense layers and int8 scores
+(``csrc/probe_swin_pieces.cu``).  Its roundings follow the tool as XLA
+compiles it (``quant_rows``), which the CPU tests hold it to bit for bit.
 
 Each has a plain PyTorch twin beside it; the wrappers take the twins only
 for CPU tensors and launch their kernel or raise for CUDA tensors.
@@ -96,8 +102,8 @@ strip_relayout.launches = 0
 
 
 def _bmm_exact(a, b):
-    """Integer batched product, exact (float64 sums of int8 products)."""
-    return torch.bmm(a.double(), b.double())
+    """Integer (batched) product, exact (float64 sums of int8 products)."""
+    return torch.matmul(a.double(), b.double())
 
 
 def window_dots_plain(q, khat, vhat):
@@ -239,3 +245,245 @@ def window_dots_repeat(q, khat, vhat, *, packed=None):
 
 
 window_dots_repeat.launches = 0
+
+
+# ---- T2 --------------------------------------------------------------------
+
+PIECES_WINDOW, PIECES_TOKENS, PIECES_HEAD_DIM = 6, 36, 16
+LOG2E = 1.4426950408889634
+# the tool's constants, as its bf16 arithmetic rounds them (weak-typed
+# Python floats take the array's dtype): 1.0001 -> 1.0, 0.001, 1e-6, 1/127
+_W_SCALE, _CUT, _EPS, _INV127 = 1.0001, 0.001, 1e-6, 1.0 / 127.0
+_PIECES_CHUNK = 2048  # groups a twin step computes (bounds its memory)
+
+
+def _bf(v):
+    """A Python float rounded to bf16, as a float."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+def quant_rows(x):
+    """Per-row symmetric int8 quantization of bf16 rows, as the tool's
+    ``_quant_rows`` runs once XLA has compiled it: amax and max(amax, 1e-6)
+    are bf16 values, but r = 127 / amax and the scale amax * bf16(1 / 127)
+    stay fp32 (XLA's excess precision drops their bf16 roundings); x * r
+    runs in fp32 and rounds half to even.  Returns (xq int8, scale fp32
+    (..., 1)); the tool returns the scale rounded to bf16, and its dense
+    layers use it unrounded."""
+    amax = torch.clamp_min(x.abs().amax(-1, keepdim=True).float(), _bf(_EPS))
+    r = torch.div(torch.full_like(amax, 127.0), amax)  # not 127 * (1 / amax)
+    xq = torch.round(x.float() * r).to(torch.int8)
+    return xq, amax * _bf(_INV127)
+
+
+def _pieces_dense(a, w, b, s, dense_int8):
+    """The tool's ``_dense``: fp32 (a W + b); W8A8: a quantized per row,
+    y = f32(int32 acc) * row scale * column scale + b."""
+    if not dense_int8:
+        return a.float() @ w.float() + b.float()
+    aq, sa = quant_rows(a)
+    return (_bmm_exact(aq, w).float() * sa) * s.float() + b.float()
+
+
+def pieces_windows(x, rh, cw):
+    """(1, H, W, C) -> (windows, 36, C): blocks of rh x cw windows in
+    row-major order, windows row-major inside a block, tokens row-major
+    inside a window (the tool kernel's window order)."""
+    _b, h, w, c = x.shape
+    ws = PIECES_WINDOW
+    return x.reshape(h // (rh * ws), rh, ws, w // (cw * ws), cw, ws, c) \
+        .permute(0, 3, 1, 4, 2, 5, 6).reshape(-1, ws * ws, c)
+
+
+def pieces_unwindows(t, rh, cw, h, w):
+    """The inverse of ``pieces_windows``."""
+    ws, c = PIECES_WINDOW, t.shape[-1]
+    return t.reshape(h // (rh * ws), w // (cw * ws), rh, cw, ws, ws, c) \
+        .permute(0, 2, 4, 1, 3, 5, 6).reshape(1, h, w, c)
+
+
+def _pieces_groups(xg, mats, biases, scales, bias, *, pieces, dense_int8,
+                   scores_int8):
+    """The tool kernel on token groups xg (nb, G N, C) bf16."""
+    dt = torch.bfloat16
+    nb, ng, c = xg.shape
+    hd = PIECES_HEAD_DIM
+    heads = c // hd
+    xt = xg.reshape(nb * ng, c)
+
+    def dense(a, i):
+        return _pieces_dense(a, mats[i], biases[i], scales[i], dense_int8)
+
+    qkv = dense(xt, 0).to(dt).reshape(nb, ng, 3 * c)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    cut = torch.tensor(_CUT, dtype=dt)
+    if pieces >= 2:
+        # scores[t, h NG + s] = sum over head h's lanes of bf16(q scale) k
+        qs = q * torch.tensor(hd ** -0.5 * LOG2E, dtype=dt)
+        kh = k.reshape(nb, ng, heads, hd)
+        if scores_int8:
+            # here the compiled tool keeps its quantizer's bf16 scales
+            qq, sq = quant_rows(qs)
+            kq, sk = quant_rows(kh)
+            si = torch.einsum("btha,bsha->bths", qq.reshape(nb, ng, heads, hd)
+                              .double(), kq.double()).float()
+            sq, sk = (s.to(dt).float() for s in (sq, sk))
+            scores = (si * sq[..., None]) * sk[..., 0].permute(0, 2, 1)[:, None]
+        else:
+            scores = torch.einsum("btha,bsha->bths",
+                                  qs.float().reshape(nb, ng, heads, hd),
+                                  kh.float())
+        scores = scores.reshape(nb, ng, heads * ng)
+    if pieces >= 3:
+        e = torch.exp2(torch.clamp(scores + bias.float(), -100.0, 60.0)).to(dt)
+    if pieces >= 4:
+        e4 = e.float().reshape(nb, ng, heads, ng)
+        num = torch.einsum("bths,bsha->btha", e4,
+                           v.float().reshape(nb, ng, heads, hd))
+        attn = (num / e4.sum(-1, keepdim=True)).reshape(nb, ng, c).to(dt)
+    elif pieces == 3:
+        attn = e[..., :c] * cut
+    elif pieces == 2:
+        attn = (scores[..., :c] * _CUT).to(dt)
+    elif pieces == 1:
+        head0 = torch.zeros(c, dtype=dt)
+        head0[:hd] = 1
+        attn = (k + v) * head0.to(xg.device) * cut
+    else:
+        attn = q * cut
+    attn = attn.reshape(nb * ng, c)
+    y1 = (dense(attn, 1) + xt.float()).to(dt)
+    h1 = dense(y1, 2)
+    h1 = (torch.sigmoid(1.702 * h1) * h1).to(dt)
+    out = (dense(h1, 3) + y1.float()).to(dt)
+    return out.reshape(nb, ng, c)
+
+
+def swin_pieces_plain(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
+                      bias, sqkv, sproj, sfc1, sfc2, *, G, rh, cw, pieces,
+                      dense_int8=False, scores_int8=False):
+    """Twin of T2: the tool kernel's piecewise Swin block on a bf16 image
+    (1, H, W, C), window 6, heads C / 16, in groups of G consecutive windows
+    of each block of rh x cw windows (``pieces_windows``).
+
+    pieces -1 (W): x * bf16(1.0001), a copy.  Otherwise qkv = bf16(x Wqkv),
+    then the attention cut after piece ``pieces`` (0: q; 1: k + v on head
+    0's lanes; 2: the scores; 3: e = bf16(exp2(clip(scores + bias, -100,
+    60)))), each consumed as bf16(t * 0.001), or whole (4: attention over
+    all G N tokens of the group per head, no max subtraction, fp32 sums of
+    the bf16 e), then y1 = bf16(attn Wproj + x), h1 = bf16(sigmoid(1.702 h)
+    h) for h = y1 Wfc1, out = bf16(h1 Wfc2 + y1).  ``dense_int8``: W8A8
+    dense layers (int8 weights with per-column scales ``s*``);
+    ``scores_int8``: the scores from per-row int8 q (all C lanes) and khat
+    (one head's lanes).  ``bias`` is (G N, heads G N) fp32."""
+    dt = torch.bfloat16
+    _b, h, w, c = x.shape
+    if pieces < 0:
+        return (x * torch.tensor(_W_SCALE, dtype=dt).to(x.device)).to(dt)
+    mats = (wqkv, wproj, wfc1, wfc2)
+    biases = (bqkv, bproj, bfc1, bfc2)
+    scales = (sqkv, sproj, sfc1, sfc2)
+    ng = G * PIECES_TOKENS
+    xg = pieces_windows(x, rh, cw).reshape(-1, ng, c)
+    out = torch.cat([_pieces_groups(
+        xg[i:i + _PIECES_CHUNK], mats, biases, scales, bias, pieces=pieces,
+        dense_int8=dense_int8, scores_int8=scores_int8)
+        for i in range(0, xg.shape[0], _PIECES_CHUNK)])
+    return pieces_unwindows(out, rh, cw, h, w)
+
+
+class PackedPieces(NamedTuple):
+    """T2's dense weights as the kernel reads them: qkv, proj, fc1, fc2 in
+    mma fragment order (bf16, or int8 for W8A8), their fp32 biases and fp32
+    per-column weight scales."""
+    dense_int8: bool
+    mats: tuple
+    biases: tuple
+    scales: tuple
+
+
+def pack_pieces(wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, sqkv,
+                sproj, sfc1, sfc2, *, dense_int8) -> PackedPieces:
+    """Arrange T2's weights for the kernel once; pass the result as
+    ``packed=`` so that calls skip this work (the tool keeps its weights
+    resident, too)."""
+    dt = torch.int8 if dense_int8 else torch.bfloat16
+    return PackedPieces(
+        dense_int8,
+        tuple(_build.mma_weight_layout(w.to(dt).contiguous())
+              for w in (wqkv, wproj, wfc1, wfc2)),
+        tuple(b.float().contiguous() for b in (bqkv, bproj, bfc1, bfc2)),
+        tuple(s.float().contiguous() for s in (sqkv, sproj, sfc1, sfc2)))
+
+
+def _check_pieces(what, x, weights, bias, G, rh, cw, pieces, dense_int8):
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[0] != 1 \
+            or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be a contiguous 16-byte aligned "
+                         f"bf16 (1, H, W, C), got {x.dtype} {tuple(x.shape)}")
+    _b, h, w, c = x.shape
+    ws, n = PIECES_WINDOW, PIECES_TOKENS
+    if c % 32 or G < 1 or rh < 1 or cw < 1 or (rh * cw) % G \
+            or h % (rh * ws) or w % (cw * ws):
+        raise ValueError(f"{what}: {h}x{w}x{c} with blocks of {rh}x{cw} "
+                         f"windows of {ws} in groups of {G} (C a multiple of "
+                         "32, G dividing rh * cw)")
+    if pieces not in (-1, 0, 1, 2, 3, 4):
+        raise ValueError(f"{what}: pieces {pieces} not in -1 .. 4")
+    hid, heads = 2 * c, c // PIECES_HEAD_DIM
+    expect = {"wqkv": (c, 3 * c), "bqkv": (3 * c,), "wproj": (c, c),
+              "bproj": (c,), "wfc1": (c, hid), "bfc1": (hid,),
+              "wfc2": (hid, c), "bfc2": (c,), "sqkv": (3 * c,),
+              "sproj": (c,), "sfc1": (hid,), "sfc2": (c,),
+              "bias": (G * n, heads * G * n)}
+    wdt = torch.int8 if dense_int8 else torch.bfloat16
+    for name, t in zip(expect, (*weights, bias)):
+        if tuple(t.shape) != expect[name] or t.device != x.device:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} on {t.device}"
+                             f" != {expect[name]} on {x.device}")
+        if name.startswith("w") and t.dtype != wdt:
+            raise ValueError(f"{what}: {name} is {t.dtype}, not {wdt}")
+
+
+def swin_pieces(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, bias,
+                sqkv, sproj, sfc1, sfc2, *, G, rh, cw, pieces,
+                dense_int8=False, scores_int8=False, packed=None):
+    """T2: the tool kernel's piecewise Swin block on x (1, H, W, C) bf16,
+    arguments in the tool's order: weights (in, out) in bf16, or int8 with
+    ``dense_int8``; biases, scales and ``bias`` (G 36, heads G 36) fp32; see
+    ``swin_pieces_plain``.  ``packed``, from ``pack_pieces``, saves the
+    per-call re-arrangement.  Returns (1, H, W, C) bf16."""
+    what = "swin_pieces"
+    weights = (wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2)
+    scales = (sqkv, sproj, sfc1, sfc2)
+    kw = dict(G=G, rh=rh, cw=cw, pieces=pieces, dense_int8=dense_int8,
+              scores_int8=scores_int8)
+    if x.device.type == "cpu":
+        return swin_pieces_plain(x, *weights, bias, *scales, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    _check_pieces(what, x, weights + scales, bias, G, rh, cw, pieces,
+                  dense_int8)
+    if packed is None:
+        packed = pack_pieces(*weights, *scales, dense_int8=dense_int8)
+    elif packed.dense_int8 != dense_int8:
+        raise ValueError(f"{what}: weights packed for dense_int8="
+                         f"{packed.dense_int8}")
+    ptrs = []
+    for i in range(4):
+        ptrs += [t.data_ptr() for t in (packed.mats[i], packed.biases[i],
+                                        packed.scales[i])]
+    bias = bias.float().contiguous()
+    _b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    rc = _build.library().nunif_swin_pieces(
+        x.data_ptr(), *ptrs, bias.data_ptr(), out.data_ptr(), h, w, c, G, rh,
+        cw, pieces, int(dense_int8), int(scores_int8), _bf(_W_SCALE),
+        _bf(_CUT), _bf(PIECES_HEAD_DIM ** -0.5 * LOG2E), _bf(_EPS),
+        _bf(_INV127), _build.stream_ptr(x.device))
+    _build.check(rc, what)
+    swin_pieces.launches += 1
+    return out
+
+
+swin_pieces.launches = 0

@@ -15,6 +15,9 @@ LayerNorm.  Replaces ``nunif_tpu/ops/swin_attention.py:fused_window_attention``
 (Pallas; kernel ``_kernel``).  The Hopper kernel is ``csrc/window_attn.cu``.
 On swin_unet_4xl's 540p main path it runs 14 times per frame: C = 192 at
 576x960, C = 384 at 288x480, 144x240 and 576x960, 12 heads, 6x6 windows.
+It takes windows of up to 64 tokens, as the TPU kernel does: imagenet
+swin_t's window 7 (N = 49, head dim 32) and window 8.  K1 and K5 keep
+window 6, their only callers'.
 
 K5: K1's block on window-ordered tokens (nw, N, C).  Replaces
 ``nunif_tpu/ops/swin_attention.py:fused_swin_block`` (Pallas; kernel
@@ -333,8 +336,8 @@ def fused_window_attention(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
     computed, not stored).  bias: (heads, N, N) relative position bias, used
     in fp32.  Returns (nw, N, C) in qkv's dtype.
 
-    On CUDA: bf16 or fp32, contiguous 16-byte aligned qkv, N <= 48 and a
-    head dim that is a multiple of 16 and at most 64.
+    On CUDA: bf16 or fp32, contiguous 16-byte aligned qkv, N <= 64 (window
+    8) and a head dim that is a multiple of 16 and at most 64.
     """
     kw = dict(num_heads=num_heads, window=window, shift=shift, n_wh=n_wh,
               n_ww=n_ww)
@@ -349,9 +352,9 @@ def fused_window_attention(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
                          f"{qkv.stride()}")
     nw, n, c3 = qkv.shape
     c = c3 // 3
-    if n != window * window or n > 48:
+    if n != window * window or n > 64:
         raise ValueError(f"fused_window_attention: N={n} must be window^2 "
-                         f"for window {window} and at most 48")
+                         f"for window {window} and at most 64")
     if c3 % 3 or c % num_heads or (c // num_heads) % 16 or c // num_heads > 64:
         raise ValueError(f"fused_window_attention: 3C={c3} with {num_heads} "
                          "heads needs a head dim that is a multiple of 16 "
@@ -396,7 +399,7 @@ def fused_window_attention_image(qkv, bias, *, num_heads, window, shift):
     N, N), used in fp32.  Returns (B, H, W, C) in qkv's dtype.
 
     On CUDA: K4's limits (bf16 or fp32, contiguous 16-byte aligned qkv,
-    N <= 48, head dim a multiple of 16 and at most 64).
+    N <= 64, head dim a multiple of 16 and at most 64).
     """
     what = "fused_window_attention_image"
     kw = dict(num_heads=num_heads, window=window, shift=shift)
@@ -411,9 +414,9 @@ def fused_window_attention_image(qkv, bias, *, num_heads, window, shift):
     B, H, W, c3 = qkv.shape
     c = c3 // 3
     n = window * window
-    if H % window or W % window or n > 48:
+    if H % window or W % window or n > 64:
         raise ValueError(f"{what}: {H}x{W} not a multiple of window {window} "
-                         "or window^2 > 48")
+                         "or window^2 > 64")
     if c3 % 3 or c % num_heads or (c // num_heads) % 16 or c // num_heads > 64:
         raise ValueError(f"{what}: 3C={c3} with {num_heads} heads needs a "
                          "head dim that is a multiple of 16 and at most 64")

@@ -268,10 +268,14 @@ def test_iw3_kernels_reject_bad_inputs(cuda, monkeypatch):
 
 K4_TOL = {torch.bfloat16: (1 / 64, 1e-2), torch.float32: (0.0, 2e-5)}
 # (batch, n_wh, n_ww, window, shift, C, heads): head dims 16 and 32 (the
-# 4xl's), window 4 (N = 16, one query tile), a single window row
+# 4xl's), window 4 (N = 16, one query tile), a single window row; window 7
+# (N = 49: imagenet swin_t's stages, head dim 32, one window with a wrap
+# mask) and window 8 (N = 64), which take the 4-tile attention
 K4_CASES = [
     (1, 3, 5, 6, 0, 192, 12), (1, 3, 5, 6, 3, 192, 12),
     (2, 3, 4, 6, 3, 384, 12), (1, 4, 4, 4, 2, 64, 4), (1, 1, 5, 6, 3, 32, 2),
+    (2, 2, 3, 7, 0, 96, 3), (1, 2, 3, 7, 3, 192, 6), (1, 1, 1, 7, 3, 768, 24),
+    (1, 2, 2, 8, 4, 64, 2), (1, 3, 3, 8, 0, 128, 4),
 ]
 
 
@@ -347,6 +351,10 @@ def test_window_attn_rejects_bad_inputs(cuda):
     qkv = torch.zeros((15, 35, 96), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="window"):
         k1.fused_window_attention(qkv, bias, **kw)
+    qkv = torch.zeros((15, 81, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 64"):  # window 9
+        k1.fused_window_attention(qkv, torch.zeros((2, 81, 81), device=cuda),
+                                  **dict(kw, window=9))
     qkv = torch.zeros((15, 36, 96), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         k1.fused_window_attention(qkv, bias, **dict(kw, num_heads=3))
@@ -531,3 +539,67 @@ def test_window_dots_repeat_kernel_matches_twin(cuda, dtype, n, c, p):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-3, atol=0)
+
+
+# T2: the piecewise Swin block against its twin at every variant, on the
+# tool's check tables (weights N(0, 1 / fan-in), biases N(0, 0.1), bias
+# table N(0, 1)): max abs err 0.05 (K1's, for the same six rounding points)
+# and at least 95% of elements bit-equal (chip_smoke.py reads 98.9-100% on
+# an H100: the bf16 GEMMs sum in fp32 in another order than the twin's,
+# which flips ~1% of roundings at C = 192, while int8 sums are exact); for the whole
+# attention, a zero bias table and per-window attention (-1000 across
+# windows) must fail.
+T2_ATOL, T2_BIT_EQUAL = 0.05, 0.95
+T2_CASES = [(32, 2, 1, 2, 12, 24), (96, 4, 1, 16, 12, 192),
+            (192, 2, 1, 8, 12, 96)]
+
+
+def _t2_agree(got, want):
+    d = (got.float() - want.float()).abs()
+    return bool(d.isfinite().all()) and float(d.max()) <= T2_ATOL and \
+        float((got == want).float().mean()) >= T2_BIT_EQUAL
+
+
+@pytest.mark.parametrize("name", ["W", "P0", "P1", "P2", "P3", "P4", "P0q",
+                                  "P4q", "P4s", "P4qs"])
+@pytest.mark.parametrize("c,g,rh,cw,h,w", T2_CASES)
+def test_swin_pieces_kernel_matches_twin(cuda, name, c, g, rh, cw, h, w):
+    from nunif_tpu_torch.ops import probes
+    from nunif_tpu_torch.tools import microbench_swin_pieces as tool
+    v = tool.variant(name)
+    wts = tool.weights(c, g, v["dense_int8"], check=True, seed=c, device=cuda)
+    x = tool.image(c, h, w, seed=c + 1, device=cuda)
+    kw = dict(G=g, rh=rh, cw=cw, **v)
+    before = probes.swin_pieces.launches
+    got = probes.swin_pieces(x, *wts, **kw)
+    torch.cuda.synchronize()
+    assert probes.swin_pieces.launches == before + 1
+    want = probes.swin_pieces_plain(x, *wts, **kw)
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert _t2_agree(got, want)
+    if name == "W":
+        assert torch.equal(got, x)
+    if v["pieces"] == 4:
+        bias = wts[8]
+        win = torch.arange(g * 36, device=cuda) // 36
+        same = (win[:, None] == win[None, :]).repeat(1, c // 16)
+        for control in (torch.zeros_like(bias),
+                        torch.where(same, bias, torch.full_like(bias, -1000.0))):
+            bad = probes.swin_pieces(x, *wts[:8], control, *wts[9:], **kw)
+            assert not _t2_agree(bad, want)
+
+
+def test_swin_pieces_rejects_bad_inputs(cuda):
+    from nunif_tpu_torch.ops import probes
+    from nunif_tpu_torch.tools import microbench_swin_pieces as tool
+    wts = tool.weights(32, 2, False, device=cuda)
+    x = tool.image(32, 12, 24, device=cuda)
+    with pytest.raises(ValueError, match="groups of"):
+        probes.swin_pieces(x, *wts, G=4, rh=1, cw=2, pieces=4)
+    with pytest.raises(ValueError, match="bf16"):
+        probes.swin_pieces(x.float(), *wts, G=2, rh=1, cw=2, pieces=4)
+    with pytest.raises(ValueError, match="int8"):
+        probes.swin_pieces(x, *wts, G=2, rh=1, cw=2, pieces=4, dense_int8=True)
+    with pytest.raises(ValueError, match="bias"):
+        probes.swin_pieces(x, *wts[:8], wts[8][:36], *wts[9:], G=2, rh=1,
+                           cw=2, pieces=4)

@@ -53,10 +53,14 @@ def _qkv_bias(rng, nw, ws, c, heads):
 
 
 # (batch, n_wh, n_ww, window, shift, C, heads): odd window counts, heads of
-# 16 and 32, one window row (every window is in the last row)
+# 16 and 32, one window row (every window is in the last row); windows 7
+# (imagenet swin_t's: N = 49, head dim 32) and 8 (N = 64), the sizes past
+# K4's 3-tile attention
 CASES = [
     (1, 3, 5, 6, 0, 32, 2), (1, 3, 5, 6, 3, 32, 2), (2, 3, 3, 6, 3, 64, 2),
     (1, 3, 5, 4, 0, 32, 2), (1, 3, 5, 4, 3, 32, 1), (1, 1, 5, 6, 3, 32, 2),
+    (1, 2, 3, 7, 0, 64, 2), (2, 2, 3, 7, 3, 96, 3), (1, 2, 2, 8, 4, 64, 2),
+    (1, 2, 3, 8, 0, 64, 4),
 ]
 
 

@@ -49,6 +49,26 @@ def test_image_twin_matches_pallas(shift):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
+@pytest.mark.parametrize("ws,shift,c,heads", [
+    (7, 0, 64, 2), (7, 3, 96, 3), (8, 4, 64, 2), (8, 0, 64, 4)])
+def test_image_twin_matches_pallas_windows_7_and_8(ws, shift, c, heads):
+    """Windows of 49 (imagenet swin_t's window 7, head dim 32) and 64
+    tokens, which the JAX kernel packs two to a 128-token pass."""
+    rng = np.random.default_rng(40 + ws + shift)
+    h, w, n = 2 * ws, 4 * ws, ws * ws
+    qkv = rng.standard_normal((1, h, w, 3 * c)).astype(np.float32)
+    table = rng.standard_normal(((2 * ws - 1) ** 2, heads))
+    idx = relative_position_index(ws, ws).reshape(-1)
+    bias = table[idx].reshape(n, n, heads).transpose(2, 0, 1).astype(np.float32)
+    kw = dict(num_heads=heads, window=ws, shift=shift)
+    want = np.asarray(jax_window_attention_image(
+        jnp.asarray(qkv), jnp.asarray(bias), interpret=True, **kw))
+    got = kernels.fused_window_attention_image(torch.from_numpy(qkv),
+                                               torch.from_numpy(bias), **kw)
+    assert got.shape == (1, h, w, c)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
 @pytest.mark.parametrize("shift", [0, 3])
 def test_image_twin_matches_xla_module_path(shift):
     """As the JAX package's own test: roll, qkv projection, K6, proj, roll
