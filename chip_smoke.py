@@ -356,7 +356,9 @@ def iw3_cli(model_dir):
 def k2_row(torch, k2, rng, t, dev, shape, cin, cout):
     """K2 at one stem shape, bf16 and fp32, against its twin; bf16 timed
     beside cuDNN's conv2d (with bias, channels_last, on the cropped input;
-    the leaky-ReLU is not part of that call).  Returns the bf16 row."""
+    the leaky-ReLU is not part of that call).  The kernel is timed with its
+    weights packed beforehand, as the stem module passes them (packed once
+    per weight load).  Returns the bf16 row."""
     import torch.nn.functional as F
     b, h, w = shape
     ho, wo = h - 14, w - 14
@@ -382,9 +384,11 @@ def k2_row(torch, k2, rng, t, dev, shape, cin, cout):
                 memory_format=torch.channels_last)
             bl = bias.to(dtype)
             lib = lambda: F.conv2d(xl, wl, bl)  # noqa: E731
-        tm = compare_timed(lambda: k2.stem_conv3x3(xd, kern, bias, **kw),
-                           lambda: k2.stem_conv3x3_plain(xd, kern, bias, **kw),
-                           torch, library=lib)
+        packed = (k2.pack_stem_weights(kern, dtype), bias.float().contiguous())
+        tm = compare_timed(
+            lambda: k2.stem_conv3x3(xd, kern, bias, packed=packed, **kw),
+            lambda: k2.stem_conv3x3_plain(xd, kern, bias, **kw),
+            torch, library=lib)
         ebytes = 2 if dtype == torch.bfloat16 else 4
         nbytes = (b * (ho + 2) * (wo + 2) * cin + b * ho * wo * cout) * ebytes \
             + kern.numel() * 4 + bias.numel() * 4
@@ -394,6 +398,10 @@ def k2_row(torch, k2, rng, t, dev, shape, cin, cout):
                    library_ms=tm["library"], bound_ms=bound_ms,
                    bound_by=bound_by)
         print(f"K2 stem_conv3x3 {name}: {row}", flush=True)
+        if lib is not None:
+            print(f"K2 {cin}->{cout} {name}: {100 * bound_ms / tm['kernel']:.1f}% "
+                  f"of its bound ({bound_by}), cuDNN / kernel "
+                  f"{tm['library'] / tm['kernel']:.3f}", flush=True)
         rows[name] = row
         del got, want, xd
     torch.cuda.empty_cache()
@@ -926,7 +934,8 @@ def main() -> int:
     print(f"built {lib_path} in {seconds:.1f} s", flush=True)
     print("\n".join(line for line in log.splitlines()
                     if "registers" in line or "spill" in line
-                    or "entry function" in line), flush=True)
+                    or "entry function" in line
+                    or "Performance Loss" in line), flush=True)
 
     rng = np.random.default_rng(0)
 

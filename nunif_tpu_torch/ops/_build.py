@@ -37,8 +37,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # dtype, x, w, bias, out, B, H, W, Cin, Cout, crop, has_slope, slope, stream
-    "nunif_stem_conv3x3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # dtype, x, w, bias, out, B, H, W, Cin, Cout, nb, crop, has_slope, slope,
+    # stream
+    "nunif_stem_conv3x3": [_I, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
     # dtype, x, skip, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
     # relbias, out, B, H, W, C, heads, hidden, ws, shift, scale, stream
     "nunif_swin_block_image": [_I] + [_P] * 12 + [_I] * 8 + [_F, _P],

@@ -67,17 +67,25 @@ def child(root: str) -> dict:
     return out
 
 
-def main(root_a: str, root_b: str) -> int:
+def run_turns(script: str, root_a: str, root_b: str, launches: dict,
+              child_args=lambda label, turn: []):
+    """Run ``script --child ROOT [args]`` for the trees in the order A B B
+    A, each in a process of its own started in its tree.  A child prints a
+    JSON object {str(shape): {"ms": ...}} as its last line.  Prints ms a
+    shape and the frame sum (``launches[shape]`` times ms) for each run
+    and the medians by tree; returns [(label, shapes, frame sum)], or
+    exits with a failing child's code."""
     runs = []
-    for label, root in (("A", root_a), ("B", root_b), ("B", root_b),
-                        ("A", root_a)):
-        res = subprocess.run([sys.executable, __file__, "--child", root],
+    for turn, (label, root) in enumerate((("A", root_a), ("B", root_b),
+                                          ("B", root_b), ("A", root_a))):
+        res = subprocess.run([sys.executable, script, "--child", root,
+                              *child_args(label, turn)],
                              cwd=root, capture_output=True, text=True)
         if res.returncode:
             print(res.stdout, res.stderr, file=sys.stderr)
-            return res.returncode
+            sys.exit(res.returncode)
         shapes = json.loads(res.stdout.strip().splitlines()[-1])
-        frame = sum(shapes[str(k)]["ms"] * n for k, n in SHAPES.items())
+        frame = sum(shapes[str(k)]["ms"] * n for k, n in launches.items())
         runs.append((label, shapes, frame))
         print(f"{label} ({root}): frame sum {frame:.3f} ms; "
               + ", ".join(f"{k} {v['ms']:.3f}" for k, v in shapes.items()),
@@ -86,6 +94,11 @@ def main(root_a: str, root_b: str) -> int:
         frames = [f for lab, _s, f in runs if lab == label]
         print(f"{label}: frame sums {[round(f, 3) for f in frames]}, median "
               f"{statistics.median(frames):.3f} ms")
+    return runs
+
+
+def main(root_a: str, root_b: str) -> int:
+    runs = run_turns(__file__, root_a, root_b, SHAPES)
     same = all(runs[0][1][k]["sha1"] == runs[1][1][k]["sha1"]
                for k in runs[0][1])
     print(f"outputs bit-identical between A and B: {same}")

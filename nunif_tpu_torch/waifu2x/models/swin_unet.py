@@ -35,7 +35,10 @@ def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 class Conv3x3(nn.Module):
     """Plain 3x3 VALID conv for the cin = 3 stem conv, which the JAX package
-    also computes outside any kernel."""
+    also computes outside any kernel (its XLA path: operands in x's dtype,
+    an fp32 accumulator, the fp32 bias, one rounding).  So the conv runs in
+    fp32 on x and the weights rounded to x's dtype (exact products, fp32
+    sums; TF32 is off), adds the fp32 bias and rounds once to x's dtype."""
 
     def __init__(self, in_channels: int, features: int):
         super().__init__()
@@ -43,9 +46,9 @@ class Conv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                     self.bias.to(x.dtype))
-        return y.permute(0, 2, 3, 1)
+        w = self.weight.to(x.dtype).float()
+        y = F.conv2d(x.permute(0, 3, 1, 2).float(), w, self.bias.float())
+        return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 class Im2ColConv3x3(nn.Module):
@@ -58,11 +61,28 @@ class Im2ColConv3x3(nn.Module):
         self.lrelu_slope = lrelu_slope
         self.weight = nn.Parameter(torch.zeros(features, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
+        self._packed_key = None
+        self._packed = None
+
+    def packed_weights(self, dtype: torch.dtype):
+        """K2's form of the weights for x of ``dtype`` (the packed kernel
+        and the fp32 bias), packed again only when a parameter's storage or
+        version changes (a weight load)."""
+        key = (dtype,) + tuple((p.data_ptr(), p.device, p._version)
+                               for p in (self.weight, self.bias))
+        if key != self._packed_key:
+            with torch.no_grad():
+                self._packed = (
+                    _k2.pack_stem_weights(self.weight.permute(2, 3, 1, 0), dtype),
+                    self.bias.detach().float().contiguous())
+            self._packed_key = key
+        return self._packed
 
     def forward(self, x):
+        packed = self.packed_weights(x.dtype) if x.is_cuda else None
         return _k2.stem_conv3x3(x.contiguous(), self.weight.permute(2, 3, 1, 0),
                                 self.bias, crop=self.crop,
-                                lrelu_slope=self.lrelu_slope)
+                                lrelu_slope=self.lrelu_slope, packed=packed)
 
 
 class PatchDown(nn.Module):

@@ -71,6 +71,9 @@ def _t(a, device, dtype=torch.float32):
     ((1, 30, 70, 0), 16, 32, 0, None),     # ragged tile edge, no crop/act
     ((2, 37, 131, 0), 48, 96, 6, 0.1),     # stem shape class, odd sizes
     ((1, 20, 20, 0), 32, 48, 2, 0.2),      # Cout not a multiple of 64
+    ((1, 40, 150, 0), 96, 192, 6, 0.1),    # 4xl stem: two column groups, Wo 136
+    ((1, 200, 300, 0), 48, 96, 6, 0.1),    # blocks walk several tiles and strips
+    ((1, 20, 40, 0), 16, 80, 0, None),     # column group 16, Wo < one tile
 ])
 def test_stem_conv3x3_kernel_matches_twin(cuda, dtype, shape, cin, cout, crop,
                                           slope):
@@ -90,6 +93,27 @@ def test_stem_conv3x3_kernel_matches_twin(cuda, dtype, shape, cin, cout, crop,
         torch.testing.assert_close(g, wt, atol=2e-4, rtol=0)
     else:
         assert bool(((g - wt).abs() <= wt.abs() / 64 + 1e-2).all())
+
+
+def test_stem_conv3x3_module_cached_pack_matches_raw(cuda):
+    """The stem module passes weights packed once per weight load; the
+    kernel must give the same output as from the raw weights, and a pack
+    made for another dtype is refused."""
+    from nunif_tpu_torch.waifu2x.models.swin_unet import Im2ColConv3x3
+    torch.manual_seed(0)
+    conv = Im2ColConv3x3(96, 192, crop=6, lrelu_slope=0.1).to(cuda)
+    with torch.no_grad():
+        conv.weight.normal_(0, 0.03)
+        conv.bias.normal_(0, 0.1)
+    x = _t(_rng(4).normal(0, 0.5, (1, 30, 90, 96)), cuda, torch.bfloat16)
+    got = conv(x)
+    assert conv.packed_weights(torch.bfloat16) is conv._packed
+    kern = conv.weight.permute(2, 3, 1, 0)
+    want = k2.stem_conv3x3(x, kern, conv.bias, crop=6, lrelu_slope=0.1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="not packed for"):
+        k2.stem_conv3x3(x, kern, conv.bias, crop=6,
+                        packed=conv.packed_weights(torch.float32))
 
 
 def _block_inputs(rng, c, heads, device):

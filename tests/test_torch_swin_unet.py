@@ -89,3 +89,49 @@ def test_layer_norm_model_matches_jax():
     assert got.shape == want.shape == (1, 96, 96, 3)
     assert 0.0 < want.min() and want.max() < 1.0  # tamed: no clipping
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def _stem_conv0_pair(seed):
+    """patch_conv0's inputs (bf16-exact image, weights, a bias at std 4)
+    and the JAX module's bf16 output; at std 4 a bias rounded to bf16 moves
+    about half of the outputs by a rounding step."""
+    from nunif_tpu.waifu2x.models.swin_unet import Im2ColConv3x3 as JaxConv
+    rng = np.random.default_rng(seed)
+    x = rng.random((1, 40, 52, 3), dtype=np.float32)
+    kern = rng.normal(0, 0.2, (3, 3, 3, 48)).astype(np.float32)
+    bias = rng.normal(0, 4.0, (48,)).astype(np.float32)
+    want = np.asarray(JaxConv(48).apply(
+        {"params": {"kernel": jnp.asarray(kern), "bias": jnp.asarray(bias)}},
+        jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+    return x, kern, bias, want
+
+
+def _bit_equal_share(got, want):
+    assert got.shape == want.shape
+    return float((got == want).mean())
+
+
+def test_stem_conv0_bf16_bias_rounds_once_as_jax():
+    """The cin = 3 stem conv in bf16 against the JAX module: fp32 sums of
+    the bf16 operands, the fp32 bias, one rounding.  The two sum the same
+    products in another order, so a rare output lands one rounding step
+    apart: >= 99% bit-equal and at most one bf16 step (2^-7 relative).  The
+    control, the earlier port's bias rounded to bf16 before the conv, must
+    fail the same check."""
+    from nunif_tpu_torch.waifu2x.models.swin_unet import Conv3x3
+    x, kern, bias, want = _stem_conv0_pair(7)
+    conv = Conv3x3(3, 48)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(kern).permute(3, 2, 0, 1))
+        conv.bias.copy_(torch.from_numpy(bias))
+        xt = torch.from_numpy(x).bfloat16()
+        got = conv(xt)
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        assert _bit_equal_share(got, want) >= 0.99
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-6)
+        # control: the bias rounded to bf16 first, as the port did before
+        old = torch.nn.functional.conv2d(
+            xt.permute(0, 3, 1, 2), conv.weight.bfloat16(),
+            conv.bias.bfloat16()).permute(0, 2, 3, 1).float().numpy()
+    assert _bit_equal_share(old, want) < 0.99
