@@ -28,8 +28,10 @@ written by the port:
   then renders swin_unet_1x, swin_unet_4x and the downscaled 2x model on a
   small image;
 - iw3: holds K3 (stereo warp) and K7 (DINOv2 attention) against their twins
-  at the shapes of the 1080p half-SBS path, each with a control that must
-  fail, runs a batch of 8 uint8 1080p frames through ``Iw3FrameProcessor``
+  at the shapes of the 1080p half-SBS path, each with controls that must
+  fail, K7 also on strided views of a qkv projection as the path passes
+  them and timed back to back and by device time beside SDPA, runs a
+  batch of 8 uint8 1080p frames through ``Iw3FrameProcessor``
   (Any_V2_S depth, row_flow_v3, divergence 2, edge dilation 2, half-SBS),
   checks the launch counters, the time and the agreement with the twin
   path, and drives the iw3 CLI on an image when PIL is present;
@@ -331,6 +333,31 @@ def iw3_batch(torch, dev, model_dir, k3, k7):
     if psnr < FRAME_PSNR_MIN:
         fail(f"iw3 batch PSNR vs twins {psnr:.2f} dB < {FRAME_PSNR_MIN}")
     return med, launches, psnr
+
+
+def k7_inputs(torch, gen, n, layout):
+    """(8, 6, n, 64) bf16 q, k, v: three contiguous tensors, or ("strided")
+    views of one (8, n, 3, 6, 64) qkv tensor, as dinov2.Attention passes
+    them on the iw3 path."""
+    if layout == "strided":
+        qkv = torch.randn((IW3_BATCH, n, 3, 6, 64), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        return tuple(qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    return tuple(torch.randn((IW3_BATCH, 6, n, 64), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for _ in range(3))
+
+
+def k7_launch_times(torch, F, k7, q, k, v):
+    """K7 and SDPA on the same inputs without the host's share: 20 launches
+    back to back between two CUDA events (median of 3), and torch.profiler's
+    device time a launch."""
+    from nunif_tpu_torch.tools import time_ms
+    kernel = lambda: k7.sdpa(q, k, v)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    return dict(ms_b2b=time_ms(kernel, 20), library_ms_b2b=time_ms(library, 20),
+                ms_device=device_ms(torch, kernel),
+                library_ms_device=device_ms(torch, library))
 
 
 def iw3_cli(model_dir):
@@ -852,6 +879,34 @@ def render_twin_psnr(torch, program, frame, y, pairs):
     return uint8_psnr(y, y_twin), float((y == y_twin).float().mean())
 
 
+def dev_us(e):
+    """A profiler event's own device time, us."""
+    return getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0)
+
+
+def device_ms(torch, fn, n=20, tries=3):
+    """Device ms a call: torch.profiler's summed kernel time over n calls
+    after a warm one, divided by n (no host time, no gaps).  A session
+    that records no device activity (it happens now and then on the card's
+    machine) is run again; None after ``tries`` empty sessions."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(dev_us(e) for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA"))
+        if total > 0:
+            return total / n / 1e3
+        print("profiler: a session recorded no device activity", flush=True)
+    return None
+
+
 def profile_frame(torch, program, frame, top=12):
     """torch.profiler over one frame: the device time (sum over kernels),
     the top ops by the device time of the kernels they launch, and the top
@@ -862,11 +917,6 @@ def profile_frame(torch, program, frame, top=12):
         program(frame)
         torch.cuda.synchronize()
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0)
-
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     ops = [e for e in events if not str(e.device_type).endswith("CUDA")]
     total = sum(dev_us(e) for e in kernels)
@@ -1300,38 +1350,50 @@ def main() -> int:
     del xw, dw, xb, x_nchw, grid, gx, gy
     torch.cuda.empty_cache()
 
-    # 12. K7 at DINOv2-S shapes: 1373 = the 1080p path's 28x49 patches + cls
+    # 12. K7 at DINOv2-S shapes: 1373 = the 1080p path's 28x49 patches + cls,
+    # on contiguous q, k, v and on the path's strided views of a qkv tensor
     phase("k7")
     k7_rows = {}
-    for n in (1373, 1344, 197):
-        q, k, v = (torch.randn((IW3_BATCH, 6, n, 64), generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
+    for n, layout in ((1373, "contiguous"), (1344, "contiguous"),
+                      (197, "contiguous"), (1373, "strided")):
+        q, k, v = k7_inputs(torch, gen, n, layout)
         got = k7.sdpa(q, k, v)
         torch.cuda.synchronize()
         want = k7.sdpa_plain(q, k, v)
         ok, err, rel_l2 = compare(got, want, (0.0, K7_ATOL))
         if not ok or rel_l2 > K7_REL_L2:
-            fail(f"K7 N={n}: max abs err {err}, relative L2 {rel_l2} (limits "
-                 f"{K7_ATOL}, {K7_REL_L2})")
-        # control: the last 29 keys dropped (a ragged tail tile at 1373)
-        cut = k7.sdpa(q, k[:, :, :n - 29], v[:, :, :n - 29])
-        c_ok, c_err, c_rel = compare(cut, want, (0.0, K7_ATOL))
-        if c_ok and c_rel <= K7_REL_L2:
-            fail(f"K7 N={n}: the kernel without the last 29 keys passes the "
-                 f"check (err {c_err}, rel L2 {c_rel}): the check is blind")
+            fail(f"K7 N={n} {layout}: max abs err {err}, relative L2 {rel_l2} "
+                 f"(limits {K7_ATOL}, {K7_REL_L2})")
+        # controls: the last 29 keys dropped (a ragged tail tile at 1373),
+        # and V's keys permuted (V is read as a transposed operand)
+        perm = torch.randperm(n, generator=gen, device=dev)
+        ctrl = {"cut-keys": k7.sdpa(q, k[:, :, :n - 29], v[:, :, :n - 29]),
+                "permuted-V": k7.sdpa(q, k, v[:, :, perm])}
+        ctrl_errs = []
+        for what, y in ctrl.items():
+            c_ok, c_err, c_rel = compare(y, want, (0.0, K7_ATOL))
+            if c_ok and c_rel <= K7_REL_L2:
+                fail(f"K7 N={n} {layout}: the {what} control passes the check "
+                     f"(err {c_err}, rel L2 {c_rel}): the check is blind")
+            ctrl_errs.append(f"{what} control err {c_err:.3g} rel-L2 {c_rel:.3g}")
         tm = compare_timed(lambda: k7.sdpa(q, k, v),
                            lambda: k7.sdpa_plain(q, k, v), torch,
                            library=lambda: F.scaled_dot_product_attention(q, k, v))
+        lt = k7_launch_times(torch, F, k7, q, k, v)
         bound_ms, bound_by = bound(4 * q.numel() * 2, 4 * IW3_BATCH * 6 * n * n * 64)
-        k7_rows[n] = dict(max_abs_err=err, rel_l2=rel_l2, ms=tm["kernel"],
-                          plain_ms=tm["plain"], library_ms=tm["library"],
-                          bound_ms=bound_ms, bound_by=bound_by)
-        print(f"K7 sdpa (8, 6, {n}, 64): err {err:.3g} rel-L2 {rel_l2:.3g} "
-              f"(cut-keys control err {c_err:.3g} rel-L2 {c_rel:.3g}) kernel "
-              f"{tm['kernel']:.3f} ms plain {tm['plain']:.3f} ms SDPA "
-              f"{tm['library']:.3f} ms bound {bound_ms:.4f} ms ({bound_by})",
-              flush=True)
-        del q, k, v, got, want, cut
+        k7_rows[n, layout] = dict(max_abs_err=err, rel_l2=rel_l2, ms=tm["kernel"],
+                                  plain_ms=tm["plain"], library_ms=tm["library"],
+                                  bound_ms=bound_ms, bound_by=bound_by, **lt)
+        share = {key: "not measured" if t is None else
+                 f"{t:.4f} ms ({bound_ms / t:.1%})" for key, t in lt.items()}
+        print(f"K7 sdpa (8, 6, {n}, 64) {layout}: err {err:.3g} rel-L2 "
+              f"{rel_l2:.3g} ({'; '.join(ctrl_errs)}); one launch: kernel "
+              f"{tm['kernel']:.4f} ms plain {tm['plain']:.3f} ms SDPA "
+              f"{tm['library']:.4f} ms; back to back: kernel {share['ms_b2b']} "
+              f"SDPA {share['library_ms_b2b']}; profiler device time: kernel "
+              f"{share['ms_device']} SDPA {share['library_ms_device']}; bound "
+              f"{bound_ms:.4f} ms ({bound_by}; share in brackets)", flush=True)
+        del q, k, v, got, want, ctrl
     torch.cuda.empty_cache()
 
     # 13. iw3: 8 uint8 1080p frames through the port's frame processor
@@ -1382,7 +1444,7 @@ def main() -> int:
     def k2_sum(key):  # one launch in each path's frame
         return sum(r[key] for r in k2_rows)
 
-    k7_main = k7_rows[1373]
+    k7_main, k7_path = k7_rows[1373, "contiguous"], k7_rows[1373, "strided"]
     k5_bf16 = [r for r in k5_rows if r["dtype"] == "bfloat16"]
     k5_main = [r for r in k5_bf16 if r["batch"] == 1]
 
@@ -1457,7 +1519,12 @@ def main() -> int:
          # 12 launches a batch, all at (8, 6, 1373, 64)
          "ms": 12 * k7_main["ms"], "plain_ms": 12 * k7_main["plain_ms"],
          "bound_ms": 12 * k7_main["bound_ms"], "bound_by": k7_main["bound_by"],
-         "library_ms": 12 * k7_main["library_ms"]},
+         "library_ms": 12 * k7_main["library_ms"],
+         # as the path calls it: strided views of the qkv projection, 20
+         # launches back to back (median of 3); the strided row per launch
+         "ms_b2b": 12 * k7_path["ms_b2b"],
+         "library_ms_b2b": 12 * k7_path["library_ms_b2b"],
+         "strided_per_launch": k7_path},
         {"name": "fused_swin_block", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/swin_block.cu",
          "replaces": "nunif_tpu/ops/swin_attention.py:780",

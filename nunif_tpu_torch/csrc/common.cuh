@@ -20,6 +20,11 @@ constexpr int kDtypeBF16 = 1;
 // Dynamic shared memory one block may use on sm_90 (227 KB).
 constexpr size_t kMaxSmem = 232448;
 
+// An entry point returns a cudaError_t, or kDriverErrorBase + the CUresult
+// of a driver call made through the runtime's entry points (K7's
+// cuTensorMapEncodeTiled); errors.cu gives both their text.
+constexpr int kDriverErrorBase = 100000;
+
 template <typename T> struct IsBF16 : std::is_same<T, __nv_bfloat16> {};
 
 __device__ __forceinline__ float to_f(float v) { return v; }

@@ -2,10 +2,14 @@
 
 Replaces ``nunif_tpu/ops/sdpa.py:_flash``, which runs JAX's shipped Pallas
 TPU flash-attention kernel for the DINOv2 trunks of the depth models.  The
-Hopper kernel is ``csrc/flash_attn.cu``; its header notes what bounds it
-on the H100 and what its design does about that.  On iw3's main path it
-runs every DINOv2 block: (8, 6, 1373, 64) bf16 at a 392x686 depth input,
-12 launches a batch of 8 frames.
+Hopper kernel is ``csrc/flash_attn.cu``: persistent blocks of three
+warpgroups walk (128-query tile, head, batch) items; a producer warpgroup
+brings Q and K / V tiles of 128 keys by TMA through a ring of shared
+memory, and two consumer warpgroups run S = Q K^T and O += P V on wgmma;
+its header notes what bounds it on the H100 and what its design does
+about that.  On iw3's main path it runs every DINOv2
+block: (8, 6, 1373, 64) bf16 at a 392x686 depth input, 12 launches a batch
+of 8 frames.
 
 ``sdpa`` takes its plain twin ``sdpa_plain`` only for CPU tensors; for a
 CUDA tensor it launches the kernel at every sequence length or raises.
@@ -72,8 +76,9 @@ def sdpa(q, k, v, *, scale=None):
     M = k.shape[2]
     if v.shape[2] != M:
         raise ValueError(f"sdpa: k has {M} keys, v {v.shape[2]}")
-    out = torch.empty((B, N, H, d), dtype=q.dtype,
-                      device=q.device).permute(0, 2, 1, 3)
+    # a (B, H, N, d) view of a contiguous (B, N, H, d) tensor
+    out = torch.empty_strided((B, H, N, d), (N * H * d, d, H * d, 1),
+                              dtype=q.dtype, device=q.device)
     rc = _build.library().nunif_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, N, M, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],

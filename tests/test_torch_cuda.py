@@ -24,8 +24,10 @@ roundings: atol 1e-5 (measured 0); its control, the kernel given a zero
 delta, must fail.  K7 (attention) rounds the unnormalised probabilities and
 rescales online where the twin rounds normalised ones: abs 1e-2 and
 relative L2 1e-2 (measured <= 7.8e-3 and 3.1e-3 at N(0, 1) inputs); its
-control, the kernel given only the first N - 29 keys, must fail, which
-shows that a ragged last key tile counts.
+controls must fail: the kernel given only the first N - 29 keys, which
+shows that a ragged last key tile counts, and at one full key tile the
+kernel given V with its rows permuted, which shows that V's transposed
+operand layout counts.
 
 K4 (window attention) rounds at the twin's two points (probabilities,
 output): bf16 1/64 relative + 1e-2 absolute, fp32 2e-5 (the JAX package's
@@ -217,29 +219,52 @@ def test_warp_kernel_matches_twin(cuda, b, h, w, c, max_shift, x_dtype):
     assert float((still.float() - want.float()).abs().max()) > 10 * atol
 
 
+def _flash_inputs(seed, b, heads, n, m, d, device):
+    rng = _rng(seed)
+    return (_t(rng.standard_normal((b, heads, rows, d)), device, torch.bfloat16)
+            for rows in (n, m, m))
+
+
+def _flash_close(got, want):
+    """K7's twin check: abs 1e-2 and relative L2 1e-2, both must hold."""
+    diff = got.float() - want.float()
+    return float(diff.abs().max()) <= 1e-2 and \
+        float(diff.norm() / want.float().norm()) <= 1e-2
+
+
+# the 128-row query tiles and 128-key tiles: edges at 127 / 128 / 129 and
+# 255 / 257, N != M with both ragged, and ViT-L's 16 heads at the path's
+# length
 @pytest.mark.parametrize("b,heads,n,m,d", [
     (2, 3, 1, 1, 64), (1, 2, 37, 37, 64), (2, 2, 63, 63, 64),
     (1, 1, 64, 64, 64), (2, 3, 65, 65, 64), (1, 2, 197, 197, 64),
-    (1, 2, 100, 37, 64), (2, 6, 1373, 1373, 64)])
+    (1, 2, 100, 37, 64), (2, 6, 1373, 1373, 64),
+    (1, 2, 127, 127, 64), (1, 2, 128, 128, 64), (1, 2, 129, 129, 64),
+    (1, 2, 255, 255, 64), (1, 2, 257, 257, 64), (2, 3, 300, 129, 64),
+    (2, 3, 129, 300, 64), (2, 16, 1373, 1373, 64)])
 def test_flash_kernel_matches_twin(cuda, b, heads, n, m, d):
-    rng = _rng(5)
-    q = _t(rng.standard_normal((b, heads, n, d)), cuda, torch.bfloat16)
-    k = _t(rng.standard_normal((b, heads, m, d)), cuda, torch.bfloat16)
-    v = _t(rng.standard_normal((b, heads, m, d)), cuda, torch.bfloat16)
+    q, k, v = _flash_inputs(5, b, heads, n, m, d, cuda)
     before = k7.sdpa.launches
     got = k7.sdpa(q, k, v)
     torch.cuda.synchronize()
     assert k7.sdpa.launches == before + 1
     want = k7.sdpa_plain(q, k, v)
     assert got.shape == want.shape == (b, heads, n, d)
-    diff = got.float() - want.float()
-    assert float(diff.abs().max()) <= 1e-2
-    assert float(diff.norm() / want.float().norm()) <= 1e-2
+    assert _flash_close(got, want)
     if m > 29:
         cut = k7.sdpa(q, k[:, :, :m - 29], v[:, :, :m - 29])
-        ctrl = cut.float() - want.float()
-        assert float(ctrl.abs().max()) > 1e-2 or \
-            float(ctrl.norm() / want.float().norm()) > 1e-2
+        assert not _flash_close(cut, want)
+
+
+def test_flash_kernel_permuted_v_fails(cuda):
+    """V is read as an MN-major (transposed) B operand: at one full key
+    tile, the kernel given V with its rows permuted must fail the check
+    that the kernel given V passes."""
+    q, k, v = _flash_inputs(7, 1, 2, 128, 128, 64, cuda)
+    want = k7.sdpa_plain(q, k, v)
+    assert _flash_close(k7.sdpa(q, k, v), want)
+    perm = torch.from_numpy(_rng(8).permutation(128)).to(cuda)
+    assert not _flash_close(k7.sdpa(q, k, v[:, :, perm].contiguous()), want)
 
 
 def test_flash_kernel_reads_strided_qkv(cuda):
