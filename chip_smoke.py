@@ -9,10 +9,15 @@ written by the port:
 - waifu2x swin_unet_2x: holds K1 and K2 against their plain PyTorch twins
   at the shapes of the 1080p path, and K5 (the block on window-ordered
   tokens) at the six shapes of the window path and one batch-2 shape, with
-  controls that must fail (zero bias; the roll mask where pad was asked);
-  renders one 1080p frame to 4K through ``TiledRenderer.frame_program``,
-  checks that the frame went through the kernels (launch counters) and
-  agrees with the twin path; renders it again with
+  controls that must fail (zero bias; the roll mask where pad was asked),
+  K1 and K5 timed beside a composite of PyTorch calls (``F.linear`` x4,
+  SDPA with the bias and mask as one float mask; ``composite_ms``, not one
+  call, so no ``library_ms``), with the kernel's tile plan and the weight
+  bytes its tiles read from L2 a frame (a count from shapes) on a line of
+  their own; renders one 1080p frame to 4K through
+  ``TiledRenderer.frame_program``, checks that the frame went through the
+  kernels (launch counters) and agrees with the twin path, profiles it;
+  renders it again with
   ``NUNIF_TPU_SWIN_IMG=0`` (launches K5 14, K1 0, K2 1) against the twin
   path and the K1 path's frame, timed beside it; and drives
   ``Waifu2x.convert`` (and the CLI when PIL is present) on a multi-tile
@@ -514,12 +519,84 @@ def block_weights(t, rng, c, heads=6):
             expand_relative_bias(t(rng.standard_normal((121, heads))), 6)]
 
 
+def ptxas_usage(log, needle):
+    """Registers and spill bytes of the kernel whose mangled name holds
+    ``needle``, from the build's ``-Xptxas -v`` log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and needle in line:
+            spill = lines[i + 2].split(",")
+            regs = lines[i + 3].split("Used ")[1].split(" registers")[0]
+            return dict(registers=int(regs),
+                        spill_stores=int(spill[1].split()[0]),
+                        spill_loads=int(spill[2].split()[0]))
+    fail(f"no ptxas report for {needle}")
+
+
+def block_l2_weight_bytes(plan, c, n_windows):
+    """Bytes of weights the bf16 K1 / K5 kernel reads from L2 in a launch
+    over n_windows windows of 36 tokens, a count from shapes: every tile
+    (``plan["windows"]`` windows, from ``block_plan``) reads all four
+    matrices once (hidden 2C: 16 C^2 bytes)."""
+    tiles = -(-n_windows // plan["windows"])
+    return tiles * 2 * (4 * c * c + 2 * c * 2 * c)
+
+
+def block_composite(torch, x, weights, heads, shift, mask, skip=None,
+                    image=True):
+    """The Swin block as a PyTorch user would write it, for a yardstick:
+    (roll and window partition for an image), cuBLAS ``F.linear`` x4 in
+    x's dtype, SDPA per head with the relative bias plus the -100 mask
+    (``mask``: numpy, windows of one image or None) as one float mask,
+    exact GELU, residuals, (window reverse and roll).  The mask is built
+    here, outside the timed call."""
+    import torch.nn.functional as F
+    from nunif_tpu_torch.modules.permute import window_partition2, window_reverse2
+    wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, rel = weights
+    dt, ws, n = x.dtype, 6, 36
+    mats = [w.t().contiguous().to(dt) for w in (wqkv, wproj, wfc1, wfc2)]
+    bs = [b.to(dt) for b in (bqkv, bproj, bfc1, bfc2)]
+    if image:
+        b, h, w, c = x.shape
+        nw = b * (h // ws) * (w // ws)
+    else:
+        nw, n, c = x.shape
+    hd = c // heads
+    fmask = rel.float()[None]
+    if mask is not None:
+        per_img = mask.shape[0]
+        fmask = (fmask + torch.from_numpy(mask).to(x.device)[:, None]).repeat(
+            nw // per_img, 1, 1, 1)
+    fmask = fmask.to(dt).contiguous()
+
+    def call():
+        xs = x if skip is None else x + skip
+        if image:
+            if shift:
+                xs = torch.roll(xs, (-shift, -shift), dims=(1, 2))
+            xs = window_partition2(xs, ws)
+        qkv = F.linear(xs, mats[0], bs[0])
+        q, k, v = qkv.view(nw, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=fmask)
+        y1 = F.linear(a.transpose(1, 2).reshape(nw, n, c), mats[1], bs[1]) + xs
+        out = F.linear(F.gelu(F.linear(y1, mats[2], bs[2])), mats[3], bs[3]) + y1
+        if image:
+            out = window_reverse2(out, ws, h, w)
+            if shift:
+                out = torch.roll(out, (shift, shift), dims=(1, 2))
+        return out
+    return call
+
+
 def k5_phase(torch, k5, rng, t):
     """K5 at the window path's six shapes (shifted blocks on the grid padded
     by one window, shift_mode "pad") and one batch-2 shape, bf16 and fp32,
     against its twin with K1's tolerances; controls that must fail: the
     zero-bias kernel and, shifted, the roll mask where pad was asked.  bf16
-    timed beside the twin (no single PyTorch call computes a block)."""
+    timed beside the twin and the composite (no single PyTorch call
+    computes a block), with its weights packed beforehand as the block
+    module passes them."""
+    from nunif_tpu_torch.modules.attention import padded_window_key_mask
     rows = []
     cases = [key + (1,) for key in K5_FRAME] + [list(K5_FRAME)[-1] + (2,)]
     for c, h, w, shift, batch in cases:
@@ -552,15 +629,25 @@ def k5_phase(torch, k5, rng, t):
             row = dict(C=c, H=h, W=w, shift=shift, batch=batch, dtype=name,
                        max_abs_err=err, control_errs=[e for _o, e, _r in ctrl])
             if dtype == torch.bfloat16 and batch == 1:
-                tm = compare_timed(lambda: k5.fused_swin_block(xd, *weights, **kw),
-                                   lambda: k5.swin_block_plain(xd, *weights, **kw),
-                                   torch)
+                packed = k5.pack_weights(*weights, dtype)
+                mask = padded_window_key_mask(n_wh, n_ww, 6, shift) \
+                    if shift else None
+                comp = block_composite(torch, xd, weights, 6, shift, mask,
+                                       image=False)
+                comp_err = float((comp().float() - k5.swin_block_plain(
+                    xd, *weights, **kw).float()).abs().max())
+                tm = compare_timed(
+                    lambda: k5.fused_swin_block(xd, *weights, packed=packed, **kw),
+                    lambda: k5.swin_block_plain(xd, *weights, **kw), torch,
+                    more={"composite": comp})
                 tokens = nw * 36
                 nbytes = tokens * c * 2 * 2 + \
                     sum(a.numel() for a in weights[:8]) * 2 + weights[8].numel() * 4
                 bound_ms, bound_by = bound(nbytes, tokens * (16 * c * c + 4 * 36 * c))
                 row.update(ms=tm["kernel"], plain_ms=tm["plain"],
+                           composite_ms=tm["composite"], composite_err=comp_err,
                            bound_ms=bound_ms, bound_by=bound_by)
+                del comp
             print(f"{what}: {row}", flush=True)
             rows.append(row)
             del xd
@@ -1000,6 +1087,7 @@ def main() -> int:
 
     # 4. K1 at every main-path shape
     phase("k1")
+    from nunif_tpu_torch.modules.attention import shifted_window_mask
     k1_rows = []
     shapes = [(96, 1104, 1920, 0, False), (96, 1104, 1920, 3, False),
               (96, 1104, 1920, 0, True), (192, 552, 960, 0, False),
@@ -1014,7 +1102,9 @@ def main() -> int:
             xd = t(x, dtype)
             sd = None if s is None else t(s, dtype)
             kw = dict(num_heads=6, window=6, shift=shift, skip=sd)
-            got = k1.fused_swin_block_image(xd, *weights, **kw)
+            # weights packed once, as the block module passes them
+            packed = k1.pack_weights(*weights, dtype)
+            got = k1.fused_swin_block_image(xd, *weights, packed=packed, **kw)
             torch.cuda.synchronize()
             want = k1.swin_block_image_plain(xd, *weights, **kw)
             name = str(dtype).split(".")[1]
@@ -1027,10 +1117,21 @@ def main() -> int:
             if ctrl_ok:
                 fail(f"{what}: the kernel without relative bias passes the "
                      f"check (max abs err {ctrl_err}): the check is blind")
-            del got, want
+            del got
+            more, comp_err = None, None
+            if dtype == torch.bfloat16:
+                comp = block_composite(
+                    torch, xd, weights, 6, shift,
+                    shifted_window_mask(h, w, 6, shift) if shift else None,
+                    skip=sd)
+                comp_err = float((comp().float() - want.float()).abs().max())
+                more = {"composite": comp}
+            del want
             tm = compare_timed(
-                lambda: k1.fused_swin_block_image(xd, *weights, **kw),
-                lambda: k1.swin_block_image_plain(xd, *weights, **kw), torch)
+                lambda: k1.fused_swin_block_image(xd, *weights, packed=packed, **kw),
+                lambda: k1.swin_block_image_plain(xd, *weights, **kw), torch,
+                more=more)
+            more = comp = None
             tokens = h * w
             ebytes = 2 if dtype == torch.bfloat16 else 4
             nbytes = tokens * c * ebytes * (3 if with_skip else 2) + \
@@ -1041,10 +1142,13 @@ def main() -> int:
             row = dict(C=c, H=h, W=w, shift=shift, skip=with_skip, dtype=name,
                        max_abs_err=err, ms=tm["kernel"], plain_ms=tm["plain"],
                        bound_ms=bound_ms, bound_by=bound_by)
+            if dtype == torch.bfloat16:
+                row.update(composite_ms=tm["composite"], composite_err=comp_err)
             print(f"{what}: err {err:.3g} rel-L2 {rel_l2:.3g} (no-bias "
                   f"control err {ctrl_err:.3g}) kernel {tm['kernel']:.3f} ms "
                   f"plain {tm['plain']:.3f} ms bound {bound_ms:.3f} ms "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}); {row.get('composite_ms') or 0:.3f} ms "
+                  f"composite (max abs diff to the twin {comp_err})", flush=True)
             k1_rows.append(row)
             del xd, sd
             torch.cuda.empty_cache()
@@ -1096,6 +1200,7 @@ def main() -> int:
           f"{psnr:.2f} dB, identical px {same:.4f}", flush=True)
     if psnr < FRAME_PSNR_MIN:
         fail(f"frame PSNR vs twins {psnr:.2f} dB < {FRAME_PSNR_MIN}")
+    profile_frame(torch, program, frame_d)
     yf = y.float() / 255.0
     if not 0.05 < float(yf.mean()) < 0.95:
         fail(f"frame mean {float(yf.mean())} outside the tamed model's range")
@@ -1445,6 +1550,21 @@ def main() -> int:
         return sum(r[key] for r in k2_rows)
 
     k7_main, k7_path = k7_rows[1373, "contiguous"], k7_rows[1373, "strided"]
+    # the bf16 K1 / K5 kernel's build: one instantiation a tile size
+    swin_build = {f"{rows} rows": ptxas_usage(log, f"swin_block_wgmmaILi96ELi{mt}E")
+                  for rows, mt in ((256, 2), (128, 1))}
+
+    def block_extras(rows, mult):
+        """K1 / K5 fields beyond the common ones: the frame sum of the
+        composite, the build's registers and spills, and the shapes one by
+        one as this run measured them."""
+        keys = ("C", "H", "W", "shift", "skip", "batch", "ms", "plain_ms",
+                "composite_ms", "composite_err", "bound_ms", "bound_by",
+                "max_abs_err")
+        return {"composite_ms": sum(r["composite_ms"] * mult(r) for r in rows),
+                "build": swin_build,
+                "per_shape": [dict((k, r[k]) for k in keys if k in r)
+                              for r in rows]}
     k5_bf16 = [r for r in k5_rows if r["dtype"] == "bfloat16"]
     k5_main = [r for r in k5_bf16 if r["batch"] == 1]
 
@@ -1493,7 +1613,8 @@ def main() -> int:
          "bound_ms": k1_sum("bound_ms"),
          "bound_by": bound_by(k1_bf16, lambda r: per_frame[
              (r["C"], r["H"], r["shift"], r["skip"])]),
-         "library_ms": None},
+         "library_ms": None, **block_extras(k1_bf16, lambda r: per_frame[
+             (r["C"], r["H"], r["shift"], r["skip"])])},
         {"name": "warp_x_bounded", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/warp_x.cu",
          "replaces": "nunif_tpu/modules/grid_sample.py:176",
@@ -1534,7 +1655,8 @@ def main() -> int:
          "bound_ms": k5_sum("bound_ms"),
          "bound_by": bound_by(k5_main, lambda r: K5_FRAME[
              (r["C"], r["H"], r["W"], r["shift"])]),
-         "library_ms": None},
+         "library_ms": None, **block_extras(k5_main, lambda r: K5_FRAME[
+             (r["C"], r["H"], r["W"], r["shift"])])},
         {"name": "fused_window_attention_image", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/window_attn.cu",
          "replaces": "nunif_tpu/ops/swin_attention.py:1221",
@@ -1592,6 +1714,22 @@ def main() -> int:
              "C", "G", "name", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err")) for r in t2_runs]},
     ]}
+    # the bf16 K1 / K5 kernel's tile plan (from the library) and the weight
+    # bytes its tiles read from L2 over a frame of each path: a count from
+    # shapes and the frame tables, not a measurement
+    plan = {c: k1.block_plan(c, 2 * c, 6) for c in (96, 192)}
+
+    def frame_l2_bytes(rows, mult, padded):
+        return sum(block_l2_weight_bytes(
+            plan[r["C"]], r["C"], (r["H"] // 6 + padded * (r["shift"] > 0)) *
+            (r["W"] // 6 + padded * (r["shift"] > 0))) * mult(r) for r in rows)
+    print("K1 / K5 plan: " + json.dumps({
+        "tiles": {str(c): plan[c] for c in plan},
+        "l2_weight_bytes_a_frame": {
+            "fused_swin_block_image": frame_l2_bytes(k1_bf16, lambda r: per_frame[
+                (r["C"], r["H"], r["shift"], r["skip"])], False),
+            "fused_swin_block": frame_l2_bytes(k5_main, lambda r: K5_FRAME[
+                (r["C"], r["H"], r["W"], r["shift"])], True)}}), flush=True)
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -131,7 +131,7 @@ template <> struct DotMma<int8_t> {
   }
 };
 
-// The block-wide GEMM of K1, K5 and T2 on tensor cores: epi(r, c, v_c,
+// The block-wide GEMM of T2 on tensor cores: epi(r, c, v_c,
 // v_c+1) for v = A W over every r < rows_pad and even c < n_out, Warps warps
 // a block.  T = bf16: fp32 sums plus the fp32 bias (n_out,); T = int8: the
 // int32 sums, which the caller scales before it adds a bias (bias unused,
@@ -199,6 +199,30 @@ __device__ __forceinline__ void block_gemm(const void* A, int lda, const void* _
         }
       }
     }
+  }
+}
+
+// 4 x 4 transpose of 32-bit words within a quad (lanes 4 g .. 4 g + 3):
+// lane t holds v[c] = M[t][c] and ends with v[c] = M[c][t]
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const bool top = (t & 2) == 0, left = (t & 1) == 0;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, top ? v[2] : v[0], 2);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, top ? v[3] : v[1], 2);
+  if (top) {
+    v[2] = r0;
+    v[3] = r1;
+  } else {
+    v[0] = r0;
+    v[1] = r1;
+  }
+  r0 = __shfl_xor_sync(0xffffffffu, left ? v[1] : v[0], 1);
+  r1 = __shfl_xor_sync(0xffffffffu, left ? v[3] : v[2], 1);
+  if (left) {
+    v[1] = r0;
+    v[3] = r1;
+  } else {
+    v[0] = r0;
+    v[2] = r1;
   }
 }
 

@@ -130,30 +130,6 @@ __device__ __forceinline__ void load_halo_row(unsigned char* dst, const __nv_bfl
   }
 }
 
-// 4 x 4 transpose of 32-bit words within a quad (lanes 4 g .. 4 g + 3):
-// lane t holds v[c] = M[t][c] and ends with v[c] = M[c][t]
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
-  const bool top = (t & 2) == 0, left = (t & 1) == 0;
-  uint32_t r0 = __shfl_xor_sync(0xffffffffu, top ? v[2] : v[0], 2);
-  uint32_t r1 = __shfl_xor_sync(0xffffffffu, top ? v[3] : v[1], 2);
-  if (top) {
-    v[2] = r0;
-    v[3] = r1;
-  } else {
-    v[0] = r0;
-    v[1] = r1;
-  }
-  r0 = __shfl_xor_sync(0xffffffffu, left ? v[1] : v[0], 1);
-  r1 = __shfl_xor_sync(0xffffffffu, left ? v[3] : v[2], 1);
-  if (left) {
-    v[1] = r0;
-    v[3] = r1;
-  } else {
-    v[0] = r0;
-    v[2] = r1;
-  }
-}
-
 template <int NB>
 __global__ void __launch_bounds__(kWgThreads) stem_conv3x3_wgmma(ConvArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -219,7 +195,7 @@ __global__ void __launch_bounds__(kWgThreads) stem_conv3x3_wgmma(ConvArgs p) {
     cp_async_wait<0>();
     // the rows landed through the generic proxy; wgmma reads them through
     // the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();  // rows y .. y + 2 landed; nobody reads slot (y + 3) % 4 any more
     if (tile + 1 < last && tile + 1 < (s + 1) * p.Ho)
       load_halo_row(ring + ((y + 3) % kRingRows) * row_bytes, x, p, b, iy + 3, ix0);

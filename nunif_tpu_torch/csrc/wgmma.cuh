@@ -84,6 +84,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
+// order this thread's earlier generic-proxy writes to shared memory (plain
+// stores, cp.async) before later async-proxy reads (wgmma operands, bulk
+// copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");
@@ -106,6 +113,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// arrive when pred holds, without a branch (a divergent path while a
+// wgmma is in flight makes ptxas serialize the wgmmas)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_addr(bar)),
+      "r"((int)pred)
+      : "memory");
 }
 
 // bytes (a multiple of 16, both addresses 16-byte aligned) from global to

@@ -42,8 +42,10 @@ _SIGNATURES = {
     # stream
     "nunif_stem_conv3x3": [_I, _P, _P, _P, _P] + [_I] * 8 + [_F, _P],
     # dtype, x, skip, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
-    # relbias, out, B, H, W, C, heads, hidden, ws, shift, scale, stream
-    "nunif_swin_block_image": [_I] + [_P] * 12 + [_I] * 8 + [_F, _P],
+    # relbias, out, B, H, W, C, heads, hidden, ws, shift, chunk, scale, stream
+    "nunif_swin_block_image": [_I] + [_P] * 12 + [_I] * 9 + [_F, _P],
+    # C, hidden, ws, chunk, int out[5]
+    "nunif_swin_block_plan": [_I, _I, _I, _I, _P],
     # x, delta, out, B, H, W, C, stream
     "nunif_warp_x_bounded": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, B, H, N, M, D, (batch, head, row) strides of q, k, v,
@@ -53,9 +55,9 @@ _SIGNATURES = {
     # scale, stream
     "nunif_window_attn": [_I, _P, _P, _P] + [_I] * 8 + [_F, _P],
     # dtype, x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, relbias,
-    # out, nw, C, heads, hidden, ws, shift, pad_mode, n_wh, n_ww, scale,
-    # stream
-    "nunif_swin_block_windows": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
+    # out, nw, C, heads, hidden, ws, shift, pad_mode, n_wh, n_ww, chunk,
+    # scale, stream
+    "nunif_swin_block_windows": [_I] + [_P] * 11 + [_I] * 10 + [_F, _P],
     # dtype, qkv, relbias, out, B, H, W, C, heads, ws, shift, scale, stream
     "nunif_window_attn_image": [_I, _P, _P, _P] + [_I] * 7 + [_F, _P],
     # relayout, x, out, H, W, C, ws, rh, cw, scale, stream
@@ -176,6 +178,22 @@ def mma_weight_layout(w):
     return (w.reshape(k // (8 * e), 2, 4, e, n // 8, 8)
             .permute(0, 4, 5, 2, 1, 3).reshape(k // (8 * e), n // 8, 32, 2 * e)
             .contiguous())
+
+
+def wgmma_weight_layout(w, nb):
+    """(K, N) bf16 weight -> wgmma's K-major B operand in shared memory,
+    unswizzled, one group of ``nb`` columns after another: shape (N / nb,
+    K / 16, nb / 8, 2, 8, 8) with
+
+        packed[h, ks, n8, kb, r, c] = w[16 ks + 8 kb + c, nb h + 8 n8 + r]
+
+    (for k16 step ks: two 8 x 8 core matrices along K, 128 bytes apart,
+    ``nb`` / 8 along N, 256 bytes apart; a core matrix is 8 columns of 8
+    consecutive k values).  Any run of k16 steps of one column group is
+    contiguous, ``nb`` * 32 bytes a step."""
+    k, n = w.shape
+    return (w.reshape(k // 16, 2, 8, n // nb, nb // 8, 8)
+            .permute(3, 0, 4, 1, 5, 2).contiguous())
 
 
 def stream_ptr(device) -> int:

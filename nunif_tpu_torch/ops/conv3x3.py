@@ -76,9 +76,7 @@ def pack_stem_weights(kernel, dtype):
     w = kernel.detach().to(dtype).reshape(9 * cin, cout)
     if dtype != torch.bfloat16:
         return w.contiguous()
-    nb = column_group(cout)
-    return (w.reshape(9 * cin // 16, 2, 8, cout // nb, nb // 8, 8)
-            .permute(3, 0, 4, 1, 5, 2).contiguous())
+    return _build.wgmma_weight_layout(w, column_group(cout))
 
 
 def _packed_shape(cin, cout, dtype):

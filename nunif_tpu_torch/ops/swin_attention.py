@@ -8,7 +8,9 @@ times per frame: C = 96 at 1104x1920 and C = 192 at 552x960 and 276x480,
 6 heads, 6x6 windows, hidden 2C.  Unlike the TPU function, ``x`` is the
 unpadded image for shifted blocks too: the kernel forms the cyclically
 shifted windows by index arithmetic, so there is no pad or crop around the
-call.
+call.  In bf16 it is a persistent kernel whose four dense GEMMs run on
+wgmma, with the weights streamed into shared memory by bulk copies in the
+layout ``pack_weights`` makes once per weight load.
 
 K4: window attention on already projected qkv, for the blocks with a
 LayerNorm.  Replaces ``nunif_tpu/ops/swin_attention.py:fused_window_attention``
@@ -37,6 +39,7 @@ tensors; for a CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -50,18 +53,60 @@ from ..modules.permute import (window_partition, window_partition2,
 class PackedBlockWeights(NamedTuple):
     """A block's weights as the kernel reads them, for x of ``dtype``."""
     dtype: torch.dtype
-    mats: tuple  # wqkv, wproj, wfc1, wfc2 in dtype (bf16: fragment order)
+    # wqkv, wproj, wfc1, wfc2 in dtype: fp32 the (in, out) matrices; bf16
+    # wgmma's B layout in column chunks of chunk_width(C, hidden)
+    mats: tuple
     biases: tuple  # bqkv, bproj, bfc1, bfc2 in fp32
     rel_bias: torch.Tensor  # (heads, N, N) fp32
+
+
+def chunk_width(c: int, hidden: int) -> int:
+    """Output columns of one weight chunk of the bf16 kernel (its wgmma
+    N): 96 where C and hidden are multiples of 96 (swin_unet's 96 and
+    192), else 16.  The pack decides; the wrappers pass the kernel the
+    width of the pack they hand it (``_chunk_of``)."""
+    return 96 if c % 96 == 0 and hidden % 96 == 0 else 16
+
+
+def _chunk_of(packed) -> int:
+    """The chunk width a packed bf16 wqkv was laid out with (0 for fp32)."""
+    if packed.dtype != torch.bfloat16:
+        return 0
+    return packed.mats[0].shape[2] * 8
+
+
+def block_plan(c: int, hidden: int, window: int) -> dict:
+    """The bf16 kernel's plan for a block of width ``c``, MLP width
+    ``hidden`` and ``window`` with weights packed by ``pack_weights`` (card
+    only: asks the built library): token rows a tile, whole windows a tile,
+    k16 steps a weight piece, ring stages and shared-memory bytes."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().nunif_swin_block_plan(
+        c, hidden, window, chunk_width(c, hidden), out), "block_plan")
+    return dict(zip(("rows", "windows", "kper", "stages", "smem"), out))
+
+
+def _packed_shapes(c, hidden, dtype):
+    mats = ((c, 3 * c), (c, c), (c, hidden), (hidden, c))
+    if dtype != torch.bfloat16:
+        return mats
+    nb = chunk_width(c, hidden)
+    return tuple((n // nb, k // 16, nb // 8, 2, 8, 8) for k, n in mats)
 
 
 def pack_weights(wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, rel_bias,
                  dtype) -> PackedBlockWeights:
     """Cast and arrange a block's weights for the kernel once; pass the
-    result as ``packed=`` so that calls skip this work."""
+    result as ``packed=`` so that calls skip this work.  bf16: each (in,
+    out) matrix W rounded to bf16 in ``_build.wgmma_weight_layout`` with
+    nb = ``chunk_width(C, hidden)``, shape (out / nb, in / 16, nb / 8, 2, 8,
+    8), element [h, ks, n8, kb, r, c] = W[16 ks + 8 kb + c, nb h + 8 n8 +
+    r]: the kernel's bulk copies take k16 steps of one column chunk, which
+    lie contiguous."""
     mats = [w.to(dtype).contiguous() for w in (wqkv, wproj, wfc1, wfc2)]
     if dtype == torch.bfloat16:
-        mats = [_build.mma_weight_layout(w) for w in mats]
+        nb = chunk_width(wqkv.shape[0], wfc1.shape[-1])
+        mats = [_build.wgmma_weight_layout(w, nb) for w in mats]
     biases = [b.float().contiguous() for b in (bqkv, bproj, bfc1, bfc2)]
     return PackedBlockWeights(dtype, tuple(mats), tuple(biases),
                               rel_bias.float().contiguous())
@@ -159,9 +204,12 @@ def _block_weights(what, x, C, weights, packed, *, num_heads, window, shift):
         _check_on(t, name, x, what)
     if packed is None:
         packed = pack_weights(*weights, x.dtype)
-    elif packed.dtype != x.dtype:
-        raise ValueError(f"{what}: weights packed for {packed.dtype}, x is "
-                         f"{x.dtype}")
+    elif packed.dtype != x.dtype or tuple(
+            tuple(m.shape) for m in packed.mats) != _packed_shapes(
+                C, hidden, x.dtype):
+        raise ValueError(f"{what}: weights packed for {packed.dtype} "
+                         f"{[tuple(m.shape) for m in packed.mats]}, x is "
+                         f"{x.dtype} with C={C}, hidden={hidden}")
     for t in (*packed.mats, *packed.biases, packed.rel_bias):
         _check_on(t, "packed weights", x, what)
     if any(w.data_ptr() % 32 for w in packed.mats):
@@ -221,8 +269,8 @@ def fused_swin_block_image(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
     rc = _build.library().nunif_swin_block_image(
         code, x.data_ptr(), None if skip is None else skip.data_ptr(),
         *_packed_args(packed), out.data_ptr(), B, H, W, C, num_heads,
-        wfc1.shape[-1], ws, shift, float((C // num_heads) ** -0.5),
-        _build.stream_ptr(x.device))
+        wfc1.shape[-1], ws, shift, _chunk_of(packed),
+        float((C // num_heads) ** -0.5), _build.stream_ptr(x.device))
     _build.check(rc, what)
     fused_swin_block_image.launches += 1
     return out
@@ -295,7 +343,7 @@ def fused_swin_block(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
     rc = _build.library().nunif_swin_block_windows(
         code, x.data_ptr(), *_packed_args(packed), out.data_ptr(), nw, C,
         num_heads, wfc1.shape[-1], window, shift, int(shift_mode == "pad"),
-        n_wh, n_ww, float((C // num_heads) ** -0.5),
+        n_wh, n_ww, _chunk_of(packed), float((C // num_heads) ** -0.5),
         _build.stream_ptr(x.device))
     _build.check(rc, what)
     fused_swin_block.launches += 1

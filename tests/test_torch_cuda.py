@@ -128,11 +128,15 @@ def _block_inputs(rng, c, heads, device):
 
 
 K1_ATOL = {torch.bfloat16: 0.05, torch.float32: 2e-4}
+# The bf16 kernel's tiles hold 7 windows at C = 96 (256 rows) and 3 at C =
+# 192 (128 rows): 20 windows at C = 96 and 14 at C = 192 leave a ragged last
+# tile at both sizes.
 K1_CASES = [
-    (1, 24, 30, 96, 6, 0, False),
+    (1, 24, 30, 96, 6, 0, False),   # 20 windows: ragged last tile of 7
     (1, 24, 30, 96, 6, 3, False),
-    (2, 18, 42, 96, 6, 0, True),   # window count not a multiple of 4
+    (2, 18, 42, 96, 6, 0, True),   # batch 2, skip
     (1, 12, 18, 192, 6, 3, False),
+    (1, 12, 42, 192, 6, 3, False),  # 14 windows: ragged last tile of 3
     (1, 6, 30, 32, 2, 3, False),   # one window row: wrap region in-window
     (1, 12, 12, 128, 2, 3, False),  # head_dim 64
 ]
@@ -426,6 +430,8 @@ K5_CASES = [
     (1, 4, 5, 96, 6, 0, "roll"), (1, 4, 5, 96, 6, 3, "roll"),
     (1, 5, 6, 96, 6, 3, "pad"), (2, 3, 7, 96, 6, 3, "pad"),
     (1, 3, 4, 192, 6, 3, "pad"), (1, 3, 3, 128, 2, 3, "roll"),
+    # ragged last tiles: 20 windows at C = 192, 40 (batch 2) at C = 96
+    (1, 4, 5, 192, 6, 3, "pad"), (2, 4, 5, 96, 6, 3, "roll"),
 ]
 
 
@@ -484,6 +490,103 @@ def test_swin_block_window_path_matches_k1_path(cuda, monkeypatch, dtype,
     assert got.shape == x.shape and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=K1_ATOL[dtype],
                                rtol=0)
+
+
+# swin_unet_2x's 1080p frame: K1 (C, H, W, shift, skip) on the image path,
+# K5 (C, unpadded H, W, shift) on the window path (shifted blocks on the
+# grid padded by one window)
+K1_MAIN = [(96, 1104, 1920, 0, False), (96, 1104, 1920, 3, False),
+           (96, 1104, 1920, 0, True), (192, 552, 960, 0, False),
+           (192, 552, 960, 3, False), (192, 276, 480, 0, False),
+           (192, 276, 480, 3, False)]
+K5_MAIN = [(96, 1104, 1920, 0), (96, 1104, 1920, 3), (192, 552, 960, 0),
+           (192, 552, 960, 3), (192, 276, 480, 0), (192, 276, 480, 3)]
+
+
+@pytest.mark.parametrize("shape", K1_MAIN)
+def test_swin_block_kernel_matches_twin_at_main_path_shapes(cuda, shape):
+    c, h, w, shift, skip = shape
+    rng = _rng(20)
+    x = _t(rng.normal(0, 0.5, (1, h, w, c)), cuda, torch.bfloat16)
+    sk = _t(rng.normal(0, 0.5, (1, h, w, c)), cuda, torch.bfloat16) if skip else None
+    args = _block_inputs(rng, c, 6, cuda)
+    kw = dict(num_heads=6, window=6, shift=shift, skip=sk)
+    got = k1.fused_swin_block_image(
+        x, *args, packed=k1.pack_weights(*args, torch.bfloat16), **kw)
+    want = k1.swin_block_image_plain(x, *args, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=K1_ATOL[torch.bfloat16], rtol=0)
+    no_bias = k1.fused_swin_block_image(
+        x, *args[:-1], torch.zeros_like(args[-1]), **kw)
+    assert float((no_bias.float() - want.float()).abs().max()) > \
+        4 * K1_ATOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("shape", K5_MAIN)
+def test_swin_block_windows_kernel_matches_twin_at_main_path_shapes(cuda, shape):
+    c, h, w, shift = shape
+    n_wh, n_ww = h // 6 + (shift > 0), w // 6 + (shift > 0)
+    rng = _rng(21)
+    x = _t(rng.normal(0, 0.5, (n_wh * n_ww, 36, c)), cuda, torch.bfloat16)
+    args = _block_inputs(rng, c, 6, cuda)
+    kw = dict(num_heads=6, window=6, shift=shift, n_wh=n_wh, n_ww=n_ww,
+              shift_mode="pad")
+    got = k1.fused_swin_block(
+        x, *args, packed=k1.pack_weights(*args, torch.bfloat16), **kw)
+    want = k1.swin_block_plain(x, *args, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=K1_ATOL[torch.bfloat16], rtol=0)
+    bad = [k1.fused_swin_block(x, *args[:-1], torch.zeros_like(args[-1]), **kw)]
+    if shift:
+        bad.append(k1.fused_swin_block(x, *args, **dict(kw, shift_mode="roll")))
+    for y in bad:
+        assert float((y.float() - want.float()).abs().max()) > \
+            4 * K1_ATOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("c,hidden,rows", [(96, 192, 256), (192, 384, 128),
+                                           (32, 64, 256), (128, 256, 128)])
+def test_swin_block_plan_reads_the_pack_it_is_given(cuda, c, hidden, rows):
+    """With the pack's column chunks the kernel's tiles are the sizes the
+    kernel header states."""
+    plan = k1.block_plan(c, hidden, 6)
+    assert plan["rows"] == rows and plan["windows"] == rows // 36
+    assert plan["stages"] >= 2 and plan["smem"] <= 232448
+
+
+@pytest.mark.parametrize("shift,skip", [(0, True), (2, False)])
+def test_swin_block_kernel_matches_twin_at_window_4(cuda, shift, skip):
+    """Windows other than 6 take the kernel's attention with a run-time
+    token count (N = 16 here, one 16-key tile)."""
+    rng = _rng(22)
+    x = _t(rng.normal(0, 0.5, (1, 20, 28, 96)), cuda, torch.bfloat16)
+    sk = _t(rng.normal(0, 0.5, (1, 20, 28, 96)), cuda, torch.bfloat16) if skip else None
+    args = list(_block_inputs(rng, 96, 6, cuda))
+    args[-1] = expand_relative_bias(_t(rng.standard_normal((49, 6)), cuda), 4)
+    kw = dict(num_heads=6, window=4, shift=shift, skip=sk)
+    got = k1.fused_swin_block_image(x, *args, **kw)
+    want = k1.swin_block_image_plain(x, *args, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=K1_ATOL[torch.bfloat16], rtol=0)
+    no_bias = k1.fused_swin_block_image(
+        x, *args[:-1], torch.zeros_like(args[-1]), **kw)
+    assert float((no_bias.float() - want.float()).abs().max()) > \
+        4 * K1_ATOL[torch.bfloat16]
+
+
+# sha1 of K4, K6 and T2 outputs at the seeded shapes of
+# tools/ab_swin_block.py:bitwise_digests, as the PR 8 kernels give them
+# (ab_swin_block run against that tree on an H100): K1 / K5's redesign
+# shares headers with them and must leave their outputs bit-identical.
+PR8_DIGESTS = {"K4": "c1d6d896136d058c2c1bc2689fb528acf4e7ce0b",
+               "K6": "07d634b4d21684f6ccd8fe81cb574b0e2ed6c384",
+               "T2 P4": "ced2fcab150b83bd7a584660d8022836fa48e7f2",
+               "T2 P4qs": "d1776bdaa3475331f57f303679b526e7f4a0176a"}
+
+
+def test_window_attn_and_t2_outputs_match_recorded_digests(cuda):
+    from nunif_tpu_torch.tools.ab_swin_block import bitwise_digests
+    assert bitwise_digests() == PR8_DIGESTS
 
 
 def test_swin_block_windows_rejects_bad_inputs(cuda):

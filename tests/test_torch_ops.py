@@ -183,7 +183,8 @@ def test_block_module_packs_kernel_weights_per_weight_load():
     assert blk.packed_weights(torch.bfloat16) is first
     fc2 = blk.mlp.fc2.weight
     torch.testing.assert_close(
-        first.mats[3], _build.mma_weight_layout(fc2.detach().t().bfloat16()),
+        first.mats[3], _build.wgmma_weight_layout(fc2.detach().t().bfloat16(),
+                                                  k1.chunk_width(32, 64)),
         rtol=0, atol=0)
     assert all(b.dtype == torch.float32 for b in first.biases)
     with torch.no_grad():
