@@ -25,10 +25,15 @@ written by the port:
 - waifu2x swin_unet_4xl (LayerNorm blocks): holds K4 (window attention) and
   K6 (the same in image layout) at the eight shapes of the 540p path and
   K2 at its 96 -> 192 stem, each K4 / K6 check with controls that must
-  fail, K6 timed beside K4 with the window partition and reverse copies;
+  fail, K6 timed beside K4 with the window partition and reverse copies,
+  each bf16 launch also back to back against its bound, and the kernel's
+  registers and spills; its launch plan (``window_attn_plan``, from the
+  library) and the bias bytes it reads (a count) print on the "K4 / K6
+  frame:" line, beside the frame sums;
   runs the image-form attention module (K6) at the frame's 14 block
   shapes; renders one 540p frame to 4K (launches K4 14, K2 1, K1 0)
-  against the twin path, profiles it, and drives ``Waifu2x.convert`` and
+  against the twin path, profiles it (with K4's share of the device
+  time), and drives ``Waifu2x.convert`` and
   the CLI with ``--method scale4x`` and ``--arch waifu2x.swin_unet_4xl``;
   then renders swin_unet_1x, swin_unet_4x and the downscaled 2x model on a
   small image;
@@ -443,8 +448,10 @@ def k2_row(torch, k2, rng, t, dev, shape, cin, cout):
 def k4_phase(torch, k4, rng, t, dev):
     """K4 at every 4xl 540p shape, bf16 and fp32, against its twin, with
     two controls (zero bias; for shift 3, the kernel run unshifted) that
-    must fail; bf16 timed beside SDPA with a float mask built once."""
+    must fail; bf16 timed beside SDPA with a float mask built once, and back
+    to back against its bound, with its launch plan."""
     import torch.nn.functional as F
+    from nunif_tpu_torch.tools import time_ms
     from nunif_tpu_torch.modules.attention import (expand_relative_bias,
                                                    shifted_window_mask)
     rows = []
@@ -493,7 +500,10 @@ def k4_phase(torch, k4, rng, t, dev):
                 bound_ms, bound_by = bound(nbytes, 4 * nw * n * n * c)
                 row.update(ms=tm["kernel"], plain_ms=tm["plain"],
                            library_ms=tm["library"], bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by, **window_launch_extras(
+                               k4, time_ms, lambda: k4.fused_window_attention(
+                                   qd, bias, **kw), c, heads, n, nw, bound_ms,
+                               what))
                 del q, k, v, mask
             print(f"{what} {name}: {row}", flush=True)
             rows.append(row)
@@ -531,6 +541,44 @@ def ptxas_usage(log, needle):
                         spill_stores=int(spill[1].split()[0]),
                         spill_loads=int(spill[2].split()[0]))
     fail(f"no ptxas report for {needle}")
+
+
+def window_plan(k4, c, heads, n, nw, what):
+    """The bf16 K4 / K6 launch plan at one shape, from the built library
+    (``window_attn_plan``); the shapes of the paths keep the bias in shared
+    memory."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = k4.window_attn_plan(c, heads, n, nw, sms)
+    if not plan["bias_resident"]:
+        fail(f"{what}: the plan {plan} reads the bias from L2")
+    return plan
+
+
+def window_bias_bytes(plan, heads, n, nw):
+    """Bytes of fp32 relative bias a bf16 K4 / K6 launch reads, a count from
+    the plan: each block its group's bias once where it is resident in
+    shared memory, else (and in the first design) each window all heads'
+    N x N."""
+    if plan["bias_resident"]:
+        return plan["grid"] * plan["group"] * n * n * 4
+    return nw * heads * n * n * 4
+
+
+def window_launch_extras(k4, time_ms, fn, c, heads, n, nw, bound_ms, what):
+    """K4 / K6 fields of a bf16 row: ms a launch back to back (5 launches,
+    median of 3) and its share of the bound, measured; the plan and the
+    bias bytes the launch reads, counts that the kernels line leaves out
+    (they print on the "K4 / K6 frame:" line)."""
+    plan = window_plan(k4, c, heads, n, nw, what)
+    b2b = time_ms(fn, 5)
+    extras = dict(plan=plan, ms_b2b=b2b, bound_share=bound_ms / b2b,
+                  bias_bytes=window_bias_bytes(plan, heads, n, nw),
+                  bias_bytes_a_window=nw * heads * n * n * 4)
+    print(f"{what}: {b2b:.4f} ms a launch back to back, "
+          f"{100 * bound_ms / b2b:.1f}% of its {bound_ms:.4f} ms bound; plan "
+          f"{plan}; bias read {extras['bias_bytes']} B", flush=True)
+    return extras
 
 
 def block_l2_weight_bytes(plan, c, n_windows):
@@ -665,6 +713,7 @@ def k6_phase(torch, k6, rng, t, dev):
     from nunif_tpu_torch.modules.attention import (
         ShiftedWindowAttention, expand_relative_bias, shifted_window_mask)
     from nunif_tpu_torch.modules.permute import window_partition2, window_reverse2
+    from nunif_tpu_torch.tools import time_ms
     rows = []
     heads, ws, n = 12, 6, 36
     for (c, h, w, shift) in K4_FRAME:
@@ -717,7 +766,11 @@ def k6_phase(torch, k6, rng, t, dev):
                 row.update(ms=tm["kernel"], plain_ms=tm["plain"],
                            library_ms=tm["library"],
                            k4_copies_ms=tm["k4_copies"], bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by, **window_launch_extras(
+                               k6, time_ms,
+                               lambda: k6.fused_window_attention_image(
+                                   qd, bias, **kw), c, heads, n, nw, bound_ms,
+                               what))
                 del q, k, v, mask, qw
             print(f"{what} {name}: {row}", flush=True)
             rows.append(row)
@@ -822,6 +875,7 @@ def swin_t_phase(torch, k4, rng, t, dev):
     from nunif_tpu_torch.modules.attention import (expand_relative_bias,
                                                    shifted_window_mask)
     from nunif_tpu_torch.modules.permute import window_partition2
+    from nunif_tpu_torch.tools import time_ms
     rows = []
     shapes = [(c, hw, shift, 7, SWIN_T_BATCH) for c, hw, shift in SWIN_T]
     shapes.append(WINDOW8 + (8,))
@@ -878,7 +932,9 @@ def swin_t_phase(torch, k4, rng, t, dev):
                                                4 * nw * n * n * c)
                     row.update(ms=tm["kernel"], plain_ms=tm["plain"],
                                library_ms=tm["library"], bound_ms=bound_ms,
-                               bound_by=bound_by)
+                               bound_by=bound_by, **window_launch_extras(
+                                   k4, time_ms, lambda: kernel(arg, bias, **kw),
+                                   c, heads, n, nw, bound_ms, f"{what} {name}"))
                     del q, k, v, mask, qw
                 print(f"{what} {name}: {row}", flush=True)
                 rows.append(row)
@@ -994,11 +1050,12 @@ def device_ms(torch, fn, n=20, tries=3):
     return None
 
 
-def profile_frame(torch, program, frame, top=12):
+def profile_frame(torch, program, frame, top=12, share_of=None):
     """torch.profiler over one frame: the device time (sum over kernels),
     the top ops by the device time of the kernels they launch, and the top
     kernels by name (the port's own kernels, launched through ctypes, belong
-    to no op and show only there)."""
+    to no op and show only there); with ``share_of`` (label, name part), the
+    device time and share of the kernels whose name holds the part."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         program(frame)
@@ -1015,6 +1072,11 @@ def profile_frame(torch, program, frame, top=12):
             print(f"profile {label}: {dev_us(e) / 1e3:8.3f} ms "
                   f"{100 * dev_us(e) / total:5.1f}% x{e.count:<4d} "
                   f"{e.key[:110]}", flush=True)
+    if share_of is not None:
+        label, part = share_of
+        mine = sum(dev_us(e) for e in kernels if part in e.key)
+        print(f"profile: {label} {mine / 1e3:.3f} ms, {100 * mine / total:.1f}% "
+              f"of the frame's device time", flush=True)
     return total / 1e3
 
 
@@ -1338,7 +1400,8 @@ def main() -> int:
         fail(f"4xl frame PSNR vs twins {psnr_4xl:.2f} dB < {FRAME_PSNR_MIN}")
     if not 0.05 < mean_4xl < 0.95:
         fail(f"4xl frame mean {mean_4xl} outside the tamed model's range")
-    profile_frame(torch, program, frame_d)
+    profile_frame(torch, program, frame_d,
+                  share_of=("K4 (window_attn_tma)", "window_attn_tma"))
     del program, model, y, frame_d
     torch.cuda.empty_cache()
 
@@ -1592,8 +1655,24 @@ def main() -> int:
         """K4 or K6 at the window-7 / window-8 shapes: kernel checks only,
         since swin_t is not ported."""
         return [dict((k, r[k]) for k in (
-            "C", "HW", "window", "batch", "shift", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")) for r in swin_t_rows if r["kernel"] == label]
+            "C", "HW", "window", "batch", "shift", "max_abs_err", "ms", "ms_b2b",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share"))
+            for r in swin_t_rows if r["kernel"] == label]
+
+    # the bf16 K4 / K6 kernel's build at the paths' instantiations: (head
+    # dim / 16, key tiles, N) with the bias in shared memory
+    window_build = {f"hd {16 * kt} N {n}": ptxas_usage(
+        log, f"window_attn_tmaILi{kt}ELi{tiles}ELi{n}ELb1E")
+        for kt, tiles, n in ((1, 3, 36), (2, 3, 36), (2, 4, 49), (2, 4, 64))}
+
+    def window_extras(rows, frame_sum):
+        """K4 / K6 fields beyond the common ones, all measured in this run:
+        the frame sum back to back, the build's registers and spills, and
+        each shape's times."""
+        keys = ("C", "H", "W", "shift", "ms", "ms_b2b", "bound_ms",
+                "bound_share", "max_abs_err")
+        return {"ms_b2b": frame_sum("ms_b2b"), "build": window_build,
+                "per_shape": [dict((k, r[k]) for k in keys) for r in rows]}
     kernels = {"kernels": [
         {"name": "stem_conv3x3", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/conv3x3.cu",
@@ -1631,7 +1710,8 @@ def main() -> int:
          "bound_ms": k4_sum("bound_ms"),
          "bound_by": bound_by(k4_bf16, lambda r: K4_FRAME[
              (r["C"], r["H"], r["W"], r["shift"])]),
-         "library_ms": k4_sum("library_ms"), "windows_7_8": wide("K4")},
+         "library_ms": k4_sum("library_ms"), "windows_7_8": wide("K4"),
+         **window_extras(k4_bf16, k4_sum)},
         {"name": "sdpa", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/flash_attn.cu",
          "replaces": "nunif_tpu/ops/sdpa.py:49",
@@ -1667,7 +1747,8 @@ def main() -> int:
          "bound_by": bound_by(k6_bf16, lambda r: K4_FRAME[
              (r["C"], r["H"], r["W"], r["shift"])]),
          "library_ms": k6_sum("library_ms"),
-         "k4_copies_ms": k6_sum("k4_copies_ms"), "windows_7_8": wide("K6")},
+         "k4_copies_ms": k6_sum("k4_copies_ms"), "windows_7_8": wide("K6"),
+         **window_extras(k6_bf16, k6_sum)},
         {"name": "strip_relayout", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/probe_strip.cu",
          "replaces": "tools/microbench_strip.py:54",
@@ -1730,6 +1811,21 @@ def main() -> int:
                 (r["C"], r["H"], r["shift"], r["skip"])], False),
             "fused_swin_block": frame_l2_bytes(k5_main, lambda r: K5_FRAME[
                 (r["C"], r["H"], r["W"], r["shift"])], True)}}), flush=True)
+    # counts from the plan and the shapes, and the plans themselves, on a
+    # line of their own: the kernels line holds measured numbers only
+    plan_keys = ("C", "H", "W", "shift", "plan", "bias_bytes")
+    print("K4 / K6 frame: " + json.dumps({
+        label: {"ms": fsum("ms"), "ms_b2b": fsum("ms_b2b"),
+                "bound_ms": fsum("bound_ms"),
+                "bound_share_b2b": fsum("bound_ms") / fsum("ms_b2b"),
+                "bias_bytes": fsum("bias_bytes"),
+                "bias_bytes_one_read_a_window": fsum("bias_bytes_a_window"),
+                "per_shape": [dict((k, r[k]) for k in plan_keys) for r in rows],
+                "windows_7_8": [dict((k, r[k]) for k in (
+                    "C", "HW", "window", "batch", "shift", "plan", "bias_bytes"))
+                    for r in swin_t_rows if r["kernel"] == label]}
+        for label, fsum, rows in (("K4", k4_sum, k4_bf16),
+                                  ("K6", k6_sum, k6_bf16))}), flush=True)
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -98,6 +98,7 @@
 #include <cudaTypedefs.h>
 
 #include "common.cuh"
+#include "tensor_map.cuh"
 #include "wgmma.cuh"
 
 namespace nunif {
@@ -354,34 +355,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-}
-
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (looked
-// up once); err is the lookup's error
-struct Encoder {
-  EncodeTiled fn = nullptr;
-  cudaError_t err = cudaSuccess;
-};
-
-const Encoder& encoder() {
-  static const Encoder enc = [] {
-    Encoder e;
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    e.err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                             cudaEnableDefault, &status);
-#else
-    e.err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &status);
-#endif
-    if (e.err == cudaSuccess && (status != cudaDriverEntryPointSuccess || fn == nullptr))
-      e.err = cudaErrorSymbolNotFound;
-    e.fn = reinterpret_cast<EncodeTiled>(fn);
-    return e;
-  }();
-  return enc;
 }
 
 // 4-D map (D, rows, H, B) of a bf16 operand with element strides sn, sh,

@@ -341,9 +341,10 @@ __device__ __forceinline__ void attend(const SwinArgs& p, __nv_bfloat16* Q, int 
   int wl = u0 % p.windows, mi = u0 / p.windows % qblocks, h = u0 / p.windows / qblocks;
   for (int u = u0; u < end; ++u) {
     const int pos = wpos[wl];
-    attention_unit<KT, NFix>(Planes{Q + wl * N * 8, plane}, h, mi,
-                             window_mask_at(p, pos >> 16, pos & 0xffff),
-                       win0 + wl < p.n_windows, p.C, N, p.scale, p.relbias, inv_ws);
+    attention_unit<KT, kAttnTiles, NFix>(PlanesQKV{Planes{Q + wl * N * 8, plane}, p.C},
+                                         LdgBias{p.relbias}, h, mi,
+                                         window_mask_at(p, pos >> 16, pos & 0xffff),
+                                         win0 + wl < p.n_windows, N, p.scale, inv_ws);
     if (++wl == p.windows) {
       wl = 0;
       if (++mi == qblocks) {

@@ -1,6 +1,6 @@
 // Hopper-only helpers (sm_90a): wgmma with A from shared memory or from
 // registers, the operands' descriptors, mbarriers, bulk and tensor (TMA)
-// copies that signal one, named barriers and setmaxnreg.
+// copies that signal one, tensor stores, named barriers and setmaxnreg.
 //
 // wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulate) is issued by the four
 // warps of a warpgroup together and runs asynchronously: a chain of them
@@ -147,6 +147,45 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tensor_map, i
       "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// box of a 5-D tensor map at (c0 .. c4), innermost first, from global to
+// shared memory, as tma_load_4d
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* tensor_map, int c0, int c1,
+                                            int c2, int c3, int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// box of a 5-D tensor map at (c0 .. c4) from shared to global memory by
+// the TMA unit, in this thread's current bulk group; parts of the box
+// outside the tensor are not written.  The writes of other threads to src
+// must be ordered before it (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void tma_store_5d(const void* tensor_map, const void* src, int c0,
+                                             int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2, %3, %4, %5}], [%6];\n" ::"l"(reinterpret_cast<uint64_t>(tensor_map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(smem_addr(src))
+      : "memory");
+}
+
+// close this thread's bulk group; wait until at most Pending of its groups
+// are still reading shared memory (read) or not yet complete
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(Pending) : "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
 // named barrier id (1-15) over `threads` threads: sync waits until all

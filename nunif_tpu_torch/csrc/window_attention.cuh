@@ -1,15 +1,17 @@
 // Swin window attention of one (window, head), shared by K1 / K5
 // (swin_block.cu, the whole block) and K4 / K6 (window_attn.cu, attention
 // only), so that the kernels compute and round a logit, a softmax and P V
-// alike: attention_bf16 (K4 / K6) and attention_unit (K1 / K5) share the
-// logit (logit_b), the exponentials (softmax_exp) and the rounded
-// probabilities (probs_a); each keeps its own loads and its mma.sync loops.
+// alike: the bf16 kernels all run attention_unit, which is templated on the
+// key-tile count, N, the head dim, the staging's addressing and where the
+// relative bias lives; the fp32 kernels run attention_fma, with the same
+// logit (logit_b).
 //
-// The caller stages the window's qkv rows in shared memory, q of head h at
-// columns h*hd, k at C + h*hd, v at 2C + h*hd: row-major for K4 / K6 (row i
-// at base + i * ldq; attention_bf16, attention_fma), in planes of 8
-// columns for K1 / K5 (Planes; attention_unit).  The output of query i
-// overwrites q_i (columns h*hd ..), which no other query block reads.
+// The caller stages the window's qkv rows in shared memory: for K1 / K5 in
+// planes of 8 columns, q of head h at columns h*hd, k at C + h*hd, v at
+// 2C + h*hd (PlanesQKV); for K4 / K6 as three row-major regions of the head
+// group's q, k and v columns with one row stride (RowsQKV); for the fp32
+// kernels row-major (row i at base + i * ldq; attention_fma).  The output of
+// query i overwrites q_i (columns h*hd ..), which no other query block reads.
 //
 // Shift masks (WindowMask): with the cyclically rolled window grid of the
 // module path, only the last window row / column straddles the wrap-around;
@@ -27,8 +29,8 @@
 
 namespace nunif {
 
-// bf16 attention covers 16 Tiles keys: 3 tiles (N <= 48: window 6, K1, K5,
-// K4 / K6) or 4 (N <= 64: windows 7 and 8, K4 / K6 only)
+// bf16 attention covers 16 Tiles keys: 1 tile (N = 16), 3 (N <= 48:
+// window 6, K1, K5, K4 / K6) or 4 (N <= 64: windows 7 and 8, K4 / K6 only)
 constexpr int kMaxAttnTiles = 4;
 constexpr int kMaxHeadDim = 64;
 
@@ -150,101 +152,6 @@ __device__ __forceinline__ void probs_a(const float (&s)[2 * Tiles][4], float in
   }
 }
 
-// bf16 attention of queries 16 mi .. 16 mi + 15 of one (window, head) on
-// tensor cores, N <= 16 Tiles.  base: the window's first qkv row.  Rows past
-// N (next window or zeroed padding, up to row 16 * ceil(N / 16) - 1) are read
-// but their scores are dropped and their outputs are not stored.  Tiles
-// sizes the score registers (8 fp32 a lane a tile), so the smallest count
-// that covers N is instantiated.
-template <int Tiles>
-__device__ __forceinline__ void attention_bf16(__nv_bfloat16* base, int ldq, int C, int h, int hd,
-                                               int N, int mi, float scale, const float* rb,
-                                               WindowMask mask) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int nt = (N + 15) / 16, kt = hd / 16;
-  const __nv_bfloat16* kbase = base + C + h * hd;
-  const __nv_bfloat16* vbase = base + 2 * C + h * hd;
-  uint32_t qa[kMaxHeadDim / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kMaxHeadDim / 16; ++kk)
-    if (kk < kt)
-      ldmatrix_x4(qa[kk], base + (size_t)(mi * 16 + lane % 16) * ldq + h * hd + kk * 16 +
-                              (lane / 16) * 8);
-  // S = Q K^T: 8-key tiles, lane holds keys 8 jn + 2t + {0, 1} of query
-  // rows g and g + 8
-  float s[2 * Tiles][4] = {};
-#pragma unroll
-  for (int jk = 0; jk < Tiles; ++jk) {
-    if (jk < nt) {
-#pragma unroll
-      for (int kk = 0; kk < kMaxHeadDim / 16; ++kk) {
-        if (kk < kt) {
-          uint32_t b[4];
-          const int key = jk * 16 + (lane & 7) + ((lane >> 4) << 3);
-          ldmatrix_x4(b, kbase + (size_t)key * ldq + kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_16816(s[2 * jk], qa[kk], b[0], b[1]);
-          mma_16816(s[2 * jk + 1], qa[kk], b[2], b[3]);
-        }
-      }
-    }
-  }
-  // logits, softmax over keys < N; the four lanes of a row share it
-  const int q0 = mi * 16 + g, q1 = q0 + 8;
-  const int r0 = mask.query_region(q0);
-  const int r1 = mask.query_region(q1);
-  const float* rb0 = rb + (size_t)(q0 < N ? q0 : 0) * N;
-  const float* rb1 = rb + (size_t)(q1 < N ? q1 : 0) * N;
-  const float ninf = __int_as_float(0xff800000);
-  float m0 = ninf, m1 = ninf;
-#pragma unroll
-  for (int jn = 0; jn < 2 * Tiles; ++jn) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = jn * 8 + 2 * t + e;
-      if (jn < 2 * nt && key < N) {
-        const int rk = mask.key_region(key);
-        s[jn][e] = logit(s[jn][e], scale, rb0, key, r0, rk);
-        s[jn][2 + e] = logit(s[jn][2 + e], scale, rb1, key, r1, rk);
-        m0 = fmaxf(m0, s[jn][e]);
-        m1 = fmaxf(m1, s[jn][2 + e]);
-      }
-    }
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
-  float sum0 = 0.f, sum1 = 0.f;
-  softmax_exp<Tiles>(s, m0, m1, t, [&](int jn, int key) { return jn < 2 * nt && key < N; },
-                     sum0, sum1);
-  const float inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
-  uint32_t pa[Tiles][4];
-  probs_a<Tiles>(s, inv0, inv1, pa);
-  float o[kMaxHeadDim / 8][4] = {};
-#pragma unroll
-  for (int kc = 0; kc < Tiles; ++kc) {
-    if (kc < nt) {
-#pragma unroll
-      for (int nd = 0; nd < kMaxHeadDim / 16; ++nd) {
-        if (nd < kt) {
-          uint32_t b[4];
-          const int key = kc * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-          ldmatrix_x4_trans(b, vbase + (size_t)key * ldq + nd * 16 + (lane >> 4) * 8);
-          mma_16816(o[2 * nd], pa[kc], b[0], b[1]);
-          mma_16816(o[2 * nd + 1], pa[kc], b[2], b[3]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int nd = 0; nd < kMaxHeadDim / 8; ++nd) {
-    if (nd < 2 * kt) {
-      const int col = h * hd + nd * 8 + 2 * t;
-      if (q0 < N) store2(base + (size_t)q0 * ldq + col, o[nd][0], o[nd][1]);
-      if (q1 < N) store2(base + (size_t)q1 * ldq + col, o[nd][2], o[nd][3]);
-    }
-  }
-}
-
 // K1 / K5 staging: columns 8 p .. 8 p + 7 of every row form plane p,
 // `plane` elements long, 16 bytes a row (wgmma's unswizzled K-major layout,
 // so any 8 consecutive rows of a plane are one 128-byte core matrix); base
@@ -256,6 +163,100 @@ struct Planes {
     return base + (size_t)(col >> 3) * plane + row * 8 + (col & 7);
   }
 };
+
+// Where attention_unit finds q, k and v: element (row, col) of a head
+// group's q, k or v columns, col in 0 .. group * hd.
+// K1 / K5: all heads, in planes; k and v C and 2C columns after q.
+struct PlanesQKV {
+  Planes a;
+  int C;
+  __device__ __forceinline__ __nv_bfloat16* q(int row, int col) const { return a.at(row, col); }
+  __device__ __forceinline__ __nv_bfloat16* k(int row, int col) const {
+    return a.at(row, C + col);
+  }
+  __device__ __forceinline__ __nv_bfloat16* v(int row, int col) const {
+    return a.at(row, 2 * C + col);
+  }
+};
+
+// K4 / K6: three row-major regions with one row stride `ld` (elements).
+struct RowsQKV {
+  __nv_bfloat16 *qb, *kb, *vb;
+  int ld;
+  __device__ __forceinline__ __nv_bfloat16* q(int row, int col) const {
+    return qb + row * ld + col;
+  }
+  __device__ __forceinline__ __nv_bfloat16* k(int row, int col) const {
+    return kb + row * ld + col;
+  }
+  __device__ __forceinline__ __nv_bfloat16* v(int row, int col) const {
+    return vb + row * ld + col;
+  }
+};
+
+// Where attention_unit finds the relative bias, and how it loads a unit's
+// values: fill(bias, h, q0, q1, N, t) sets bias[jn][e] (row q0) and
+// bias[jn][2 + e] (row q1) to the bias of key 8 jn + 2t + e of head h,
+// rows past N read as row 0.  With N a constant (NFix), a key group past N
+// for every lane is not read (0).
+// K1 / K5 and K4 / K6 when the group's bias does not fit beside the ring:
+// (heads, N, N) fp32 in device memory, through the read-only path.  A key
+// group that straddles N clamps its keys to N - 1.
+struct LdgBias {
+  const float* rb;
+  template <int Tiles, int NFix>
+  __device__ __forceinline__ void fill(float (&bias)[2 * Tiles][4], int h, int q0, int q1, int N,
+                                       int t) const {
+    const float* rbh = rb + (size_t)h * N * N + 2 * t;
+    const float* b0 = rbh + (size_t)(q0 < N ? q0 : 0) * N;
+    const float* b1 = rbh + (size_t)(q1 < N ? q1 : 0) * N;
+#pragma unroll
+    for (int jn = 0; jn < 2 * Tiles; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        int off = jn * 8 + e;  // key - 2t
+        if (NFix == 0 || jn * 8 + 6 + e >= NFix)
+          off = jn * 8 + 2 * t + e < N ? off : N - 1 - 2 * t;
+        const bool read = NFix == 0 || jn * 8 + e < NFix;
+        bias[jn][e] = read ? __ldg(b0 + off) : 0.f;
+        bias[jn][2 + e] = read ? __ldg(b1 + off) : 0.f;
+      }
+    }
+  }
+};
+
+// K4 / K6: the head group's bias in shared memory, (group, N, ld) fp32
+// with ld >= 8 ceil(N / 8) and ld = 8 mod 16 (bias_row_stride), so that a
+// lane's two keys are one 8-byte load and the 16 lanes of a half-warp (4
+// rows x 4 key pairs) hit 16 different bank pairs.  Keys N .. ld - 1 of a
+// row are finite padding.
+struct SmemBias {
+  const float* rb;
+  int ld;
+  template <int Tiles, int NFix>
+  __device__ __forceinline__ void fill(float (&bias)[2 * Tiles][4], int h, int q0, int q1, int N,
+                                       int t) const {
+    const float* rbh = rb + h * N * ld;
+    const float* b0 = rbh + (q0 < N ? q0 : 0) * ld;
+    const float* b1 = rbh + (q1 < N ? q1 : 0) * ld;
+#pragma unroll
+    for (int jn = 0; jn < 2 * Tiles; ++jn) {
+      // with N a constant, keys 8 jn .. 8 jn + 7 < ld; else stay in the row
+      const int key = NFix > 0 || jn * 8 + 2 * t < ld ? jn * 8 + 2 * t : 0;
+      const bool read = NFix == 0 || jn * 8 < NFix;
+      const float2 v0 = read ? *reinterpret_cast<const float2*>(b0 + key) : make_float2(0.f, 0.f);
+      const float2 v1 = read ? *reinterpret_cast<const float2*>(b1 + key) : make_float2(0.f, 0.f);
+      bias[jn][0] = v0.x;
+      bias[jn][1] = v0.y;
+      bias[jn][2] = v1.x;
+      bias[jn][3] = v1.y;
+    }
+  }
+};
+
+// Row stride (floats) of SmemBias for N keys: the least ld >= N with ld =
+// 8 mod 16.
+__host__ __device__ __forceinline__ int bias_row_stride(int N) { return (N + 7) / 16 * 16 + 8; }
 
 // mask.key_region(t) and mask.query_region(t) without a division or a
 // branch: t / ws as (t * inv_ws) >> 16 with inv_ws = ceil(2^16 / ws), exact
@@ -272,26 +273,26 @@ __device__ __forceinline__ int query_region_mul(const WindowMask& m, int t, uint
   return m.pad ? 0 : key_region_mul(m, t, inv_ws);
 }
 
-// attention_bf16's arithmetic, in its order (logit_b, softmax_exp and
-// probs_a are the two bodies' common steps), for queries 16 mi .. 16 mi +
-// 15 of head h of the window staged at `a` (Planes), head dim 16 KT, N <=
-// 48: three 16-key tiles, always all three (keys past N are dropped as
-// there; rows up to 47 of a window are read and must be finite and inside
-// the buffer).  K1 / K5 run attention on 8 warps an SM, so its cost is the
-// instructions a unit issues: the loops have no runtime bounds, the region
-// labels take a multiply where WindowMask divides, the row max a select
-// where attention_bf16 branches, and the bias values are loaded up front,
-// all in flight at once (the kernel leaves ~28 KB of L1 beside its shared
-// memory, so they mostly come from L2).  A window without a mask (most of
-// them) skips the region labels on a branch the whole warp takes.  NFix:
-// N as a constant (36, the window 6 of every K1 / K5 path), or 0 to take
-// n.  rb: (heads, N, N); inv_ws as for key_region_mul; store false: compute
-// but write nothing.
-template <int KT, int NFix>
-__device__ __forceinline__ void attention_unit(Planes a, int h, int mi, const WindowMask& mask,
-                                               bool store, int C, int n, float scale,
-                                               const float* rb, uint32_t inv_ws) {
-  constexpr int Tiles = 3, hd = 16 * KT;
+// bf16 attention of queries 16 mi .. 16 mi + 15 of head h (of the staged
+// head group) on tensor cores: S = Q K^T and P V on mma.sync m16n8k16 with
+// the scores and softmax in registers (logit_b, softmax_exp and probs_a).
+// Tiles 16-key tiles, always all of them (N <= 16 Tiles): keys past N are
+// dropped, rows up to 16 Tiles - 1 of q, k and v are read and must lie
+// inside the buffer, and v's rows past N must be finite (their
+// probabilities are 0, but 0 x NaN is NaN); outputs of rows past N are
+// not stored.  Head dim 16 KT.  NFix: N as a constant, or 0 to take n.
+// On 8-12 warps an SM its cost is the instructions a unit issues, so the
+// loops have no runtime bounds, the region labels take a multiply where
+// WindowMask divides, the row max a select, and the bias values are loaded
+// up front, all in flight at once.  A window without a mask (most of them)
+// skips the region labels on a branch the whole warp takes.  Stage:
+// PlanesQKV or RowsQKV; Bias: LdgBias or SmemBias; inv_ws as for
+// key_region_mul; store false: compute but write nothing.
+template <int KT, int Tiles, int NFix, typename Stage, typename Bias>
+__device__ __forceinline__ void attention_unit(const Stage& a, const Bias& rb, int h, int mi,
+                                               const WindowMask& mask, bool store, int n,
+                                               float scale, uint32_t inv_ws) {
+  constexpr int hd = 16 * KT;
   const int N = NFix > 0 ? NFix : n;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -299,31 +300,14 @@ __device__ __forceinline__ void attention_unit(Planes a, int h, int mi, const Wi
   uint32_t qa[KT][4];
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk)
-    ldmatrix_x4(qa[kk], a.at(mi * 16 + lane % 16, h * hd + kk * 16 + (lane / 16) * 8));
-  // bias [jn][e], [jn][2 + e]: rows q0, q1, key 8 jn + 2t + e.  With N a
-  // constant, a key group below N for every lane loads at a constant offset
-  // from the lane's base, one that straddles N clamps its keys to N - 1,
-  // and one past N for every lane is never read.
+    ldmatrix_x4(qa[kk], a.q(mi * 16 + lane % 16, h * hd + kk * 16 + (lane / 16) * 8));
+  // bias [jn][e], [jn][2 + e]: rows q0, q1, key 8 jn + 2t + e
   float bias[2 * Tiles][4], s[2 * Tiles][4];
-  {
-    const float* rbh = rb + (size_t)h * N * N + 2 * t;
-    const float* b0 = rbh + (size_t)(q0 < N ? q0 : 0) * N;
-    const float* b1 = rbh + (size_t)(q1 < N ? q1 : 0) * N;
+  rb.template fill<Tiles, NFix>(bias, h, q0, q1, N, t);
 #pragma unroll
-    for (int jn = 0; jn < 2 * Tiles; ++jn) {
+  for (int jn = 0; jn < 2 * Tiles; ++jn)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        int off = jn * 8 + e;  // key - 2t
-        if (NFix == 0 || jn * 8 + 6 + e >= NFix)
-          off = jn * 8 + 2 * t + e < N ? off : N - 1 - 2 * t;
-        const bool read = NFix == 0 || jn * 8 + e < NFix;
-        bias[jn][e] = read ? __ldg(b0 + off) : 0.f;
-        bias[jn][2 + e] = read ? __ldg(b1 + off) : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[jn][c] = 0.f;
-    }
-  }
+    for (int c = 0; c < 4; ++c) s[jn][c] = 0.f;
   // S = Q K^T: 8-key tiles, lane holds keys 8 jn + 2t + {0, 1} of query
   // rows g and g + 8
 #pragma unroll
@@ -332,7 +316,7 @@ __device__ __forceinline__ void attention_unit(Planes a, int h, int mi, const Wi
     for (int kk = 0; kk < KT; ++kk) {
       uint32_t b[4];
       const int key = jk * 16 + (lane & 7) + ((lane >> 4) << 3);
-      ldmatrix_x4(b, a.at(key, C + h * hd + kk * 16 + ((lane >> 3) & 1) * 8));
+      ldmatrix_x4(b, a.k(key, h * hd + kk * 16 + ((lane >> 3) & 1) * 8));
       mma_16816(s[2 * jk], qa[kk], b[0], b[1]);
       mma_16816(s[2 * jk + 1], qa[kk], b[2], b[3]);
     }
@@ -379,15 +363,15 @@ __device__ __forceinline__ void attention_unit(Planes a, int h, int mi, const Wi
     for (int nd = 0; nd < KT; ++nd) {
       uint32_t b[4];
       const int key = kc * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-      ldmatrix_x4_trans(b, a.at(key, 2 * C + h * hd + nd * 16 + (lane >> 4) * 8));
+      ldmatrix_x4_trans(b, a.v(key, h * hd + nd * 16 + (lane >> 4) * 8));
       mma_16816(o[2 * nd], pa[kc], b[0], b[1]);
       mma_16816(o[2 * nd + 1], pa[kc], b[2], b[3]);
     }
 #pragma unroll
   for (int nd = 0; nd < 2 * KT; ++nd) {
     const int col = h * hd + nd * 8 + 2 * t;
-    if (store && q0 < N) store2(a.at(q0, col), o[nd][0], o[nd][1]);
-    if (store && q1 < N) store2(a.at(q1, col), o[nd][2], o[nd][3]);
+    if (store && q0 < N) store2(a.q(q0, col), o[nd][0], o[nd][1]);
+    if (store && q1 < N) store2(a.q(q1, col), o[nd][2], o[nd][3]);
   }
 }
 

@@ -60,6 +60,8 @@ _SIGNATURES = {
     "nunif_swin_block_windows": [_I] + [_P] * 11 + [_I] * 10 + [_F, _P],
     # dtype, qkv, relbias, out, B, H, W, C, heads, ws, shift, scale, stream
     "nunif_window_attn_image": [_I, _P, _P, _P] + [_I] * 7 + [_F, _P],
+    # C, heads, N, nw, sms, int out[7]
+    "nunif_window_attn_plan": [_I] * 5 + [_P],
     # relayout, x, out, H, W, C, ws, rh, cw, scale, stream
     "nunif_strip": [_I, _P, _P] + [_I] * 6 + [_F, _P],
     # dtype, q, khat, vhat, out, nw, N, C, P, Cv, Cout, stream

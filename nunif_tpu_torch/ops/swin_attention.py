@@ -353,6 +353,33 @@ def fused_swin_block(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
 fused_swin_block.launches = 0
 
 
+_WA_PLAN_KEYS = ("group", "rows", "stages", "bias_resident", "smem", "grid",
+                 "stage_bytes")
+
+
+def window_attn_plan(c: int, heads: int, n: int, nw: int, sms: int) -> dict:
+    """The bf16 K4 / K6 kernel's launch plan for width ``c``, ``heads``
+    heads and ``n`` tokens a window, over ``nw`` windows on ``sms`` SMs
+    (card only: asks the built library, ``csrc/window_attn.cu:tma_plan``):
+    ``group`` heads a block, ``rows`` of a stage's v region (16 x key
+    tiles), ring ``stages``, whether the group's fp32 bias is resident in
+    shared memory (``bias_resident``, else read from L2), shared-memory
+    bytes (``smem``), blocks (``grid``) and ``stage_bytes``.  Raises
+    RuntimeError for a shape the kernel does not take."""
+    out = (ctypes.c_int * len(_WA_PLAN_KEYS))()
+    _build.check(_build.library().nunif_window_attn_plan(
+        c, heads, n, nw, sms, out), "window_attn_plan")
+    return dict(zip(_WA_PLAN_KEYS, out))
+
+
+def _bias_f32(bias):
+    """The relative bias as the kernels read it: fp32 and contiguous.  The
+    attention module caches it so, and then this is a check, not a call."""
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.float().contiguous()
+    return bias
+
+
 def window_attention_plain(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
     """Plain PyTorch twin of ``fused_window_attention``: the attention of
     the unfused module path, fp32 scores of the qkv values, the relative
@@ -416,7 +443,7 @@ def fused_window_attention(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
                          f"{qkv.device}")
     if qkv.data_ptr() % 16:
         raise ValueError("fused_window_attention: qkv must be 16-byte aligned")
-    bias = bias.float().contiguous()
+    bias = _bias_f32(bias)
     out = torch.empty((nw, n, c), dtype=qkv.dtype, device=qkv.device)
     rc = _build.library().nunif_window_attn(
         code, qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), nw, n, c,
@@ -475,7 +502,7 @@ def fused_window_attention_image(qkv, bias, *, num_heads, window, shift):
                          f"!= ({num_heads}, {n}, {n}) on {qkv.device}")
     if qkv.data_ptr() % 16:
         raise ValueError(f"{what}: qkv must be 16-byte aligned")
-    bias = bias.float().contiguous()
+    bias = _bias_f32(bias)
     out = torch.empty((B, H, W, c), dtype=qkv.dtype, device=qkv.device)
     rc = _build.library().nunif_window_attn_image(
         code, qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, c,

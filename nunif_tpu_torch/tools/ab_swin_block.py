@@ -12,10 +12,9 @@ K5 frame sums; then, from the first run of each tree, the largest
 difference between the two trees' outputs at each shape and the share of
 bit-equal elements; and whether K4, K6 and T2, which neither tree's K1 / K5
 change touches, give bit-identical outputs in both trees (a digest of each
-at one seeded shape, ``bitwise_digests``), and whether the two builds'
-K4 / K6 machine code is the same (``cuobjdump -sass`` of each tree's
-library, where the toolkit has it).  Exits 1 if the digests differ or an
-output difference exceeds K1's bf16 tolerance (0.05).
+at one seeded shape, ``bitwise_digests``).  Exits 1 if the digests differ
+or an output difference exceeds K1's bf16 tolerance (0.05).  K4 / K6 of
+two trees: ``tools/ab_window_attn.py``.
 
 Usage: python -m nunif_tpu_torch.tools.ab_swin_block ROOT_A ROOT_B
 (card only; ROOT_* are checkouts that hold ``nunif_tpu_torch/``; the
@@ -98,31 +97,6 @@ def bitwise_digests() -> dict:
         out[f"T2 {name}"] = _sha1(torch, probes.swin_pieces(
             x, *wts, packed=packed, G=4, rh=1, cw=t2.default_cw(96), **v))
     torch.cuda.synchronize()
-    return out
-
-
-def window_attn_sass(root: str) -> dict | None:
-    """{kernel: SASS instructions} of K4 / K6 (``window_attn_kernel``) in
-    the library built under ``root``; None without cuobjdump or a build."""
-    import glob
-    import re
-    libs = glob.glob(os.path.join(root, "build", "nunif_tpu_torch", "*.so"))
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if len(libs) != 1 or not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", libs[0]], capture_output=True,
-                          text=True).stdout
-    out, key = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            # the anonymous namespace's tag differs between builds
-            key = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", m.group(1)) \
-                if "window_attn_kernel" in m.group(1) else None
-            if key:
-                out[key] = []
-        elif key and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
-            out[key].append(line.split(";")[0].strip())
     return out
 
 
@@ -235,13 +209,6 @@ def main(root_a: str, root_b: str) -> int:
         same = all(s["digests"] == runs[0][1]["digests"] for _l, s, _f in runs)
         print(f"K4 / K6 / T2 digests: {runs[0][1]['digests']}; identical in "
               f"every run of both trees: {same}")
-        sass_a, sass_b = window_attn_sass(root_a), window_attn_sass(root_b)
-        if sass_a is None or sass_b is None:
-            print("K4 / K6 machine code: not compared (no cuobjdump or build)")
-        else:
-            for k in sorted(sass_a):
-                print(f"K4 / K6 {k}: {len(sass_a[k])} instructions, identical "
-                      f"in both builds: {sass_a[k] == sass_b.get(k)}")
         return 0 if ok and same else 1
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)

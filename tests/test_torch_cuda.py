@@ -367,6 +367,72 @@ def test_window_attn_kernel_matches_twin(cuda, dtype, b, n_wh, n_ww, ws, shift,
             qkv, bias, **dict(kw, shift=0)), want, dtype)
 
 
+# The bf16 kernel's instantiations that K4_CASES leave out: window 8 at head
+# dims 16 and 32 with 12 and 6 heads a group (the bias does not fit beside
+# the ring and is read from L2), window 5 (a run-time N) and head dims 48
+# and 64 (a run-time N, four key tiles).
+K4_OTHER_CASES = [
+    (1, 2, 2, 8, 4, 192, 12), (1, 2, 2, 8, 0, 192, 6), (1, 2, 3, 5, 2, 64, 4),
+    (1, 2, 2, 6, 3, 96, 2), (1, 2, 2, 6, 3, 128, 2),
+]
+
+
+@pytest.mark.parametrize("image", [False, True])
+@pytest.mark.parametrize("b,n_wh,n_ww,ws,shift,c,heads", K4_OTHER_CASES)
+def test_window_attn_kernel_matches_twin_off_the_paths(cuda, image, b, n_wh,
+                                                       n_ww, ws, shift, c,
+                                                       heads):
+    """K4 / K6 bf16 at the shapes that take the kernel's other
+    instantiations, with K4's tolerances and zero-bias control."""
+    dtype = torch.bfloat16
+    rng = _rng(17)
+    qkv = _t(rng.standard_normal((b, n_wh * ws, n_ww * ws, 3 * c)), cuda, dtype)
+    bias = expand_relative_bias(
+        _t(rng.standard_normal(((2 * ws - 1) ** 2, heads)), cuda), ws)
+    kw = dict(num_heads=heads, window=ws, shift=shift)
+    if image:
+        run = lambda bb: k1.fused_window_attention_image(qkv, bb, **kw)  # noqa: E731
+        want = k1.window_attention_image_plain(qkv, bias, **kw)
+    else:
+        from nunif_tpu_torch.modules.permute import window_partition2
+        qw = window_partition2(qkv, ws).contiguous()
+        wkw = dict(kw, n_wh=n_wh, n_ww=n_ww)
+        run = lambda bb: k1.fused_window_attention(qw, bb, **wkw)  # noqa: E731
+        want = k1.window_attention_plain(qw, bias, **wkw)
+    got = run(bias)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _k4_close(got, want, dtype)
+    assert not _k4_close(run(torch.zeros_like(bias)), want, dtype)
+
+
+def test_window_attn_kernel_repeats_at_one_address(cuda):
+    """K4 / K6 bf16 called again and again on one buffer, with new contents
+    each time and on shorter views at the same address: a tensor map kept
+    from an earlier launch must be one of the same address and shape, and
+    must never stand for the contents."""
+    dtype = torch.bfloat16
+    rng = _rng(23)
+    ws, heads, c, shift = 6, 12, 192, 3
+    img = torch.empty((2, 2 * ws, 3 * ws, 3 * c), device=cuda, dtype=dtype)
+    win = torch.empty((12, ws * ws, 3 * c), device=cuda, dtype=dtype)
+    bias = expand_relative_bias(
+        _t(rng.standard_normal(((2 * ws - 1) ** 2, heads)), cuda), ws)
+    kw = dict(num_heads=heads, window=ws, shift=shift)
+    for _ in range(3):
+        img.copy_(_t(rng.standard_normal(img.shape), cuda, dtype))
+        win.copy_(_t(rng.standard_normal(win.shape), cuda, dtype))
+        for x in (img, img[:1], img):
+            got = k1.fused_window_attention_image(x, bias, **kw)
+            assert _k4_close(got, k1.window_attention_image_plain(x, bias, **kw),
+                             dtype)
+        for x, n_wh in ((win, 4), (win[:6], 2), (win[:6], 1), (win, 4)):
+            wkw = dict(kw, n_wh=n_wh, n_ww=len(x) // n_wh)
+            got = k1.fused_window_attention(x, bias, **wkw)
+            assert _k4_close(got, k1.window_attention_plain(x, bias, **wkw),
+                             dtype)
+
+
 @pytest.mark.parametrize("norm", ["none", "layernorm_nobias"])
 def test_window_attention_module_runs_kernel(cuda, norm):
     """The attention module passes its qkv projection and cached bias to
