@@ -1508,11 +1508,15 @@ def main() -> int:
                      "float32")
     xb = xw.to(torch.bfloat16)
     k3_raw_ms = statistics.median(
-        cuda_time(lambda: k3.warp_x_bounded_kernel(xb, dw), torch)
+        cuda_time(lambda: k3.warp_x_bounded_kernel(xw, dw, 28), torch)
+        for _ in range(5))
+    k3_bf16_ms = statistics.median(
+        cuda_time(lambda: k3.warp_x_bounded_kernel(xb, dw, 28), torch)
         for _ in range(5))
     print(f"K3 warp_x_bounded {tuple(xw.shape)} max_shift 28: err {k3_err:.3g} "
           f"(zero-delta control err {ctrl_err:.3g}) wrapper "
-          f"{k3_tm['kernel']:.3f} ms (kernel alone on bf16 x {k3_raw_ms:.3f} ms) "
+          f"{k3_tm['kernel']:.3f} ms (kernel alone {k3_raw_ms:.3f} ms, on bf16 x "
+          f"{k3_bf16_ms:.3f} ms; plan {k3.warp_x_plan(w, 3, torch.float32, 28)}) "
           f"plain {k3_tm['plain']:.3f} ms grid_sample {k3_tm['library']:.3f} ms "
           f"bound {k3_bound[0]:.3f} ms ({k3_bound[1]})", flush=True)
     del xw, dw, xb, x_nchw, grid, gx, gy
@@ -1760,7 +1764,7 @@ def main() -> int:
          "bound_by": t1_bound[1], "library_ms": t1["library_ms"],
          "blocks": t1["rows"]},
         {"name": "window_dots", "route": "cuda",
-         "source": "nunif_tpu_torch/csrc/probe_window_dots.cu",
+         "source": "nunif_tpu_torch/csrc/probe_window_ring.cu",
          "replaces": "tools/microbench_int8_attn.py:56",
          "launches": probe_launches["window_dots"],
          "max_abs_err": probe_errs["window_dots_bfloat16"],

@@ -136,6 +136,27 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
       : "memory");
 }
 
+// bytes (a multiple of 16, both addresses 16-byte aligned) from shared to
+// global memory by the copy engine, in this thread's current bulk group.
+// The writes of other threads to src must be ordered before it
+// (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void bulk_copy_s2g(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+// box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first,
+// from global to shared memory, as tma_load_4d
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tensor_map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost first,
 // from global to shared memory by the TMA unit; completion is counted on
 // bar.  Parts of the box outside the tensor are filled with zeros.

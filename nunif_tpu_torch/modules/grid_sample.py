@@ -7,10 +7,14 @@ and what its design does about that.  On iw3's main path it runs the
 row_flow_v3 warp of both eyes at once: (16, 1080, 1920, 3), max_shift 28,
 one launch a batch of 8 frames.
 
-``warp_x_bounded`` takes its plain twin only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises.
+The kernel reads x in its own dtype (fp32 on the path, or bf16), rounds
+its taps to bf16 in registers and writes x's dtype, so no cast pass runs
+around the launch.  ``warp_x_bounded`` takes its plain twin only for CPU
+tensors; for a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -67,15 +71,32 @@ def warp_x_bounded_plain(x, delta_px, max_shift: int):
     return out.to(x.dtype)
 
 
-def warp_x_bounded_kernel(xb, delta_px):
-    """Launch K3 on bf16 x (B, H, W, C <= 8) and fp32 delta (B, H, W),
-    both contiguous on one CUDA device; returns fp32 (B, H, W, C).  Each
-    launch adds one to ``warp_x_bounded.launches``."""
-    B, H, W, C = xb.shape
-    out = torch.empty((B, H, W, C), dtype=torch.float32, device=xb.device)
+_PLAN_KEYS = ("seg", "nseg", "halo", "cap", "smem")
+
+
+def warp_x_plan(w: int, c: int, dtype, max_shift: int) -> dict:
+    """K3's launch plan for rows of ``w`` pixels of ``c`` channels of
+    ``dtype`` (fp32 or bf16) and ``max_shift`` (card only: asks the built
+    library, ``csrc/warp_x.cu:warp_plan``): columns a unit writes
+    (``seg``), units a row (``nseg``), ``halo`` columns staged on each side
+    of a segment, columns a ring stage holds (``cap``) and shared-memory
+    bytes a block (``smem``).  Raises RuntimeError for a shape the kernel
+    does not take."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    _build.check(_build.library().nunif_warp_x_plan(
+        w, c, _build.dtype_code(dtype), max_shift, out), "warp_x_plan")
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def warp_x_bounded_kernel(x, delta_px, max_shift: int):
+    """Launch K3 on x (B, H, W, C <= 8), fp32 or bf16, and fp32 delta (B,
+    H, W), both contiguous on one CUDA device; returns (B, H, W, C) in x's
+    dtype.  Each launch adds one to ``warp_x_bounded.launches``."""
+    B, H, W, C = x.shape
+    out = torch.empty_like(x)
     rc = _build.library().nunif_warp_x_bounded(
-        xb.data_ptr(), delta_px.data_ptr(), out.data_ptr(), B, H, W, C,
-        _build.stream_ptr(xb.device))
+        _build.dtype_code(x.dtype), x.data_ptr(), delta_px.data_ptr(),
+        out.data_ptr(), B, H, W, C, int(max_shift), _build.stream_ptr(x.device))
     _build.check(rc, "warp_x_bounded")
     warp_x_bounded.launches += 1
     return out
@@ -87,13 +108,20 @@ def warp_x_bounded(x, delta_px, max_shift: int):
     kernel's gather does not, so the two are not meant to agree there).
 
     x (B, H, W, C <= 8); delta_px (B, H, W).  x is read in
-    ``dtypes.IMAGE_DTYPE``, which must be bf16 on CUDA (the kernel's one
-    input type).  Returns x's dtype.
+    ``dtypes.IMAGE_DTYPE``, which must be bf16 on CUDA (the kernel rounds
+    its taps to bf16).  Returns x's dtype.
     """
     if x.device.type == "cpu":
         return warp_x_bounded_plain(x, delta_px, max_shift)
     if x.device.type != "cuda":
         raise ValueError(f"warp_x_bounded: unsupported device {x.device}")
+    return _warp_x_bounded_cuda(x, delta_px, max_shift)
+
+
+def _warp_x_bounded_cuda(x, delta_px, max_shift: int):
+    """The checks and the launch of ``warp_x_bounded`` for a CUDA x: fp32
+    and bf16 x go to the kernel as they are (it reads and writes x's
+    dtype); another float dtype through an fp32 copy."""
     if dtypes.IMAGE_DTYPE != torch.bfloat16:
         raise TypeError(f"warp_x_bounded: the kernel reads bfloat16, not "
                         f"{dtypes.IMAGE_DTYPE}")
@@ -107,9 +135,11 @@ def warp_x_bounded(x, delta_px, max_shift: int):
     if delta_px.device != x.device:
         raise ValueError(f"warp_x_bounded: delta on {delta_px.device}, x on "
                          f"{x.device}")
-    out = warp_x_bounded_kernel(x.to(torch.bfloat16).contiguous(),
-                                delta_px.to(torch.float32).contiguous())
-    return out.to(x.dtype)
+    delta_px = delta_px.to(torch.float32).contiguous()
+    if x.dtype in (torch.float32, torch.bfloat16):
+        return warp_x_bounded_kernel(x.contiguous(), delta_px, max_shift)
+    return warp_x_bounded_kernel(x.float().contiguous(), delta_px,
+                                 max_shift).to(x.dtype)
 
 
 warp_x_bounded.launches = 0

@@ -46,8 +46,10 @@ _SIGNATURES = {
     "nunif_swin_block_image": [_I] + [_P] * 12 + [_I] * 9 + [_F, _P],
     # C, hidden, ws, chunk, int out[5]
     "nunif_swin_block_plan": [_I, _I, _I, _I, _P],
-    # x, delta, out, B, H, W, C, stream
-    "nunif_warp_x_bounded": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, x, delta, out, B, H, W, C, max_shift, stream
+    "nunif_warp_x_bounded": [_I, _P, _P, _P] + [_I] * 5 + [_P],
+    # W, C, dtype, max_shift, int out[5]
+    "nunif_warp_x_plan": [_I] * 4 + [_P],
     # q, k, v, out, B, H, N, M, D, (batch, head, row) strides of q, k, v,
     # out, scale, stream
     "nunif_flash_attn": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],

@@ -9,7 +9,7 @@ strip <-> window relayout in shared memory (``csrc/probe_strip.cu``).
 T3 ``window_dots``: replaces ``tools/microbench_int8_attn.py:bench``
 (``_kernel_bf16``, ``_kernel_int8``).  Per window the dot pair of
 head-packed attention with exp2 between, bf16 or int8, streamed from
-device memory (``csrc/probe_window_dots.cu``).
+device memory by bulk copies into a ring (``csrc/probe_window_ring.cu``).
 
 T4 ``window_dots_repeat``: replaces ``tools/microbench_mxu_dots.py:bench``
 (``_mk_kernel``).  The dot pair repeated on resident operands with a data
@@ -149,7 +149,12 @@ def _check_dots(what, q, khat, vhat):
 
 def window_dots(q, khat, vhat):
     """T3: q (nw, N, C), khat (nw, C, P), vhat (nw, P, Cv >= C) in bf16 or
-    int8 -> (nw, N, C) bf16; see ``window_dots_plain``."""
+    int8 -> (nw, N, C) bf16; see ``window_dots_plain``.  The kernel takes
+    N <= 48, C <= 240 and a multiple of 8 (C % 16 in int8: rows of q of
+    whole 16-byte units), P <= 256; in bf16 P and Cv multiples of 8 up to
+    248 (a TMA box is at most 256 wide), in int8 multiples of 4 with each
+    window of khat and vhat a multiple of 16 bytes; 16-byte aligned
+    operands (its bulk copies)."""
     what = "window_dots"
     if q.device.type == "cpu":
         return window_dots_plain(q, khat, vhat)
@@ -157,8 +162,17 @@ def window_dots(q, khat, vhat):
         raise ValueError(f"{what}: unsupported device {q.device}")
     code = _dot_code(q.dtype)
     nw, n, c, p = _check_dots(what, q, khat, vhat)
-    if c % 8:
-        raise ValueError(f"{what}: C {c} not a multiple of 8")
+    cv, es = vhat.shape[2], q.element_size()
+    if es == 2:  # bf16: B rows read by ldmatrix, padded ones by a TMA box
+        rows = p % 8 == 0 and cv % 8 == 0 and p <= 248 and cv <= 248
+    else:  # int8: rows read by words, windows by bulk copy
+        rows = p % 4 == 0 and cv % 4 == 0 and (c * p) % 16 == 0 and \
+            (p * cv) % 16 == 0
+    if c % 8 or n > 48 or c > 240 or p > 256 or (c * es) % 16 or not rows:
+        raise ValueError(f"{what}: N {n}, C {c}, P {p}, Cv {cv} in {q.dtype}: "
+                         f"not a shape the kernel takes")
+    if any(t.data_ptr() % 16 for t in (q, khat, vhat)):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
     out = torch.empty((nw, n, c), dtype=torch.bfloat16, device=q.device)
     rc = _build.library().nunif_window_dots(
         code, q.data_ptr(), khat.data_ptr(), vhat.data_ptr(), out.data_ptr(),

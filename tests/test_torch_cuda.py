@@ -201,26 +201,65 @@ def test_kernels_reject_bad_inputs(cuda):
             packed=k1.pack_weights(*args, torch.float32))
 
 
-@pytest.mark.parametrize("b,h,w,c,max_shift", [
-    (3, 7, 45, 3, 9), (2, 5, 33, 8, 3), (1, 4, 20, 1, 28), (2, 9, 130, 5, 6)])
+# K3 at the iw3 path's shape (both eyes of 8 1080p frames), C from 1 to 8,
+# a row whose bytes are not a multiple of 16 (W = 1001, C = 3: the copy
+# loop), a row too wide for the ring (C = 8, W = 7680: segments with a
+# halo of max_shift + 1) and W = 1; then the older small cases.
+# (B, H, W, C, max_shift)
+K3_PATH = (16, 1080, 1920, 3, 28)
+K3_CASES = [K3_PATH] + [(2, 9, 640, c, 28) for c in range(1, 9)] + [
+    (2, 5, 1001, 3, 28), (1, 3, 7680, 8, 28), (2, 3, 1, 3, 4),
+    (3, 7, 45, 3, 9), (2, 5, 33, 8, 3), (1, 4, 20, 1, 28), (2, 9, 130, 5, 6)]
+
+
+@pytest.mark.parametrize("b,h,w,c,max_shift", K3_CASES)
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_warp_kernel_matches_twin(cuda, b, h, w, c, max_shift, x_dtype):
     rng = _rng(4)
-    x = _t(rng.random((b, h, w, c)), cuda, x_dtype)
-    delta = _t(rng.uniform(-max_shift, max_shift, (b, h, w)), cuda)
+    x = _t(rng.random((b, h, w, c), dtype=np.float32), cuda, x_dtype)
+    delta = _t(rng.uniform(-max_shift, max_shift, (b, h, w)).astype(np.float32),
+               cuda)
     delta[0, 0, -3:] = max_shift   # gx clipped to W - 1
     delta[0, 1, -1] = 0.0          # gx exactly W - 1
+    delta[0, 0, :3] = -max_shift   # gx clipped to 0
     before = k3.warp_x_bounded.launches
     got = k3.warp_x_bounded(x, delta, max_shift)
     torch.cuda.synchronize()
     assert k3.warp_x_bounded.launches == before + 1
     want = k3.warp_x_bounded_plain(x, delta, max_shift)
     assert got.shape == want.shape and got.dtype == x_dtype
-    atol = 1e-5 if x_dtype == torch.float32 else 1 / 128  # one bf16 output step
+    # the twin's two products with its roundings, in x's dtype: fp32 at
+    # K3_ATOL (measured 0), bf16 the same value rounded once
+    atol = 1e-5 if x_dtype == torch.float32 else 1 / 128
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     # control: the same check must see a kernel that moves nothing
-    still = k3.warp_x_bounded(x, torch.zeros_like(delta), max_shift)
-    assert float((still.float() - want.float()).abs().max()) > 10 * atol
+    if w > 1:
+        still = k3.warp_x_bounded(x, torch.zeros_like(delta), max_shift)
+        assert float((still.float() - want.float()).abs().max()) > 10 * atol
+
+
+def test_warp_kernel_takes_x_as_it_is(cuda, monkeypatch):
+    """fp32 and bf16 x reach the library as they are, with no copy, and the
+    output is x's dtype; on bf16 x the fp32 kernel's output rounds to it."""
+    x = _t(_rng(5).random((2, 4, 64, 3), dtype=np.float32), cuda)
+    delta = _t(_rng(6).uniform(-6, 6, (2, 4, 64)), cuda)
+    seen = []
+    real = k3.warp_x_bounded_kernel
+
+    def spy(xk, dk, ms):
+        seen.append((xk.data_ptr(), xk.dtype))
+        return real(xk, dk, ms)
+
+    monkeypatch.setattr(k3, "warp_x_bounded_kernel", spy)
+    y32 = k3.warp_x_bounded(x, delta, 6)
+    y16 = k3.warp_x_bounded(x.bfloat16(), delta, 6)
+    assert seen[0] == (x.data_ptr(), torch.float32) and seen[1][1] == torch.bfloat16
+    assert y32.dtype == torch.float32 and y16.dtype == torch.bfloat16
+    assert torch.equal(y16, y32.bfloat16())
+    half = k3.warp_x_bounded(x.half(), delta, 6)  # through an fp32 copy
+    assert half.dtype == torch.float16
+    torch.testing.assert_close(half, k3.warp_x_bounded_plain(x.half(), delta, 6),
+                               atol=1e-3, rtol=0)
 
 
 def _flash_inputs(seed, b, heads, n, m, d, device):
@@ -713,26 +752,54 @@ def test_strip_kernels_match_twin(cuda, rh, cw):
         probes.strip_pass(x.float(), rh, cw)
 
 
+# T3 at the tool's shape (tools/microbench_int8_attn.py: 14720 windows of
+# N 36, C 96, P 216, vhat 104 wide), at 64 of its windows, and at N 37, P
+# 200, vhat 112 wide (a ragged row tile, P not a whole k-step, vhat rows
+# copied one at a time): (windows, N, C, P, Cv)
+T3_CASES = [(14720, 36, 96, 216, 104), (64, 36, 96, 216, 104),
+            (512, 37, 96, 200, 112)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-def test_window_dots_kernel_matches_twin(cuda, dtype):
+@pytest.mark.parametrize("nw,n,c,p,cv", T3_CASES)
+def test_window_dots_kernel_matches_twin(cuda, dtype, nw, n, c, p, cv):
     from nunif_tpu_torch.ops import probes
     rng = _rng(15)
-    shapes = ((64, 36, 96), (64, 96, 216), (64, 216, 104))
+    shapes = ((nw, n, c), (nw, c, p), (nw, p, cv))
     if dtype == torch.int8:
         ins = [torch.from_numpy(rng.integers(-127, 127, s).astype(np.int8)).to(cuda)
                for s in shapes]
     else:
-        ins = [_t(rng.uniform(-1, 1, s), cuda, dtype) for s in shapes]
+        ins = [_t(rng.uniform(-1, 1, s).astype(np.float32), cuda, dtype)
+               for s in shapes]
     before = probes.window_dots.launches
     got = probes.window_dots(*ins)
     torch.cuda.synchronize()
     assert probes.window_dots.launches == before + 1
     want = probes.window_dots_plain(*ins)
-    assert got.shape == want.shape == (64, 36, 96)
+    assert got.shape == want.shape == (nw, n, c)
     atol = 1e-2 if dtype == torch.bfloat16 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=2 ** -7)
     assert float((got == want).float().mean()) >= 0.99
+
+
+def test_window_dots_rejects_shapes_the_kernel_does_not_take(cuda):
+    from nunif_tpu_torch.ops import probes
+
+    def run(n, c, p, cv, dtype=torch.bfloat16):
+        probes.window_dots(*(torch.zeros(s, device=cuda, dtype=dtype) for s in (
+            (2, n, c), (2, c, p), (2, p, cv))))
+
+    for args in ((49, 96, 216, 104), (36, 96, 264, 104), (36, 100, 216, 104),
+                 (36, 96, 212, 104), (36, 40, 216, 104, torch.int8)):
+        with pytest.raises(ValueError, match="not a shape the kernel takes"):
+            run(*args)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        q = torch.zeros((2 * 36 * 96 + 4,), device=cuda, dtype=torch.bfloat16)
+        probes.window_dots(q[4:].view(2, 36, 96),  # 8 bytes in
+                           torch.zeros((2, 96, 216), device=cuda, dtype=torch.bfloat16),
+                           torch.zeros((2, 216, 104), device=cuda, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])

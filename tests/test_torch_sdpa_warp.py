@@ -120,6 +120,68 @@ def test_warp_dispatch_on_cpu_takes_the_twin():
     assert gs.warp_x_bounded.launches == before  # no kernel on the CPU
 
 
+class _FakeLibrary:
+    """Records K3's library call in place of the card's library."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nunif_warp_x_bounded(self, dtype, x, delta, out, B, H, W, C, max_shift,
+                             stream):
+        self.calls.append(dict(dtype=dtype, x=x, delta=delta, shape=(B, H, W, C),
+                               max_shift=max_shift))
+        return 0
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    lib = _FakeLibrary()
+    monkeypatch.setattr(gs._build, "library", lambda: lib)
+    monkeypatch.setattr(gs._build, "stream_ptr", lambda device: 0)
+    return lib
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1)])
+def test_warp_launch_takes_x_without_a_cast(fake_library, dtype, code):
+    """The CUDA branch of ``warp_x_bounded`` (run here on CPU tensors with
+    the library call recorded): fp32 or bf16 x goes to the kernel as it is,
+    the same storage, no cast pass; the result has x's dtype; the kernel
+    gets max_shift, from which it plans its halo."""
+    x, delta = (torch.from_numpy(a) for a in _warp_case((2, 3, 16, 3), 5, 66))
+    x = x.to(dtype)
+    before = gs.warp_x_bounded.launches
+    out = gs._warp_x_bounded_cuda(x, delta, 5)
+    (call,) = fake_library.calls
+    assert call["dtype"] == code == gs._build.dtype_code(dtype)
+    assert call["x"] == x.data_ptr() and call["delta"] == delta.data_ptr()
+    assert call["shape"] == (2, 3, 16, 3) and call["max_shift"] == 5
+    assert out.dtype == dtype and out.shape == x.shape
+    assert gs.warp_x_bounded.launches == before + 1
+
+
+def test_warp_launch_other_dtypes_go_through_fp32(fake_library):
+    x, delta = (torch.from_numpy(a) for a in _warp_case((1, 2, 8, 1), 3, 67))
+    out = gs._warp_x_bounded_cuda(x.half(), delta.double(), 3)
+    (call,) = fake_library.calls
+    assert call["dtype"] == gs._build.DTYPE_F32 and out.dtype == torch.float16
+
+
+def test_warp_launch_rejects_what_the_kernel_does_not_take(fake_library,
+                                                           monkeypatch):
+    x = torch.zeros((1, 4, 16, 9))
+    with pytest.raises(ValueError, match="C <= 8"):
+        gs._warp_x_bounded_cuda(x, torch.zeros((1, 4, 16)), 4)
+    x = torch.zeros((1, 4, 16, 3))
+    with pytest.raises(ValueError, match="delta"):
+        gs._warp_x_bounded_cuda(x, torch.zeros((1, 4, 15)), 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gs.warp_x_bounded(x.to("meta"), torch.zeros((1, 4, 16), device="meta"), 4)
+    monkeypatch.setattr(dtypes, "IMAGE_DTYPE", torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gs._warp_x_bounded_cuda(x, torch.zeros((1, 4, 16)), 4)
+    assert not fake_library.calls
+
+
 SDPA_TOL = {  # (atol) measured: fp32 ~1e-7; bf16 one rounding of the output
     "fp32": 1e-5, "bf16": 1e-2}
 
