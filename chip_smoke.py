@@ -836,17 +836,35 @@ def probe_phase(torch, probes, dev):
         errs[f"window_dots_{name}"] = err
         del ins, got, want
     for label, n, c, p, int8 in t4_tool.SHAPES:
+        # the fill, then every window's o of the last repetition (the fill
+        # sees window 0 of the last block only); the control, one window's
+        # khat zeroed, must pass the fill check and fail the window check
         ins = t4_tool.inputs(n, c, p, int8, seed=11)
-        got = probes.window_dots_repeat(*ins)
+        check = torch.empty((ins[0].shape[0], n, c), device=dev)
+        got = probes.window_dots_repeat(*ins, check=check)
         torch.cuda.synchronize()
-        want = probes.window_dots_repeat_plain(*ins)
+        want_check = torch.empty_like(check)
+        want = probes.window_dots_repeat_plain(*ins, want_check)
         tol = (0.0, 0.0) if int8 else (T4_RTOL, 0.0)
         err, _ = check_close(got, want, tol, f"T4 {label}")
         if not float(want[0, 0]) or not bool((got == got[0, 0]).all()):
             fail(f"T4 {label}: zero or uneven fill {got[0, :4].tolist()}")
-        errs.setdefault("window_dots_repeat", 0.0)
-        errs["window_dots_repeat"] = max(errs["window_dots_repeat"], err)
-        del ins, got, want
+        err_w, _ = check_close(check, want_check, tol, f"T4 {label} windows")
+        khat = ins[1].clone()
+        khat[5] = 0
+        bad_check = torch.empty_like(check)
+        bad = probes.window_dots_repeat(ins[0], khat, ins[2], check=bad_check)
+        fill_ok, _e, _r = compare(bad, want, tol)
+        win_ok, ctrl_err, _r = compare(bad_check, want_check, tol)
+        if not fill_ok or win_ok:
+            fail(f"T4 {label}: the control (window 5's khat zeroed) passes the "
+                 f"window check ({win_ok}) or fails the fill check "
+                 f"({not fill_ok}): the check is blind")
+        print(f"T4 {label}: fill err {err:.3g}, window err {err_w:.3g}, "
+              f"control window err {ctrl_err:.3g}", flush=True)
+        for key, e in (("window_dots_repeat", err), ("window_dots_repeat_windows", err_w)):
+            errs[key] = max(errs.get(key, 0.0), e)
+        del ins, got, want, check, want_check, bad_check, khat
     torch.cuda.empty_cache()
     print(f"probe checks passed: {errs}", flush=True)
     for fn in (probes.strip_pass, probes.strip_relayout, probes.window_dots,
@@ -1010,6 +1028,30 @@ def t2_phase(torch, probes, dev):
         r["max_abs_err"] = errs[(r["C"], r["name"])]
         r["bound_ms"], r["bound_by"] = bound_ops(r["nbytes"], r["ops"])
     return runs, launches
+
+
+def probe_plans(torch, probes):
+    """T2's plan at both tool shapes and T4's at every tool shape, from the
+    built library, with what T2 reads from L2 a call: its weights (every
+    group reads all four matrices) and, for pieces 3 and 4, the bias table
+    (every group reads every head's slice, rows padded to the plan's
+    stride).  Counts from the plans and shapes, not measurements."""
+    from nunif_tpu_torch.tools import microbench_mxu_dots as t4_tool
+    from nunif_tpu_torch.tools import microbench_swin_pieces as t2_tool
+    t2 = {}
+    for c in (96, 192):
+        g = t2_tool.default_g(c)
+        h, w = t2_tool.shape(c)
+        plan = probes.swin_pieces_plan(c, g)
+        groups = (h // 6) * (w // 6) // g
+        t2[f"C {c} G {g}"] = dict(
+            plan._asdict(), groups=groups,
+            l2_weight_bytes={"bf16": groups * 8 * c * c * 2, "int8": groups * 8 * c * c},
+            l2_bias_bytes=groups * (c // 16) * plan.rows * plan.bstride * 4)
+    t4 = {label: probes.window_dots_plan(torch.int8 if int8 else torch.bfloat16, n, c,
+                                         p)._asdict()
+          for label, n, c, p, int8 in t4_tool.SHAPES}
+    return {"swin_pieces": t2, "window_dots_repeat": t4}
 
 
 def render_twin_psnr(torch, program, frame, y, pairs):
@@ -1779,6 +1821,8 @@ def main() -> int:
          "replaces": "tools/microbench_mxu_dots.py:52",
          "launches": probe_launches["window_dots_repeat"],
          "max_abs_err": probe_errs["window_dots_repeat"],
+         # each window's o of the last repetition (the check output)
+         "max_abs_err_windows": probe_errs["window_dots_repeat_windows"],
          "ms": t4[0]["ms"], "plain_ms": t4[0]["plain_ms"],
          "bound_ms": t4_bounds[0][0], "bound_by": t4_bounds[0][1],
          "library_ms": t4[0]["library_ms"],
@@ -1830,6 +1874,7 @@ def main() -> int:
                     for r in swin_t_rows if r["kernel"] == label]}
         for label, fsum, rows in (("K4", k4_sum, k4_bf16),
                                   ("K6", k6_sum, k6_bf16))}), flush=True)
+    print("T2 / T4 plan: " + json.dumps(probe_plans(torch, probes)), flush=True)
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -25,8 +25,6 @@ constexpr size_t kMaxSmem = 232448;
 // cuTensorMapEncodeTiled); errors.cu gives both their text.
 constexpr int kDriverErrorBase = 100000;
 
-template <typename T> struct IsBF16 : std::is_same<T, __nv_bfloat16> {};
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -76,10 +74,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ldmatrix / mma.sync m16n8k16 (bf16 in, fp32 accumulate).  Lane l = 4g + t
 // of an m16n8 accumulator holds c[0..1] at (row g, cols 2t, 2t+1) and
-// c[2..3] at (row g + 8, same cols); B fragments of a (K, N) row-major
-// weight are pre-arranged on the host so that lane 4g + t of the fragment
-// for k-step ks and 8-column tile j holds W[16 ks + 2t + {0, 1, 8, 9}][8 j + g]
-// (ops/_build.py:mma_weight_layout).  ldmatrix reads A tiles from shared
+// c[2..3] at (row g + 8, same cols).  ldmatrix reads A tiles from shared
 // memory, each lane naming one 16-byte row.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_ptr) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
@@ -130,77 +125,6 @@ template <> struct DotMma<int8_t> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 };
-
-// The block-wide GEMM of T2 on tensor cores: epi(r, c, v_c,
-// v_c+1) for v = A W over every r < rows_pad and even c < n_out, Warps warps
-// a block.  T = bf16: fp32 sums plus the fp32 bias (n_out,); T = int8: the
-// int32 sums, which the caller scales before it adds a bias (bias unused,
-// pass nullptr).  A is in
-// shared memory, lda bytes a row, read by ldmatrix; W is (K, n_out) in
-// fragment order (ops/_build.py:mma_weight_layout): for k-step ks (16 bf16
-// or 32 int8) and 8-column tile j, lane 4g + t holds words t and t + 4 of
-// column 8 j + g, one 8-byte load.  A warp owns a 16-wide column panel over
-// up to MTiles row tiles, so each weight fragment feeds every row tile of
-// its run; the next fragment is in flight while the current one is used.
-template <typename T, int Warps, int MTiles, typename Epi>
-__device__ __forceinline__ void block_gemm(const void* A, int lda, const void* __restrict__ Wg,
-                                           const float* __restrict__ bias, int K, int n_out,
-                                           int rows_pad, Epi epi) {
-  using Acc = typename DotMma<T>::Acc;
-  constexpr int kStep = 32 / sizeof(T);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = rows_pad / 16, ksteps = K / kStep, n8 = n_out / 8;
-  // work item = (16-wide column panel, run of <= MTiles row tiles)
-  const int splits = (mt + MTiles - 1) / MTiles;
-  const int mper = (mt + splits - 1) / splits;
-  const int items = (n_out / 16) * splits;
-  const uint2* wf = static_cast<const uint2*>(Wg);
-  const unsigned char* a_lane =
-      static_cast<const unsigned char*>(A) + (size_t)(lane % 16) * lda + (lane / 16) * 16;
-  for (int it = warp; it < items; it += Warps) {
-    const int n = it / splits, m0 = (it % splits) * mper;
-    const int mcount = mt - m0 < mper ? mt - m0 : mper;
-    const uint2* wn = wf + (size_t)(2 * n) * 32 + lane;
-    Acc acc[MTiles][2][4] = {};
-    uint2 b0 = __ldg(wn), b1 = __ldg(wn + 32);
-    for (int k = 0; k < ksteps; ++k) {
-      uint2 c0 = b0, c1 = b1;
-      if (k + 1 < ksteps) {  // next fragment in flight while this one is used
-        c0 = __ldg(wn + (size_t)(k + 1) * n8 * 32);
-        c1 = __ldg(wn + (size_t)(k + 1) * n8 * 32 + 32);
-      }
-#pragma unroll
-      for (int m = 0; m < MTiles; ++m) {
-        if (m < mcount) {
-          uint32_t a[4];
-          ldmatrix_x4(a, a_lane + (size_t)(m0 + m) * 16 * lda + k * 32);
-          DotMma<T>::mma(acc[m][0], a, b0.x, b0.y);
-          DotMma<T>::mma(acc[m][1], a, b1.x, b1.y);
-        }
-      }
-      b0 = c0;
-      b1 = c1;
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = n * 16 + j * 8 + 2 * t;
-      Acc bias0 = 0, bias1 = 0;
-      if constexpr (IsBF16<T>::value) {
-        bias0 = __ldg(bias + c);
-        bias1 = __ldg(bias + c + 1);
-      }
-#pragma unroll
-      for (int m = 0; m < MTiles; ++m) {
-        if (m < mcount) {
-          const int r = (m0 + m) * 16 + g;
-          epi(r, c, acc[m][j][0] + bias0, acc[m][j][1] + bias1);
-          epi(r + 8, c, acc[m][j][2] + bias0, acc[m][j][3] + bias1);
-        }
-      }
-    }
-  }
-}
 
 // 4 x 4 transpose of 32-bit words within a quad (lanes 4 g .. 4 g + 3):
 // lane t holds v[c] = M[t][c] and ends with v[c] = M[c][t]

@@ -68,12 +68,16 @@ _SIGNATURES = {
     "nunif_strip": [_I, _P, _P] + [_I] * 6 + [_F, _P],
     # dtype, q, khat, vhat, out, nw, N, C, P, Cv, Cout, stream
     "nunif_window_dots": [_I] + [_P] * 4 + [_I] * 6 + [_P],
-    # dtype, q, kt, vt, out, nw, N, C, P, reps, bw, stream
-    "nunif_window_dots_repeat": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    # dtype, q, kt, vt, out, check, nw, N, C, P, reps, bw, stream
+    "nunif_window_dots_repeat": [_I] + [_P] * 5 + [_I] * 6 + [_P],
+    # dtype, N, C, P, int out[9]
+    "nunif_window_dots_plan": [_I] * 4 + [_P],
     # x, (w, b, s) of qkv, proj, fc1, fc2, bias, out, H, W, C, G, rh, cw,
     # pieces, dense_int8, scores_int8, w_scale, cut, qscale, eps, inv127,
     # stream
     "nunif_swin_pieces": [_P] * 15 + [_I] * 9 + [_F] * 5 + [_P],
+    # C, G, int out[8]
+    "nunif_swin_pieces_plan": [_I, _I, _P],
 }
 
 
@@ -169,34 +173,21 @@ def check(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch ({text})")
 
 
-def mma_weight_layout(w):
-    """(K, N) bf16 or int8 weight -> the kernels' mma.sync B fragments,
-    m16n8k16 (bf16) or m16n8k32 (int8): a k-step is 8 32-bit words of e = 2
-    (bf16) or 4 (int8) values, and lane 4g + t of the fragment for k-step ks
-    and 8-column tile j holds words t and t + 4 of column 8 j + g, i.e.
-    W[8 e ks + e t + (0 .. e - 1, 4 e .. 5 e - 1)][8 j + g]; shape
-    (K / 8e, N/8, 32, 2e), so a kernel fetches a whole fragment with one
-    8-byte load per lane."""
-    k, n = w.shape
-    e = 4 // w.element_size()
-    return (w.reshape(k // (8 * e), 2, 4, e, n // 8, 8)
-            .permute(0, 4, 5, 2, 1, 3).reshape(k // (8 * e), n // 8, 32, 2 * e)
-            .contiguous())
-
-
 def wgmma_weight_layout(w, nb):
-    """(K, N) bf16 weight -> wgmma's K-major B operand in shared memory,
-    unswizzled, one group of ``nb`` columns after another: shape (N / nb,
-    K / 16, nb / 8, 2, 8, 8) with
+    """(K, N) bf16 or int8 weight -> wgmma's K-major B operand in shared
+    memory, unswizzled, one group of ``nb`` columns after another.  A core
+    matrix is 8 columns of E = 16 bytes of consecutive k values (E = 8
+    bf16, 16 int8), and a wgmma k step (k16 in bf16, k32 in int8) is two of
+    them along K: shape (N / nb, K / 2E, nb / 8, 2, 8, E) with
 
-        packed[h, ks, n8, kb, r, c] = w[16 ks + 8 kb + c, nb h + 8 n8 + r]
+        packed[h, ks, n8, kb, r, c] = w[2E ks + E kb + c, nb h + 8 n8 + r]
 
-    (for k16 step ks: two 8 x 8 core matrices along K, 128 bytes apart,
-    ``nb`` / 8 along N, 256 bytes apart; a core matrix is 8 columns of 8
-    consecutive k values).  Any run of k16 steps of one column group is
-    contiguous, ``nb`` * 32 bytes a step."""
+    (core matrices 128 bytes apart along K, 256 along N).  Any run of k
+    steps of one column group is contiguous, ``nb`` * 32 bytes a step in
+    either type."""
     k, n = w.shape
-    return (w.reshape(k // 16, 2, 8, n // nb, nb // 8, 8)
+    e = 16 // w.element_size()
+    return (w.reshape(k // (2 * e), 2, e, n // nb, nb // 8, 8)
             .permute(3, 0, 4, 1, 5, 2).contiguous())
 
 

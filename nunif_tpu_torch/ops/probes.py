@@ -13,12 +13,12 @@ device memory by bulk copies into a ring (``csrc/probe_window_ring.cu``).
 
 T4 ``window_dots_repeat``: replaces ``tools/microbench_mxu_dots.py:bench``
 (``_mk_kernel``).  The dot pair repeated on resident operands with a data
-dependency (``csrc/probe_window_dots.cu``).
+dependency, on wgmma in bf16 and int8 (``csrc/probe_window_dots.cu``).
 
 T2 ``swin_pieces``: replaces ``tools/microbench_swin_pieces.py:build``
 (``_kernel``).  A whole Swin block on groups of G windows, cut after each
-piece, with W8A8 int8 dense layers and int8 scores
-(``csrc/probe_swin_pieces.cu``).  Its roundings follow the tool as XLA
+piece, with W8A8 int8 dense layers and int8 scores, on wgmma in bf16 and
+int8 (``csrc/probe_swin_pieces.cu``).  Its roundings follow the tool as XLA
 compiles it (``quant_rows``), which the CPU tests hold it to bit for bit.
 
 Each has a plain PyTorch twin beside it; the wrappers take the twins only
@@ -190,11 +190,13 @@ def _wrap_int8(v):
     return ((v + 128) % 256) - 128
 
 
-def window_dots_repeat_plain(q, khat, vhat):
+def window_dots_repeat_plain(q, khat, vhat, check=None):
     """Twin of T4: for each block of BLOCK_WINDOWS windows, REPS times:
     s = q khat; e = bf16(s + carry) (int8: wrap((s + int(carry)) >> 7));
     o = e vhat; carry = carry * 0 + o[block's first window, 0, 0] * 1e-30.
-    Returns the last block's carry as an (8, 128) fp32 fill."""
+    Returns the last block's carry as an (8, 128) fp32 fill; ``check``, an
+    (nw, N, C) fp32 tensor, receives each window's o of the last
+    repetition."""
     nb = q.shape[0] // BLOCK_WINDOWS
     carry = torch.zeros(nb, dtype=torch.float32, device=q.device)
     for _ in range(REPS):
@@ -209,50 +211,123 @@ def window_dots_repeat_plain(q, khat, vhat):
             o = torch.bmm(e.float(), vhat.float())
         red = o[::BLOCK_WINDOWS, 0, 0].float()
         carry = carry * 0 + red * 1e-30
+    if check is not None:
+        check.copy_(o.float())
     return torch.full((8, 128), float(carry[-1]), dtype=torch.float32,
                       device=q.device)
 
 
+class DotsPlan(NamedTuple):
+    """T4's plan for one shape, from the library (``dot_plan`` in
+    ``csrc/probe_window_dots.cu``): the pack's widths -- kp (C as the
+    first product's K), cn (C as the second product's N), pc (P's chunk),
+    nch (chunks) -- and, with N, the split of a block's 16 windows over a
+    cluster of two blocks (psplit 1: 8 windows each; 2: every window, half
+    the chunks each), the 64-row tiles of a window, the ring's stages, a
+    stage's and the block's shared-memory bytes (0 without N)."""
+    kp: int
+    cn: int
+    pc: int
+    nch: int
+    psplit: int = 0
+    mtiles: int = 0
+    stages: int = 0
+    stage_bytes: int = 0
+    smem: int = 0
+
+
+def window_dots_plan(dtype, n, c, p) -> DotsPlan:
+    """The library's plan for T4 at N tokens (0: the pack's widths only),
+    width C and P (card only: it loads the built library)."""
+    import ctypes
+    out = (ctypes.c_int * 9)()
+    _build.check(_build.library().nunif_window_dots_plan(
+        _dot_code(dtype), n, c, p, out), "window_dots_plan")
+    return DotsPlan(*out) if n else DotsPlan(*out[:4])
+
+
+# int8 e enters the second product in the accumulator's column order: k
+# slot 4 t + i of each 16 holds column 8 (i // 2) + 2 t + i % 2, so vhat's
+# rows are ordered the same way within each block of 32
+_S8_ORDER = [16 * (s // 16) + 8 * ((s % 4) // 2) + 2 * ((s % 16) // 4) + s % 2
+             for s in range(32)]
+
+
+def _planes(x, width, e):
+    """(..., rows, cols) -> (..., width / e, rows, e): cols zero-padded to
+    width, cut into planes of e columns (16 bytes a row), each plane's rows
+    contiguous: wgmma's K-major core matrices."""
+    if x.shape[-1] != width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    *lead, rows, _cols = x.shape
+    return x.reshape(*lead, rows, width // e, e).transpose(-3, -2).contiguous()
+
+
 class PackedDots(NamedTuple):
-    """khat^T and vhat^T zero-padded to 32-element multiples of P and C,
-    the form T4's kernel reads its B operands in."""
-    kt: torch.Tensor  # (nw, roundup(P, 32), roundup(C, 32))
-    vt: torch.Tensor  # (nw, C, roundup(P, 32))
+    """khat^T and vhat^T in P chunks of planes, the form T4's kernel copies
+    into shared memory (``pack_dots``)."""
+    layout: DotsPlan
+    kt: torch.Tensor  # (nw, nch, kp / E, pc, E), E values = 16 bytes
+    vt: torch.Tensor  # (nw, nch, pc / E, cn, E)
 
 
-def pack_dots(khat, vhat) -> PackedDots:
+def pack_dots(khat, vhat, layout=None) -> PackedDots:
+    """khat (nw, C, P), vhat (nw, P, C) -> ``PackedDots``: P zero-padded to
+    nch chunks of pc; kt[w, ch, pl, r, e] = khat[w, E pl + e, pc ch + r]
+    (C zero-padded to kp), vt[w, ch, pl, n, e] = vhat[w, pc ch + k(E pl +
+    e), n] (C zero-padded to cn) with k the identity in bf16 and, in int8,
+    the column order of e within each 32 (``_S8_ORDER``).  ``layout``:
+    the plan's widths (default: the library's)."""
     nw, c, p = khat.shape
-    cp, pp = -(-c // 32) * 32, -(-p // 32) * 32
-    kt = khat.new_zeros((nw, pp, cp))
-    kt[:, :p, :c] = khat.transpose(1, 2)
-    vt = vhat.new_zeros((nw, c, pp))
-    vt[:, :, :p] = vhat.transpose(1, 2)
-    return PackedDots(kt, vt)
+    if layout is None:
+        layout = window_dots_plan(khat.dtype, 0, c, p)
+    e = 16 // khat.element_size()
+    pp = layout.nch * layout.pc
+    kt = torch.nn.functional.pad(khat.transpose(1, 2), (0, 0, 0, pp - p))
+    kt = _planes(kt.reshape(nw, layout.nch, layout.pc, c), layout.kp, e)
+    vt = torch.nn.functional.pad(vhat, (0, layout.cn - c, 0, pp - p))
+    if khat.dtype == torch.int8:
+        idx = torch.arange(pp, device=vt.device)
+        order = torch.tensor(_S8_ORDER, device=vt.device)
+        vt = vt[:, idx // 32 * 32 + order[idx % 32]]
+    vt = _planes(vt.reshape(nw, layout.nch, layout.pc, layout.cn).transpose(-1, -2),
+                 layout.pc, e)
+    return PackedDots(layout, kt, vt)
 
 
-def window_dots_repeat(q, khat, vhat, *, packed=None):
+def window_dots_repeat(q, khat, vhat, *, packed=None, check=None):
     """T4: q (nw, N, C), khat (nw, C, P), vhat (nw, P, C) in bf16 or int8,
     nw a multiple of BLOCK_WINDOWS -> (8, 128) fp32; see
     ``window_dots_repeat_plain``.  ``packed``, from ``pack_dots(khat,
-    vhat)``, saves the per-call re-arrangement."""
+    vhat)``, saves the per-call re-arrangement of khat and vhat (q is laid
+    into planes on every call).  ``check``, an (nw, N, C) fp32 tensor,
+    receives each window's o of the last repetition (a test hook).  The
+    kernel takes N <= 128 and C <= 128."""
     what = "window_dots_repeat"
     if q.device.type == "cpu":
-        return window_dots_repeat_plain(q, khat, vhat)
+        return window_dots_repeat_plain(q, khat, vhat, check)
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     code = _dot_code(q.dtype)
     nw, n, c, p = _check_dots(what, q, khat, vhat)
-    if vhat.shape[2] != c or c % 8 or nw % BLOCK_WINDOWS:
-        raise ValueError(f"{what}: vhat {tuple(vhat.shape)}, C {c} (a "
-                         f"multiple of 8), {nw} windows in blocks of "
+    if vhat.shape[2] != c or nw % BLOCK_WINDOWS or n > 128 or c > 128:
+        raise ValueError(f"{what}: vhat {tuple(vhat.shape)}, N {n}, C {c} "
+                         f"(at most 128), {nw} windows in blocks of "
                          f"{BLOCK_WINDOWS}")
+    if check is not None and (check.shape != (nw, n, c) or check.dtype != torch.float32
+                              or check.device != q.device or not check.is_contiguous()):
+        raise ValueError(f"{what}: check must be a contiguous ({nw}, {n}, {c}) "
+                         f"fp32 tensor on {q.device}")
     if packed is None:
         packed = pack_dots(khat, vhat)
+    qp = _planes(q, packed.layout.kp, 16 // q.element_size())
     out = torch.empty((8, 128), dtype=torch.float32, device=q.device)
+    if check is not None:
+        check.zero_()
     rc = _build.library().nunif_window_dots_repeat(
-        code, q.data_ptr(), packed.kt.data_ptr(), packed.vt.data_ptr(),
-        out.data_ptr(), nw, n, c, p, REPS, BLOCK_WINDOWS,
-        _build.stream_ptr(q.device))
+        code, qp.data_ptr(), packed.kt.data_ptr(), packed.vt.data_ptr(),
+        out.data_ptr(), 0 if check is None else check.data_ptr(), nw, n, c, p,
+        REPS, BLOCK_WINDOWS, _build.stream_ptr(q.device))
     _build.check(rc, what)
     window_dots_repeat.launches += 1
     return out
@@ -406,11 +481,51 @@ def swin_pieces_plain(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
     return pieces_unwindows(out, rh, cw, h, w)
 
 
+def pieces_chunk_width(c):
+    """Columns of T2's weight chunks at width C: each warpgroup takes every
+    other chunk, so a layer's widths (3C, C, 2C) hold an even number --
+    96 where C is a multiple of 192, 48 of 96, else 16 (the library's plan,
+    ``swin_pieces_plan``, says the same)."""
+    return 96 if c % 192 == 0 else 48 if c % 96 == 0 else 16
+
+
+class PiecesPlan(NamedTuple):
+    """T2's plan from the library (``pieces_plan`` in
+    ``csrc/probe_swin_pieces.cu``): a tile is one group of ``rows`` = G 36
+    token rows in ``mtiles`` 64-row tiles; the weights come in chunks of
+    ``nc`` columns, ``kper`` k steps a stage of ``wstages``; the bias table
+    in stages of 64 rows of one head's slice (``bstages``), rows
+    ``bstride`` fp32 apart; ``smem`` bytes a block."""
+    rows: int
+    mtiles: int
+    nc: int
+    kper: int
+    wstages: int
+    bstages: int
+    bstride: int
+    smem: int
+
+
+def swin_pieces_plan(c, g) -> PiecesPlan:
+    """The library's plan for T2 at width C and G windows a group (card
+    only: it loads the built library); raises ValueError for shapes the
+    kernel is not built for (C 32, 96, 192 at G 2, 4, 2, and any C with
+    the same chunk width and tile count)."""
+    import ctypes
+    out = (ctypes.c_int * 8)()
+    if _build.library().nunif_swin_pieces_plan(c, g, out) != 0:
+        raise ValueError(f"swin_pieces: C {c}, G {g}: not a shape the kernel "
+                         "takes (built for C 32 / 96 / 192 at G 2 / 4 / 2)")
+    return PiecesPlan(*out)
+
+
 class PackedPieces(NamedTuple):
     """T2's dense weights as the kernel reads them: qkv, proj, fc1, fc2 in
-    mma fragment order (bf16, or int8 for W8A8), their fp32 biases and fp32
-    per-column weight scales."""
+    wgmma's K-major B layout in chunks of ``nc`` columns
+    (``_build.wgmma_weight_layout``; bf16, or int8 for W8A8), their fp32
+    biases and fp32 per-column weight scales."""
     dense_int8: bool
+    nc: int
     mats: tuple
     biases: tuple
     scales: tuple
@@ -422,15 +537,26 @@ def pack_pieces(wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, sqkv,
     ``packed=`` so that calls skip this work (the tool keeps its weights
     resident, too)."""
     dt = torch.int8 if dense_int8 else torch.bfloat16
+    nc = pieces_chunk_width(wqkv.shape[0])
     return PackedPieces(
-        dense_int8,
-        tuple(_build.mma_weight_layout(w.to(dt).contiguous())
+        dense_int8, nc,
+        tuple(_build.wgmma_weight_layout(w.to(dt).contiguous(), nc)
               for w in (wqkv, wproj, wfc1, wfc2)),
         tuple(b.float().contiguous() for b in (bqkv, bproj, bfc1, bfc2)),
         tuple(s.float().contiguous() for s in (sqkv, sproj, sfc1, sfc2)))
 
 
-def _check_pieces(what, x, weights, bias, G, rh, cw, pieces, dense_int8):
+def pack_bias(bias, c, g, stride):
+    """The (G N, heads G N) bias table head-major, (heads, G N, stride)
+    fp32 with each row zero-padded to ``stride``: a 64-row slice of one
+    head is one contiguous copy."""
+    ng, heads = g * PIECES_TOKENS, c // PIECES_HEAD_DIM
+    t = bias.float().reshape(ng, heads, ng).permute(1, 0, 2)
+    return torch.nn.functional.pad(t, (0, stride - ng)).contiguous()
+
+
+def _check_pieces(what, x, weights, bias, G, rh, cw, pieces, dense_int8,
+                  scores_int8):
     if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[0] != 1 \
             or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be a contiguous 16-byte aligned "
@@ -444,6 +570,9 @@ def _check_pieces(what, x, weights, bias, G, rh, cw, pieces, dense_int8):
                          "32, G dividing rh * cw)")
     if pieces not in (-1, 0, 1, 2, 3, 4):
         raise ValueError(f"{what}: pieces {pieces} not in -1 .. 4")
+    if scores_int8 and pieces in (2, 3):
+        raise ValueError(f"{what}: int8 scores are built for pieces 4 "
+                         f"(the tool's P4s, P4qs), not {pieces}")
     hid, heads = 2 * c, c // PIECES_HEAD_DIM
     expect = {"wqkv": (c, 3 * c), "bqkv": (3 * c,), "wproj": (c, c),
               "bproj": (c,), "wfc1": (c, hid), "bfc1": (hid,),
@@ -466,7 +595,10 @@ def swin_pieces(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, bias,
     arguments in the tool's order: weights (in, out) in bf16, or int8 with
     ``dense_int8``; biases, scales and ``bias`` (G 36, heads G 36) fp32; see
     ``swin_pieces_plain``.  ``packed``, from ``pack_pieces``, saves the
-    per-call re-arrangement.  Returns (1, H, W, C) bf16."""
+    per-call re-arrangement of the weights (the bias table is laid out
+    head-major on every call).  The kernel takes the shapes of
+    ``swin_pieces_plan`` and int8 scores at pieces 4 only.  Returns (1, H,
+    W, C) bf16."""
     what = "swin_pieces"
     weights = (wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2)
     scales = (sqkv, sproj, sfc1, sfc2)
@@ -477,18 +609,19 @@ def swin_pieces(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, bias,
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     _check_pieces(what, x, weights + scales, bias, G, rh, cw, pieces,
-                  dense_int8)
+                  dense_int8, scores_int8)
+    _b, h, w, c = x.shape
+    plan = swin_pieces_plan(c, G)
     if packed is None:
         packed = pack_pieces(*weights, *scales, dense_int8=dense_int8)
-    elif packed.dense_int8 != dense_int8:
+    elif packed.dense_int8 != dense_int8 or packed.nc != plan.nc:
         raise ValueError(f"{what}: weights packed for dense_int8="
-                         f"{packed.dense_int8}")
+                         f"{packed.dense_int8} in chunks of {packed.nc}")
     ptrs = []
     for i in range(4):
         ptrs += [t.data_ptr() for t in (packed.mats[i], packed.biases[i],
                                         packed.scales[i])]
-    bias = bias.float().contiguous()
-    _b, h, w, c = x.shape
+    bias = pack_bias(bias, c, G, plan.bstride)
     out = torch.empty_like(x)
     rc = _build.library().nunif_swin_pieces(
         x.data_ptr(), *ptrs, bias.data_ptr(), out.data_ptr(), h, w, c, G, rh,

@@ -736,7 +736,7 @@ def test_window_attn_image_kernel_matches_twin(cuda, dtype, b, n_wh, n_ww, ws,
 
 # The probes T1, T3, T4 against their twins, with the CPU tests' tolerances
 # (tests/test_torch_probes.py): T1 exact; T3 bf16 atol 1e-2, int8 2e-2,
-# both rtol 2^-7; T4 int8 exact, bf16 rtol 1e-3.
+# both rtol 2^-7; T4's fill and check output int8 exact, bf16 rtol 1e-3.
 @pytest.mark.parametrize("rh,cw", [(8, 8), (4, 16), (2, 4), (8, 2)])
 def test_strip_kernels_match_twin(cuda, rh, cw):
     from nunif_tpu_torch.ops import probes
@@ -824,6 +824,68 @@ def test_window_dots_repeat_kernel_matches_twin(cuda, dtype, n, c, p):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-3, atol=0)
+
+
+# T4's check output: every window's o of the last repetition against the
+# twin's (int8 exact, bf16 rtol 1e-3, the fill's tolerance), at the three
+# shapes above and the tool's padded one (C 128: in bf16 the only plan of
+# P split over the cluster with one 64-row tile a window).  The fill
+# sees only window 0 of the last block, so a control with one other
+# window's khat zeroed passes the fill check and must fail this one.
+def _t4_close(got, want, dtype):
+    if dtype == torch.int8:
+        return torch.equal(got, want)
+    return bool(torch.isclose(got, want, rtol=1e-3, atol=0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n,c,p", [(36, 48, 108), (36, 96, 216),
+                                   (108, 96, 648), (36, 128, 256)])
+def test_window_dots_repeat_checks_every_window(cuda, dtype, n, c, p):
+    from nunif_tpu_torch.ops import probes
+    rng = _rng(17)
+    shapes = ((32, n, c), (32, c, p), (32, p, c))
+    if dtype == torch.int8:
+        ins = [torch.from_numpy(rng.integers(-127, 127, s).astype(np.int8)).to(cuda)
+               for s in shapes]
+    else:
+        ins = [_t(rng.uniform(0, 1, s), cuda, dtype) for s in shapes]
+    got = torch.empty((32, n, c), dtype=torch.float32, device=cuda)
+    fill = probes.window_dots_repeat(*ins, check=got)
+    torch.cuda.synchronize()
+    want = torch.empty_like(got)
+    want_fill = probes.window_dots_repeat_plain(*ins, want)
+    assert bool(want.abs().amax(dim=(1, 2)).gt(0).all())  # no window is degenerate
+    assert _t4_close(got, want, dtype)
+    assert _t4_close(fill, want_fill, dtype)
+    khat = ins[1].clone()
+    khat[5] = 0  # not the first window of a block
+    bad = torch.empty_like(got)
+    bad_fill = probes.window_dots_repeat(ins[0], khat, ins[2], check=bad)
+    assert _t4_close(bad_fill, want_fill, dtype)  # the fill cannot see it
+    assert not _t4_close(bad, want, dtype)
+
+
+def test_probe_plans_fit_shared_memory(cuda):
+    """T4's plan at every shape of its tool and T2's at both tool shapes
+    and the tests' C 32: within the 227 KB of a block, with the stages the
+    designs need (T4: two windows in flight, or one window of two 64-row
+    tiles, or P split over the cluster)."""
+    from nunif_tpu_torch.ops import probes
+    from nunif_tpu_torch.tools import microbench_mxu_dots as t4
+    from nunif_tpu_torch.tools import microbench_swin_pieces as t2
+    for _label, n, c, p, int8 in t4.SHAPES:
+        plan = probes.window_dots_plan(torch.int8 if int8 else torch.bfloat16, n, c, p)
+        assert 0 < plan.smem <= 232448 and plan.stages >= 1, plan
+        assert plan.psplit == 2 or plan.mtiles == 2 or plan.stages >= 2, plan
+        assert plan.nch * plan.pc >= p and plan.kp >= c and plan.cn >= c, plan
+    for c, g in ((96, t2.default_g(96)), (192, t2.default_g(192)), (32, 2)):
+        plan = probes.swin_pieces_plan(c, g)
+        assert plan.rows == 36 * g and 0 < plan.smem <= 232448, plan
+        assert plan.nc == probes.pieces_chunk_width(c), plan
+        assert (3 * c) % (2 * plan.nc) == 0 and c % (2 * plan.nc) == 0, plan
+    with pytest.raises(ValueError, match="not a shape the kernel takes"):
+        probes.swin_pieces_plan(96, 2)
 
 
 # T2: the piecewise Swin block against its twin at every variant, on the

@@ -198,6 +198,98 @@ def test_window_dots_repeat_twin_matches_tool_kernel(tools, dtype, n, c, p):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-3)
 
 
+def _t4_body(t, dtype, arrays):
+    """The tool kernel's body (``_mk_kernel``) written out in jnp for every
+    grid step of BW windows: the REPS loop of the dot pair with the carry,
+    returning (the last step's carry, each window's o of the last
+    repetition as fp32)."""
+    jd, acc = {"bf16": (jnp.bfloat16, jnp.float32),
+               "int8": (jnp.int8, jnp.int32)}[dtype]
+    q, kh, vh = (jnp.asarray(a, jd) for a in arrays)
+    dims = (((2,), (1,)), ((0,), (0,)))
+    outs, carry = [], None
+    for i in range(0, q.shape[0], t.BW):
+        qb, kb, vb = q[i:i + t.BW], kh[i:i + t.BW], vh[i:i + t.BW]
+
+        def body(_, state, qb=qb, kb=kb, vb=vb):
+            carry, _o = state
+            s = jax.lax.dot_general(qb, kb, dims, preferred_element_type=acc)
+            if jd == jnp.int8:
+                e = ((s + carry.astype(jnp.int32)) >> 7).astype(jnp.int8)
+            else:
+                e = (s + carry).astype(jd)
+            o = jax.lax.dot_general(e, vb, dims, preferred_element_type=acc)
+            return carry * 0 + o[0, 0, 0].astype(jnp.float32) * 1e-30, o
+
+        o0 = jnp.zeros((t.BW, qb.shape[1], vb.shape[2]), acc)
+        carry, o = jax.lax.fori_loop(0, t.REPS, body, (jnp.float32(0), o0))
+        outs.append(np.asarray(o, np.float32))
+    return float(carry), np.concatenate(outs)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("n,c,p", [(36, 48, 108), (36, 96, 216)])
+def test_window_dots_repeat_check_matches_tool_body(tools, dtype, n, c, p):
+    """The twin's check output (each window's o of the last repetition)
+    against the tool kernel's body in jnp, window by window; the body's
+    carry is the tool kernel's fill.  int8 exact; bf16 rtol 1e-3 (fp32
+    sums in another order may flip a bf16 step of e)."""
+    t = tools["microbench_mxu_dots"]
+    arrays = _t4_inputs(dtype, 32, n, c, p, seed=n + c + 1)
+    carry, want = _t4_body(t, dtype, arrays)
+    assert np.all(_t4_pallas(t, n, c, p, dtype, arrays) == np.float32(carry))
+    td = {"bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    ins = [torch.from_numpy(a).to(td) for a in arrays]
+    got = torch.empty((32, n, c), dtype=torch.float32)
+    before = probes.window_dots_repeat.launches
+    fill = probes.window_dots_repeat(*ins, check=got)
+    assert probes.window_dots_repeat.launches == before
+    assert np.abs(want).max(axis=(1, 2)).min() > 0  # no window is degenerate
+    if dtype == "int8":
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert float(fill[0, 0]) == np.float32(carry)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-3)
+        np.testing.assert_allclose(float(fill[0, 0]), carry, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_pack_dots_follows_index_formula(dtype):
+    """T4's pack at the hgroup3 shape (C 48, P 108) with the widths the
+    kernel's plan gives there: kt[w, ch, pl, r, i] = khat[w, E pl + i,
+    pc ch + r] and vt[w, ch, pl, n, i] = vhat[w, pc ch + k(E pl + i), n],
+    k the identity in bf16 and e's column order in int8, zeros past C and
+    P; and in int8 the order makes the packed product the true one."""
+    nw, c, p = 2, 48, 108
+    rng = np.random.default_rng(3)
+    khat = torch.from_numpy(rng.integers(-127, 127, (nw, c, p)).astype(np.int8)).to(dtype)
+    vhat = torch.from_numpy(rng.integers(-127, 127, (nw, p, c)).astype(np.int8)).to(dtype)
+    int8 = dtype == torch.int8
+    layout = probes.DotsPlan(64, 48, 64, 2) if int8 else probes.DotsPlan(48, 48, 112, 1)
+    e = 16 // khat.element_size()
+    packed = probes.pack_dots(khat, vhat, layout)
+    assert packed.kt.shape == (nw, layout.nch, layout.kp // e, layout.pc, e)
+    assert packed.vt.shape == (nw, layout.nch, layout.pc // e, layout.cn, e)
+    kpad = torch.zeros((nw, layout.kp, layout.nch * layout.pc), dtype=dtype)
+    kpad[:, :c, :p] = khat
+    w, ch, pl, r, i = (torch.from_numpy(a) for a in np.indices(packed.kt.shape))
+    assert torch.equal(packed.kt, kpad[w, e * pl + i, layout.pc * ch + r])
+    vpad = torch.zeros((nw, layout.nch * layout.pc, layout.cn), dtype=dtype)
+    vpad[:, :p, :c] = vhat
+    order = torch.tensor(probes._S8_ORDER) if int8 else torch.arange(32)
+    w, ch, pl, n, i = (torch.from_numpy(a) for a in np.indices(packed.vt.shape))
+    kk = e * pl + i
+    assert torch.equal(packed.vt, vpad[w, layout.pc * ch + kk // 32 * 32 + order[kk % 32], n])
+    if int8:
+        # e enters as A with k slot s holding column order[s]: the product
+        # over the packed rows is the product over P
+        ev = torch.from_numpy(rng.integers(-127, 127, (nw, 8, layout.nch * layout.pc)))
+        idx = torch.arange(layout.nch * layout.pc)
+        slots = ev[:, :, idx // 32 * 32 + order[idx % 32]]
+        vrows = packed.vt.permute(0, 1, 2, 4, 3).reshape(nw, -1, layout.cn).long()
+        assert torch.equal(slots @ vrows, ev @ vpad.long())
+
+
 def test_window_dots_repeat_int8_wraps(tools):
     """The int32 -> int8 cast of (s + carry) >> 7 wraps in the tool's kernel
     and in the twin: the same product with a saturating cast differs."""

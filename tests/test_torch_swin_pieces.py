@@ -196,3 +196,24 @@ def test_swin_pieces_wrapper_rejects_other_devices():
     wts = port_tool.weights(32, 2, False, device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         probes.swin_pieces(x, *wts, G=2, rh=1, cw=2, pieces=4)
+
+
+@pytest.mark.parametrize("dense_int8", [False, True])
+@pytest.mark.parametrize("c,nb", [(32, 16), (96, 48), (192, 96)])
+def test_weight_pack_follows_index_formula(c, nb, dense_int8):
+    """T2's weight pack at the widths its kernel runs (C 32, 96, 192: the
+    chunk widths 16, 48, 96), bf16 and the int8 wgmma form: a core matrix
+    is 8 columns of E = 16 bytes of k (E = 8 bf16, 16 int8), and
+    packed[h, ks, n8, kb, r, i] = W[2E ks + E kb + i, nb h + 8 n8 + r]; a k
+    step of one chunk is nb * 32 contiguous bytes in either type."""
+    wts = port_tool.weights(c, 2, dense_int8, check=True, device="cpu")
+    packed = probes.pack_pieces(*wts[:8], *wts[9:], dense_int8=dense_int8)
+    assert packed.nc == nb == probes.pieces_chunk_width(c)
+    e = 8 if not dense_int8 else 16
+    for w, m in zip(wts[0:8:2], packed.mats):
+        k, n = w.shape
+        assert m.dtype == (torch.int8 if dense_int8 else torch.bfloat16)
+        assert tuple(m.shape) == (n // nb, k // (2 * e), nb // 8, 2, 8, e)
+        assert m.is_contiguous() and m[0, 0].numel() * m.element_size() == nb * 32
+        h, ks, n8, kb, r, i = (torch.from_numpy(a) for a in np.indices(m.shape))
+        assert torch.equal(m, w[2 * e * ks + e * kb + i, nb * h + 8 * n8 + r])
