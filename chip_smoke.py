@@ -50,8 +50,11 @@ written by the port:
   window-8 shape (N = 64), against their twins with K4's controls;
 - the probes: holds T1 (strip relayout), T3 (window dot pair, bf16 and
   int8) and T4 (repeated dot pair, 8 shapes) against their twins at the
-  tools' shapes, then runs the three ``nunif_tpu_torch.tools`` probes,
-  which time them; then T2 (the piecewise Swin block, ten variants with
+  tools' shapes (T1 also at scale 2.0, where the tool's scale rounds to
+  1.0, with its window hook, and controls that must fail), then runs the
+  three ``nunif_tpu_torch.tools`` probes, which time them, and T1's device
+  time a launch at each block (in a process of its own); its plan prints
+  on a line of its own; then T2 (the piecewise Swin block, ten variants with
   W8A8 int8 dense layers and int8 scores) at both of its tool's shapes
   against its twin, with controls (zero bias table, per-window attention)
   that must fail, and its tool's run.
@@ -362,12 +365,11 @@ def k7_launch_times(torch, F, k7, q, k, v):
     """K7 and SDPA on the same inputs without the host's share: 20 launches
     back to back between two CUDA events (median of 3), and torch.profiler's
     device time a launch."""
-    from nunif_tpu_torch.tools import time_ms
+    from nunif_tpu_torch.tools import device_ms, time_ms
     kernel = lambda: k7.sdpa(q, k, v)  # noqa: E731
     library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
     return dict(ms_b2b=time_ms(kernel, 20), library_ms_b2b=time_ms(library, 20),
-                ms_device=device_ms(torch, kernel),
-                library_ms_device=device_ms(torch, library))
+                ms_device=device_ms(kernel), library_ms_device=device_ms(library))
 
 
 def iw3_cli(model_dir):
@@ -811,15 +813,14 @@ def probe_phase(torch, probes, dev):
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn((1, t1_tool.H, t1_tool.W, t1_tool.C), generator=gen,
                     device=dev).to(torch.bfloat16)
-    want = probes.strip_plain(x)
-    for rh, cw in t1_tool.BLOCKS:
-        if (t1_tool.H // 6) % rh or (t1_tool.W // 6) % cw:
-            continue
-        for fn in (probes.strip_pass, probes.strip_relayout):
-            if not torch.equal(fn(x, rh, cw), want):
-                fail(f"T1 {fn.__name__} rh={rh} cw={cw} differs from x * scale")
+    t1_checks(torch, probes, x, t1_tool.BLOCKS)
+    # the tool's blocks that do not tile its 184 window rows, (16, 8) and
+    # (16, 4), on an image of 192
+    x = torch.randn((1, 1152, t1_tool.W, t1_tool.C), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    t1_checks(torch, probes, x, [b for b in t1_tool.BLOCKS if (t1_tool.H // 6) % b[0]])
     errs["strip_relayout"] = 0.0
-    del x, want
+    del x
     for dtype in (torch.bfloat16, torch.int8):
         name = str(dtype).split(".")[1]
         ins = t3_tool.inputs(dtype, seed=10)
@@ -880,7 +881,55 @@ def probe_phase(torch, probes, dev):
     print(f"probe tool launches: {launches}", flush=True)
     if not all(launches.values()):
         fail(f"a probe kernel was not launched by its tool: {launches}")
+    # T1's device time a launch at each block, in a process of its own: in
+    # this long one torch.profiler drops kernel records
+    proc = subprocess.run([sys.executable, "-m", "nunif_tpu_torch.tools.microbench_strip",
+                           "--device-ms"], capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        fail(f"T1 device time: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"T1 device ms a launch (rh cw):\n{proc.stdout.strip()}", flush=True)
+    device = json.loads(proc.stdout.strip().splitlines()[-1])
+    for row in t1["rows"]:
+        row.update(device[f"{row['rh']} {row['cw']}"])
     return t1, t3, t4, launches, errs
+
+
+def t1_checks(torch, probes, x, blocks):
+    """T1 at each of the blocks that tiles x: both kernels equal the twin
+    bit for bit;
+    at scale 2.0 (exact in bf16, where the tool's scale rounds to 1.0) both
+    give exactly x * 2 and the relayout's window hook equals
+    ``window_partition2(x) * 2``.  Controls that must fail: the hook
+    against image order reshaped (not partitioned), a kernel's output at
+    scale 2.0 against x."""
+    h, w, c = x.shape[1:]
+    want, want2 = probes.strip_plain(x), probes.strip_plain(x, 2.0)
+    want_win = probes.strip_windows_plain(x, 6, 2.0)
+    image_order = (x * 2).reshape(want_win.shape)
+    windows = torch.empty_like(want_win)
+    for rh, cw in blocks:
+        if (h // 6) % rh or (w // 6) % cw:
+            continue
+        for fn in (probes.strip_pass, probes.strip_relayout):
+            what = f"T1 {fn.__name__} rh={rh} cw={cw}"
+            if not torch.equal(fn(x, rh, cw), want):
+                fail(f"{what} differs from x * scale")
+            got2 = fn(x, rh, cw, scale=2.0)
+            if not torch.equal(got2, want2):
+                fail(f"{what} at scale 2.0 differs from x * 2")
+            if torch.equal(got2, x):
+                fail(f"{what}: the control (x) passes the scale-2.0 check")
+        windows.zero_()
+        probes.strip_relayout(x, rh, cw, scale=2.0, windows=windows)
+        if not torch.equal(windows, want_win):
+            fail(f"T1 relayout rh={rh} cw={cw}: the window hook differs from "
+                 f"window_partition2(x) * 2")
+        if torch.equal(windows, image_order):
+            fail(f"T1 relayout rh={rh} cw={cw}: the control (image order "
+                 f"reshaped) passes the window check")
+    print(f"T1 checks passed at {h}x{w}x{c}, blocks {blocks}: pass and "
+          f"relayout equal x * scale, x * 2 at scale 2.0, the window hook "
+          f"window_partition2(x) * 2; both controls fail", flush=True)
 
 
 def swin_t_phase(torch, k4, rng, t, dev):
@@ -1068,28 +1117,6 @@ def dev_us(e):
     """A profiler event's own device time, us."""
     return getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0)
-
-
-def device_ms(torch, fn, n=20, tries=3):
-    """Device ms a call: torch.profiler's summed kernel time over n calls
-    after a warm one, divided by n (no host time, no gaps).  A session
-    that records no device activity (it happens now and then on the card's
-    machine) is run again; None after ``tries`` empty sessions."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(dev_us(e) for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA"))
-        if total > 0:
-            return total / n / 1e3
-        print("profiler: a session recorded no device activity", flush=True)
-    return None
 
 
 def profile_frame(torch, program, frame, top=12, share_of=None):
@@ -1802,6 +1829,12 @@ def main() -> int:
          "pass_launches": probe_launches["strip_pass"],
          "max_abs_err": probe_errs["strip_relayout"],
          "ms": t1_main["relayout_ms"], "pass_ms": t1_main["pass_ms"],
+         # the least of the timed rounds beside their median (ms), and the
+         # device time a launch (torch.profiler)
+         "ms_min": t1_main["relayout_min_ms"],
+         "pass_ms_min": t1_main["pass_min_ms"],
+         "device_ms": t1_main["relayout_device_ms"],
+         "pass_device_ms": t1_main["pass_device_ms"],
          "plain_ms": t1["plain_ms"], "bound_ms": t1_bound[0],
          "bound_by": t1_bound[1], "library_ms": t1["library_ms"],
          "blocks": t1["rows"]},
@@ -1875,6 +1908,12 @@ def main() -> int:
         for label, fsum, rows in (("K4", k4_sum, k4_bf16),
                                   ("K6", k6_sum, k6_bf16))}), flush=True)
     print("T2 / T4 plan: " + json.dumps(probe_plans(torch, probes)), flush=True)
+    from nunif_tpu_torch.tools import microbench_strip as t1_tool
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print("T1 plan: " + json.dumps({
+        f"rh {r['rh']} cw {r['cw']}": probes.strip_plan(
+            t1_tool.H, t1_tool.W, t1_tool.C, r["rh"], r["cw"], sms)._asdict()
+        for r in t1["rows"]}), flush=True)
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

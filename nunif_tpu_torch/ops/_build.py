@@ -64,8 +64,10 @@ _SIGNATURES = {
     "nunif_window_attn_image": [_I, _P, _P, _P] + [_I] * 7 + [_F, _P],
     # C, heads, N, nw, sms, int out[7]
     "nunif_window_attn_plan": [_I] * 5 + [_P],
-    # relayout, x, out, H, W, C, ws, rh, cw, scale, stream
-    "nunif_strip": [_I, _P, _P] + [_I] * 6 + [_F, _P],
+    # relayout, x, out, windows, H, W, C, ws, rh, cw, scale, stream
+    "nunif_strip": [_I, _P, _P, _P] + [_I] * 6 + [_F, _P],
+    # H, W, C, ws, rh, cw, sms, int out[7]
+    "nunif_strip_plan": [_I] * 7 + [_P],
     # dtype, q, khat, vhat, out, nw, N, C, P, Cv, Cout, stream
     "nunif_window_dots": [_I] + [_P] * 4 + [_I] * 6 + [_P],
     # dtype, q, kt, vt, out, check, nw, N, C, P, reps, bw, stream

@@ -4,7 +4,9 @@
 T1 ``strip_pass`` / ``strip_relayout``: replaces
 ``tools/microbench_strip.py:strip_call`` (kernels ``_pass_kernel``,
 ``_relayout_kernel``).  x * scale on a bf16 image, streamed, or through a
-strip <-> window relayout in shared memory (``csrc/probe_strip.cu``).
+strip <-> window relayout in shared memory: a persistent ring fed by bulk
+copies (pass) or TMA boxes that form the windows (relayout)
+(``csrc/probe_strip.cu``).
 
 T3 ``window_dots``: replaces ``tools/microbench_int8_attn.py:bench``
 (``_kernel_bf16``, ``_kernel_int8``).  Per window the dot pair of
@@ -28,6 +30,7 @@ these sizes is exact.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -42,63 +45,123 @@ BLOCK_WINDOWS = 16
 _DOT_BF16, _DOT_INT8 = 1, 2
 
 
-def _scale_of(x):
-    """STRIP_SCALE rounded to x's dtype, as the tool's
-    ``jnp.asarray(scale, x.dtype)``, on x's device."""
-    return torch.tensor(STRIP_SCALE, dtype=x.dtype).to(x.device)
+def _scale_of(x, scale=STRIP_SCALE):
+    """scale rounded to x's dtype, as the tool's ``jnp.asarray(scale,
+    x.dtype)``, on x's device."""
+    return torch.tensor(scale, dtype=x.dtype).to(x.device)
 
 
-def strip_plain(x):
-    """The function both T1 kernels compute: x * STRIP_SCALE in x's dtype."""
-    return x * _scale_of(x)
+@functools.lru_cache(maxsize=8)
+def _bf16_scale(scale):
+    """scale rounded to bf16 on the host, as a float: what the T1 kernels
+    are given, so a launch reads nothing back from the card."""
+    return torch.tensor(scale, dtype=torch.bfloat16).item()
+
+
+def strip_plain(x, scale=STRIP_SCALE):
+    """The function both T1 kernels compute: x * scale in x's dtype
+    (STRIP_SCALE, the tool's, by default)."""
+    return x * _scale_of(x, scale)
+
+
+def strip_windows_plain(x, window=6, scale=STRIP_SCALE):
+    """Twin of ``strip_relayout``'s ``windows`` hook: the scaled windows
+    as the relayout holds them, ``window_partition2(x) * scale``, (nh nw,
+    window^2, C)."""
+    return window_partition2(x, window) * _scale_of(x, scale)
 
 
 def strip_partition_roundtrip(x, window=6):
     """The relayout through device memory: window partition, scale, window
     reverse (the counterpart of the tool's ``xla_partition_roundtrip``)."""
     _b, h, w, _c = x.shape
-    return window_reverse2(window_partition2(x, window) * _scale_of(x),
-                           window, h, w)
+    return window_reverse2(strip_windows_plain(x, window), window, h, w)
 
 
-def _strip(relayout, fn, x, rh, cw, window):
-    what = fn.__name__
-    if x.device.type == "cpu":
-        return strip_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
+def _check_strip(what, x, rh, cw, window, windows):
     if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[0] != 1 \
             or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be a contiguous 16-byte aligned "
                          f"bf16 (1, H, W, C), got {x.dtype} "
                          f"{tuple(x.shape)}")
     _b, h, w, c = x.shape
-    if h % (rh * window) or w % (cw * window) or c % 8:
+    if rh < 1 or cw < 1 or window < 1 or h % (rh * window) or \
+            w % (cw * window) or c % 8 or c > 256:
         raise ValueError(f"{what}: {h}x{w}x{c} is not a grid of "
-                         f"{rh}x{cw} windows of {window} with C % 8 == 0")
+                         f"{rh}x{cw} windows of {window} with C % 8 == 0 "
+                         f"and C <= 256")
+    if windows is not None:
+        shape = ((h // window) * (w // window), window * window, c)
+        if windows.device != x.device or windows.dtype != x.dtype or \
+                tuple(windows.shape) != shape or \
+                not windows.is_contiguous() or windows.data_ptr() % 16:
+            raise ValueError(f"{what}: windows must be a contiguous 16-byte "
+                             f"aligned bf16 {shape} on {x.device}")
+
+
+def _strip(relayout, x, rh, cw, window, scale, windows=None):
+    fn = strip_relayout if relayout else strip_pass
+    what = fn.__name__
+    if x.device.type == "cpu":
+        if windows is not None:
+            windows.copy_(strip_windows_plain(x, window, scale))
+        return strip_plain(x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    _check_strip(what, x, rh, cw, window, windows)
+    _b, h, w, c = x.shape
     out = torch.empty_like(x)
     rc = _build.library().nunif_strip(
-        int(relayout), x.data_ptr(), out.data_ptr(), h, w, c, window, rh, cw,
-        float(_scale_of(x)), _build.stream_ptr(x.device))
+        int(relayout), x.data_ptr(), out.data_ptr(),
+        None if windows is None else windows.data_ptr(), h, w, c, window, rh,
+        cw, _bf16_scale(scale), _build.stream_ptr(x.device))
     _build.check(rc, what)
     fn.launches += 1
     return out
 
 
-def strip_pass(x, rh, cw, *, window=6):
-    """T1 pass kernel: x * STRIP_SCALE, one block a (rh x cw)-window
-    block."""
-    return _strip(False, strip_pass, x, rh, cw, window)
+def strip_pass(x, rh, cw, *, window=6, scale=STRIP_SCALE):
+    """T1 pass kernel: x * scale (rounded to bf16) streamed in image order
+    through a ring in shared memory; segments of a window row dealt in the
+    order of the tool's (rh x cw)-window blocks."""
+    return _strip(False, x, rh, cw, window, scale)
 
 
-def strip_relayout(x, rh, cw, *, window=6):
-    """T1 relayout kernel: x * STRIP_SCALE through the image -> window ->
-    image round trip in shared memory."""
-    return _strip(True, strip_relayout, x, rh, cw, window)
+def strip_relayout(x, rh, cw, *, window=6, scale=STRIP_SCALE, windows=None):
+    """T1 relayout kernel: x * scale (rounded to bf16) through the image ->
+    window -> image round trip, the scale applied to window-ordered stages
+    in shared memory.  ``windows``, a (nh nw, window^2, C) bf16 tensor,
+    receives those stages as the kernel scaled them (the twin:
+    ``strip_windows_plain``)."""
+    return _strip(True, x, rh, cw, window, scale, windows)
 
 
 strip_pass.launches = 0
 strip_relayout.launches = 0
+
+
+class StripPlan(NamedTuple):
+    """T1's launch plan from the library (``strip_plan`` in
+    ``csrc/probe_strip.cu``): windows a segment (the unit a block takes),
+    ring stages, bytes a stage, blocks a SM, shared-memory bytes a block,
+    segments of the image, blocks of the grid."""
+    seg: int
+    stages: int
+    stage_bytes: int
+    blocks_per_sm: int
+    smem: int
+    segments: int
+    grid: int
+
+
+def strip_plan(h, w, c, rh, cw, sms, *, window=6) -> StripPlan:
+    """The library's plan for T1 on an (h, w, c) image in (rh, cw)-window
+    blocks on ``sms`` SMs (card only: it loads the built library)."""
+    import ctypes
+    out = (ctypes.c_int * len(StripPlan._fields))()
+    _build.check(_build.library().nunif_strip_plan(
+        h, w, c, window, rh, cw, sms, out), "strip_plan")
+    return StripPlan(*out)
 
 
 def _bmm_exact(a, b):

@@ -739,17 +739,80 @@ def test_window_attn_image_kernel_matches_twin(cuda, dtype, b, n_wh, n_ww, ws,
 # both rtol 2^-7; T4's fill and check output int8 exact, bf16 rtol 1e-3.
 @pytest.mark.parametrize("rh,cw", [(8, 8), (4, 16), (2, 4), (8, 2)])
 def test_strip_kernels_match_twin(cuda, rh, cw):
+    """T1 exact: at the tool's scale (1.0 in bf16) and at 2.0 (exact in
+    bf16, so the scale shows), with the relayout's window hook against
+    window_partition2(x) * 2.  Controls that must fail: a kernel's output
+    at 2.0 against x, the hook against image order reshaped."""
     from nunif_tpu_torch.ops import probes
     x = _t(_rng(14).normal(0, 1, (1, 48, 96, 96)), cuda, torch.bfloat16)
-    want = probes.strip_plain(x)
+    want, want2 = probes.strip_plain(x), probes.strip_plain(x, 2.0)
     for fn in (probes.strip_pass, probes.strip_relayout):
         before = fn.launches
         got = fn(x, rh, cw)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         assert torch.equal(got, want)
+        got2 = fn(x, rh, cw, scale=2.0)
+        assert torch.equal(got2, want2)
+        assert not torch.equal(got2, x)
+    windows = torch.zeros((8 * 16, 36, 96), device=cuda, dtype=torch.bfloat16)
+    probes.strip_relayout(x, rh, cw, scale=2.0, windows=windows)
+    assert torch.equal(windows, probes.strip_windows_plain(x, 6, 2.0))
+    assert not torch.equal(windows, want2.reshape(windows.shape))
     with pytest.raises(ValueError, match="bf16"):
         probes.strip_pass(x.float(), rh, cw)
+
+
+# T1 off the tool's width: C = 8 (a window's bytes no multiple of 128),
+# 200, and 256 (TMA's box limit; a segment of 4 windows), at scale 2.0
+@pytest.mark.parametrize("c", [8, 200, 256])
+def test_strip_kernels_other_widths(cuda, c):
+    from nunif_tpu_torch.ops import probes
+    x = _t(_rng(c).normal(0, 1, (1, 36, 96, c)), cuda, torch.bfloat16)
+    want = probes.strip_plain(x, 2.0)
+    for fn in (probes.strip_pass, probes.strip_relayout):
+        assert torch.equal(fn(x, 3, 8, scale=2.0), want)
+    windows = torch.zeros((6 * 16, 36, c), device=cuda, dtype=torch.bfloat16)
+    probes.strip_relayout(x, 3, 8, scale=2.0, windows=windows)
+    assert torch.equal(windows, probes.strip_windows_plain(x, 6, 2.0))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = probes.strip_plan(36, 96, c, 3, 8, sms)
+    assert plan.stage_bytes >= plan.seg * 36 * c * 2 and plan.stages >= 2
+    assert plan.seg == (8 if c <= 200 else 4)
+
+
+def test_strip_kernels_reject(cuda):
+    """T1 raises for what it does not take: C % 8, C > 256, a misaligned
+    x, H or W not a grid of (rh x cw)-window blocks, a hook of the wrong
+    shape; it never falls back to the twin."""
+    from nunif_tpu_torch.ops import probes
+    for shape in ((1, 12, 12, 12), (1, 12, 12, 264), (1, 12, 18, 16)):
+        x = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="grid"):
+            probes.strip_relayout(x, 1, 2)
+    flat = torch.zeros(12 * 12 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        probes.strip_pass(flat[1:].view(1, 12, 12, 16), 1, 1)
+    x = torch.zeros((1, 12, 12, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="windows"):
+        probes.strip_relayout(x, 1, 1, windows=torch.zeros(
+            (4, 36, 8), device=cuda, dtype=torch.bfloat16))
+
+
+def test_strip_wrappers_do_not_sync(cuda):
+    """A T1 launch does no device round trip: under sync debug mode
+    "error", one call of each wrapper raises nothing."""
+    from nunif_tpu_torch.ops import probes
+    x = _t(_rng(15).normal(0, 1, (1, 48, 96, 96)), cuda, torch.bfloat16)
+    for fn in (probes.strip_pass, probes.strip_relayout):
+        fn(x, 8, 8)  # builds the library and caches the launch's state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [fn(x, 8, 8) for fn in (probes.strip_pass, probes.strip_relayout)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(o, x) for o in outs)
 
 
 # T3 at the tool's shape (tools/microbench_int8_attn.py: 14720 windows of

@@ -102,6 +102,55 @@ def test_strip_twin_matches_tool_kernels(tools, monkeypatch, dtype, rh, cw):
         assert np.abs(want - x).max() > 1e-4
 
 
+def _t1_windows(t, x, rh, cw, jd):
+    """The tool's ``_relayout_kernel`` body written out in jnp for every
+    grid step of an (rh x cw)-window block: its scaled windows ``xw`` (rh
+    cw, ws^2, C), placed at the block's windows of the image, in
+    window_partition2 order (nh nw, ws^2, C), as fp32."""
+    ws, c = t.ws, x.shape[-1]
+    nh, nw = x.shape[1] // ws, x.shape[2] // ws
+    xj = jnp.asarray(x, jd)[0]
+    out = np.zeros((nh, nw, ws * ws, c), np.float32)
+    for i in range(nh // rh):
+        for j in range(nw // cw):
+            blk = xj[i * rh * ws:(i + 1) * rh * ws, j * cw * ws:(j + 1) * cw * ws]
+            xw = blk.reshape(rh, ws, cw, ws, c).transpose(0, 2, 1, 3, 4)
+            xw = xw.reshape(rh * cw, ws * ws, c)
+            xw = xw * jnp.asarray(1.0009765625, blk.dtype)
+            out[i * rh:(i + 1) * rh, j * cw:(j + 1) * cw] = np.asarray(
+                xw.astype(jnp.float32)).reshape(rh, cw, ws * ws, c)
+    return out.reshape(nh * nw, ws * ws, c)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("rh,cw", [(2, 2), (4, 1), (1, 4)])
+def test_strip_windows_twin_matches_tool_body(tools, dtype, rh, cw):
+    """The relayout's window hook (its scaled window-ordered stages) on the
+    CPU against the tool kernel's intermediate ``xw`` at a 24x48x16 image,
+    exactly; the control, image order reshaped and scaled, differs.  In
+    fp32 the scale is applied (in bf16 it rounds to 1.0)."""
+    t = tools["microbench_strip"]
+    jd, td = {"bf16": (jnp.bfloat16, torch.bfloat16),
+              "fp32": (jnp.float32, torch.float32)}[dtype]
+    x = np.random.default_rng(rh * cw + 1).normal(0, 1, (1, 24, 48, 16)) \
+        .astype(np.float32)
+    want = _t1_windows(t, x, rh, cw, jd)
+    xt = torch.from_numpy(x).to(td)
+    windows = torch.zeros((32, 36, 16), dtype=td)
+    before = probes.strip_relayout.launches
+    out = probes.strip_relayout(xt, rh, cw, windows=windows)
+    assert probes.strip_relayout.launches == before
+    np.testing.assert_array_equal(windows.float().numpy(), want)
+    np.testing.assert_array_equal(
+        probes.strip_windows_plain(xt).float().numpy(), want)
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  probes.strip_plain(xt).float().numpy())
+    image_order = probes.strip_plain(xt).reshape(windows.shape)
+    assert not torch.equal(image_order, windows)
+    if dtype == "fp32":
+        assert np.abs(want - probes.window_partition2(xt, 6).numpy()).max() > 1e-4
+
+
 # ---- T3 ------------------------------------------------------------------
 
 def _t3_inputs(dtype, nw, seed):
