@@ -45,6 +45,20 @@ written by the port:
   (Any_V2_S depth, row_flow_v3, divergence 2, edge dilation 2, half-SBS),
   checks the launch counters, the time and the agreement with the twin
   path, and drives the iw3 CLI on an image when PIL is present;
+- waifu2x turbo_2x, the bundled zoo (``models/waifu2x/turbo``, trained
+  weights, no hand-written kernel: cuDNN convs): loads all four
+  checkpoints through ``Waifu2x``; holds an untrained turbo_2x and
+  turbo_4x to a float64 catrom upscale (1e-5: the base is true fp32);
+  renders one 1080p frame to 4K through ``frame_program`` at the default
+  tiles (256, batch 8) and as one tile, median of 3, with a
+  ``torch.profiler`` split by renderer range and op and the frame's
+  operations (a count from shapes) and bound; scores the shipped
+  checkpoints on the eval set (``tests/torch_data/w2x_eval_256.npz``) by
+  the benchmark protocol against the JAX package's scores (and, where PIL
+  is present, noise1 / noise3 with JPEG noise); runs ``Waifu2x.convert``
+  on a 1080p RGBA image with TTA and grain, written as a 16-bit PNG and
+  read back by zlib (and, where PIL is present, as 8 bits and through the
+  CLI at its defaults);
 - K4 and K6 at windows past 6: imagenet swin_t's four stages (window 7,
   N = 49, head dim 32, batch 64 at 224 px, shifts 0 and 3) and one
   window-8 shape (N = 64), against their twins with K4's controls;
@@ -390,6 +404,345 @@ def iw3_cli(model_dir):
         if im.size != (960, 540):
             fail(f"iw3 CLI output size {im.size}")
     return "cli.main --half-sbs"
+
+
+# waifu2x turbo: the bundled zoo's slots (all turbo_2x, dim 128, 8 blocks)
+TURBO_SLOTS = (("scale", None), ("noise_scale", 0), ("noise_scale", 1),
+               ("noise_scale", 3))
+TURBO_CATROM_ATOL = 1e-5  # untrained model vs float64 catrom (TF32: ~3e-3)
+EVAL_NPZ = os.path.join("tests", "torch_data", "w2x_eval_256.npz")
+# the JAX package's scores of the shipped checkpoints on the eval set, from
+# its benchmark CLI on the CPU (`python -m nunif_tpu.waifu2x.benchmark -i
+# <the PNGs of tools/make_eval_set.py> --model-file
+# models/waifu2x/turbo/<stem>.nztm --baseline [--noise-level n]`):
+# (model PSNR, Y-PSNR, catrom PSNR, Y-PSNR)
+JAX_EVAL = {-1: (35.2699, 38.7977, 35.6545, 38.9663),
+            1: (30.8935, 35.6531, 30.5930, 35.5705),
+            3: (30.1721, 35.4262, 28.7141, 33.7722)}
+EVAL_DB_TOL = 0.05  # the port on the card vs the JAX package on the CPU
+# the model's lead over catrom on the eval set's textured images (all but
+# the two gradients, where catrom is near exact and the model trails it)
+TURBO_GAIN_MIN = (0.3, 0.5)
+TURBO_RANGES = ("render.pad", "render.tiles", "render.model", "turbo.base",
+                "render.blend", "render.quantize")
+
+
+def turbo_ops(h, w, tiles=1, dim=128, blocks=8, c=3, scale=2):
+    """({"bfloat16": flops, "float32": flops}) of turbo on ``tiles`` inputs
+    of h x w (a count from shapes): stem, 2 * blocks body convs and the
+    tail in bf16, the grouped catrom base in fp32."""
+    cells = tiles * (h // 2) * (w // 2)
+    ph2c = (2 * scale) ** 2 * c
+    return {"bfloat16": 2 * cells * (36 * c * dim + 2 * blocks * 9 * dim * dim
+                                     + 9 * dim * ph2c),
+            "float32": 2 * cells * 36 * ph2c}
+
+
+def decode_png16(path):
+    """Samples (H, W, C) uint16 of a 16-bit PNG written with filter 0 on
+    every row (the port's writer), by zlib and struct alone."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype = head[:4]
+    channels = {0: 1, 4: 2, 2: 3, 6: 4}[ctype]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, -1)
+    if depth != 16 or (rows[:, 0] != 0).any():
+        fail(f"{path}: depth {depth}, filters {set(rows[:, 0].tolist())}")
+    return rows[:, 1:].copy().view(">u2").reshape(h, w, channels).astype(np.uint16)
+
+
+def turbo_split(torch, program, frame):
+    """torch.profiler over one frame: device ms of the frame (all kernels),
+    of each renderer / model range, and of the ops that launch kernels
+    inside the model (cuDNN convs, elementwise, copies), by self device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        program(frame)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def is_cuda(e):
+        return str(e.device_type).endswith("CUDA")
+    kernels = [e for e in events if is_cuda(e) and e.key not in TURBO_RANGES]
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    ranges = {e.key: (getattr(e, "device_time_total", None)
+                      or getattr(e, "cuda_time_total", 0)) / 1e3
+              for e in events if not is_cuda(e) and e.key in TURBO_RANGES}
+    ops = {}
+    for e in events:
+        if not is_cuda(e) and e.key not in TURBO_RANGES and dev_us(e) > 0:
+            ops[e.key] = ops.get(e.key, 0.0) + dev_us(e) / 1e3
+    top = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:10])
+    kern = sorted(((dev_us(e) / 1e3, e.count, e.key) for e in kernels),
+                  reverse=True)[:8]
+    return {"device_ms": total, "ranges_ms": ranges, "ops_ms": top,
+            "kernels": [(round(ms, 4), n, k[:90]) for ms, n, k in kern]}
+
+
+def turbo_phase(torch, dev, smi, work_dir, hw=(1080, 1920)):
+    """The bundled turbo_2x zoo through the port: load, the untrained model
+    against catrom, the hw (1080p) -> 2x frame (timed, profiled), the
+    eval-set scores, and convert / the CLI end to end."""
+    h, w = hw
+    one_tile = (h + 16, w + 16)  # the frame and its offset, even
+    from nunif_tpu_torch.utils import pil_io
+    from nunif_tpu_torch.utils.rgb_noise import apply_rgb_noise, rgb_noise_like
+    from nunif_tpu_torch.utils.tiling import make_tile_config
+    from nunif_tpu_torch.modules.resize import resize_matrix
+    from nunif_tpu_torch.waifu2x import benchmark as bench
+    from nunif_tpu_torch.waifu2x.models import turbo
+    from nunif_tpu_torch.waifu2x.runtime import Waifu2x, default_model_dir
+    out = {}
+    zoo = default_model_dir()
+    if zoo is None:
+        fail("the bundled models/waifu2x/turbo is missing")
+    w2x = Waifu2x(zoo, device=dev)
+    w2x.load_model_all()
+    for key in TURBO_SLOTS:
+        if key not in w2x._slots:
+            fail(f"turbo slot {key} did not load from {zoo}")
+        m = w2x._slots[key][0]
+        if (m.model_name, m.dim, m.blocks, next(m.parameters()).device.type) \
+                != ("waifu2x.turbo_2x", 128, 8, dev.type):
+            fail(f"turbo slot {key}: {m.model_name} dim {m.dim} on "
+                 f"{next(m.parameters()).device}")
+    print(f"turbo: loaded {sorted(w2x._slots)} from {zoo}", flush=True)
+
+    # the untrained model (zero tail) is its fp32 catrom base
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.rand((2, 256, 256, 3), generator=gen, device=dev)
+    errs = {}
+    for cls in (turbo.Turbo2x, turbo.Turbo4x):
+        m = turbo.init_untrained(cls(), torch.Generator().manual_seed(0))
+        m = m.to(dev).eval().requires_grad_(False)
+        s, o = m.i2i_scale, m.i2i_offset
+        mh = torch.from_numpy(resize_matrix(256, 256 * s, "catrom", False)).to(
+            dev, torch.float64)
+        for dtype in (torch.float32, torch.bfloat16):
+            xin = x.to(dtype)
+            with torch.inference_mode():
+                y = m(xin, train=True)
+            ref = torch.einsum("oh,bhwc->bowc", mh, xin.double())
+            ref = torch.einsum("pw,bowc->bopc", mh, ref)[:, o:256 * s - o,
+                                                          o:256 * s - o]
+            err = float((y.double() - ref).abs().max())
+            errs[f"{m.model_name} {str(dtype)[6:]}"] = err
+            if not err <= TURBO_CATROM_ATOL:
+                fail(f"untrained {m.model_name} ({dtype} in) vs catrom: max "
+                     f"abs err {err} > {TURBO_CATROM_ATOL}")
+        # a control, printed: the same with TF32 allowed (whether cuDNN's
+        # grouped fp32 conv takes TF32 at all decides if the check sees it)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                y = m(x, train=True)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        ref = torch.einsum("oh,bhwc->bowc", mh, x.double())
+        ref = torch.einsum("pw,bowc->bopc", mh, ref)[:, o:256 * s - o,
+                                                      o:256 * s - o]
+        errs[f"{m.model_name} float32, TF32 allowed"] = float(
+            (y.double() - ref).abs().max())
+        del m
+    out["untrained_vs_catrom"] = errs
+    print(f"turbo untrained vs float64 catrom (max abs err, limit "
+          f"{TURBO_CATROM_ATOL}): {errs}; cudnn fp32 precision "
+          f"{getattr(getattr(torch.backends.cudnn, 'conv', None), 'fp32_precision', 'n/a')}, "
+          f"allow_tf32 {torch.backends.cudnn.allow_tf32}", flush=True)
+
+    # one 1080p frame to 4K through the shipped scale2x: default tiles and
+    # one tile, median of 3 after a warm frame
+    model, renderer = w2x.load_model("scale")
+    frame = iw3_frames(torch, dev, 1, h, w, seed=9)[0]
+    frames = {}
+    for label, tile, batch in (
+            ("tiles 256 batch 8", None, None),
+            (f"one tile {one_tile[0]}x{one_tile[1]}", one_tile, 1)):
+        program = renderer.frame_program(h, w, tile_size=tile,
+                                         batch_size=batch)
+        y = program(frame)
+        torch.cuda.synchronize()
+        if tuple(y.shape) != (2 * h, 2 * w, 3) or y.dtype != torch.uint8:
+            fail(f"turbo frame {label}: {tuple(y.shape)} {y.dtype}")
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            program(frame)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        frames[label] = dict(ms=statistics.median(runs), runs=runs, y=y,
+                             program=program)
+    # turbo runs no hand-written kernel: every counter stays at 0
+    from nunif_tpu_torch.modules import grid_sample
+    from nunif_tpu_torch.ops import conv3x3, sdpa, swin_attention
+    counted = [(conv3x3, "stem_conv3x3"), (grid_sample, "warp_x_bounded"),
+               (sdpa, "sdpa")] + [(swin_attention, n) for n in (
+                   "fused_swin_block_image", "fused_swin_block",
+                   "fused_window_attention", "fused_window_attention_image")]
+    for mod, name in counted:
+        getattr(mod, name).launches = 0
+    for f in frames.values():
+        f["program"](frame)
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, name).launches for mod, name in counted}
+    print(f"turbo frame launches of the port's kernels: {launches}",
+          flush=True)
+    if any(launches.values()):
+        fail(f"the turbo frame launched a hand-written kernel: {launches}")
+    out["launches"] = launches
+    a, b = (frames[k]["y"] for k in frames)
+    tiled_vs_one = uint8_psnr(a, b)
+    bicubic = torch.nn.functional.interpolate(  # a sanity reference only
+        frame.permute(2, 0, 1)[None].float(), scale_factor=2, mode="bicubic",
+        align_corners=False).clamp(0, 255).round()[0].permute(1, 2, 0)
+    vs_bicubic = uint8_psnr(a, bicubic)
+    for label, f in frames.items():
+        print(f"turbo_2x frame {h}x{w} -> 2x {label}: median {f['ms']:.2f} ms "
+              f"(runs {[round(v, 2) for v in f['runs']]}) [{smi}]", flush=True)
+    print(f"turbo frame: default tiles vs one tile PSNR {tiled_vs_one:.2f} dB; "
+          f"vs bicubic 2x PSNR {vs_bicubic:.2f} dB", flush=True)
+    if not 25.0 < vs_bicubic < 60.0:
+        fail(f"turbo frame vs a bicubic upscale {vs_bicubic:.2f} dB: not an "
+             f"upscale of the input")
+    split = {label: turbo_split(torch, f["program"], frame)
+             for label, f in frames.items()}
+    for label, sp in split.items():
+        print(f"turbo frame profile {label}: " + json.dumps(sp), flush=True)
+    n_tiles = make_tile_config(h, w, 2, model.i2i_offset, 256,
+                               model.i2i_blend_size).n_tiles
+    ops = {f"frame {h // 2}x{w // 2} cells": turbo_ops(h, w),
+           f"tiles 256 ({n_tiles})": turbo_ops(256, 256, tiles=n_tiles),
+           f"one tile {one_tile[0]}x{one_tile[1]}": turbo_ops(*one_tile)}
+    nbytes = h * w * 3 + 4 * h * w * 3 + 4 * sum(
+        p.numel() for p in model.parameters())
+    bounds = {k: bound_ops(nbytes, v) for k, v in ops.items()}
+    print("turbo frame operations (a count from shapes): " + json.dumps(
+        {k: {"ops": v, "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+         for k, v in ops.items()}), flush=True)
+    out["frames"] = {k: {"ms": f["ms"], "runs": f["runs"]}
+                     for k, f in frames.items()}
+    out["split"], out["bounds"] = split, bounds
+    del frames, a, b, bicubic
+
+    # the eval set by the benchmark protocol (arrays, no PIL); with JPEG
+    # noise (noise1, noise3) where PIL is present
+    data = np.load(EVAL_NPZ)
+    images = [(n, data[n].astype(np.float32) / 255.0) for n in data.files]
+    try:
+        import PIL  # noqa: F401
+        levels = (-1, 1, 3)
+    except ImportError:
+        levels = (-1,)
+        print("turbo eval: PIL is absent, the noise1 / noise3 JPEG-noise "
+              "scores did not run", flush=True)
+    out["eval"] = {}
+    for level in levels:
+        slot = ("scale", None) if level < 0 else ("noise_scale", level)
+        rows, secs = bench.score_images(
+            images, w2x.load_model(*slot)[1], scale=2, noise_level=level,
+            baseline=True)
+        mean = bench.mean_scores(rows)
+        textured = bench.mean_scores(
+            [r for r in rows if not r["file"].startswith("gradient")])
+        gain = (textured["psnr"] - textured["catrom_psnr"],
+                textured["y_psnr"] - textured["catrom_y_psnr"])
+        jax_ref = JAX_EVAL[level]
+        what = "scale2x" if level < 0 else f"noise{level}_scale2x"
+        out["eval"][what] = dict(mean=mean, textured=textured, seconds=secs,
+                                 jax=jax_ref)
+        print(f"turbo eval {what} (10 images, 256 px): " + json.dumps(
+            {k: round(v, 4) for k, v in mean.items()}) + f"; textured 8: "
+            f"gain over catrom {gain[0]:+.3f} / {gain[1]:+.3f} dB; the JAX "
+            f"package (CPU): {jax_ref}; per image: " + json.dumps(
+                [(r["file"], r["psnr"], r["catrom_psnr"]) for r in rows]),
+            flush=True)
+        if level < 0:
+            if (abs(mean["psnr"] - jax_ref[0]) > EVAL_DB_TOL
+                    or abs(mean["y_psnr"] - jax_ref[1]) > EVAL_DB_TOL):
+                fail(f"turbo eval scale2x {mean['psnr']:.4f} / "
+                     f"{mean['y_psnr']:.4f} dB, the JAX package's {jax_ref[:2]}"
+                     f" (limit {EVAL_DB_TOL} dB)")
+            if gain[0] < TURBO_GAIN_MIN[0] or gain[1] < TURBO_GAIN_MIN[1]:
+                fail(f"turbo eval scale2x: textured gain over catrom {gain} "
+                     f"< {TURBO_GAIN_MIN}")
+        elif not (mean["psnr"] > mean["catrom_psnr"]
+                  and mean["y_psnr"] > mean["catrom_y_psnr"]):
+            fail(f"turbo eval {what}: the model does not beat catrom {mean}")
+
+    # convert end to end: 1080p RGBA, 8-way TTA, grain; 8 bits and a 16-bit
+    # PNG read back
+    img = iw3_frames(torch, dev, 1, h, w, seed=10)[0].float() / 255.0
+    yy = torch.linspace(-1, 1, h, device=dev)[:, None]
+    xx = torch.linspace(-1.8, 1.8, w, device=dev)[None, :]
+    alpha = (1.3 - (yy ** 2 + xx ** 2).sqrt()).clamp(0, 1)
+    alpha = torch.where(alpha < 0.2, 0.0, alpha)[..., None]
+    t0 = time.perf_counter()
+    rgb, out_a = w2x.convert(img, alpha, method="noise_scale", noise_level=0,
+                             tta=True)
+    rgb = apply_rgb_noise(rgb, rgb_noise_like(
+        rgb, generator=torch.Generator(device=dev).manual_seed(0)),
+        strength=0.1)
+    rgba = torch.cat([rgb, out_a], -1)
+    torch.cuda.synchronize()
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(rgba.shape) != (2 * h, 2 * w, 4) or not bool(
+            rgba.isfinite().all()) or float(rgba.min()) < 0 \
+            or float(rgba.max()) > 1:
+        fail(f"convert RGBA TTA grain: {tuple(rgba.shape)}, range "
+             f"[{float(rgba.min())}, {float(rgba.max())}]")
+    r = h // 27  # 40 output pixels at 1080p
+    centre = out_a[h - r:h + r, w - r:w + r]
+    if float(out_a[:r, :r].max()) > 0.05 or float(centre.min()) < 0.95:
+        fail("convert: the upscaled alpha lost its transparent corner or "
+             "its opaque centre")
+    rgba = rgba.cpu().numpy()
+    p16 = os.path.join(work_dir, "turbo16.png")
+    pil_io.save_image(rgba, p16, bit_depth=16)
+    back16 = decode_png16(p16)
+    if not np.array_equal(back16, pil_io.quantize(rgba, 16)):
+        fail("16-bit PNG: decoded samples differ from round(x * 65535)")
+    ran = "convert RGBA tta grain -> 16-bit PNG (zlib read back)"
+    q8 = pil_io.quantize(rgba, 8)
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        p8 = os.path.join(work_dir, "turbo8.png")
+        pil_io.save_image(rgba, p8)
+        with Image.open(p8) as im:
+            if not np.array_equal(np.asarray(im), q8):
+                fail("8-bit PNG read back differs")
+        src, dst = os.path.join(work_dir, "in.png"), os.path.join(work_dir, "o.png")
+        Image.fromarray(q8[:h // 2, :w // 2, :3]).save(src)
+        from nunif_tpu_torch.waifu2x import cli
+        cli.main(["-i", src, "-o", dst])  # the defaults: noise0_scale2x, cuda
+        with Image.open(dst) as im:
+            if im.size != (w, h):
+                fail(f"turbo CLI with defaults: output size {im.size}")
+        ran += " + 8-bit PNG (PIL read back) + cli.main -i -o (defaults)"
+    else:
+        ran += "; 8-bit samples only (PIL is absent: no 8-bit file, no CLI)"
+    out["convert_ms"] = convert_ms
+    print(f"turbo convert {h}x{w} RGBA, tta, grain: {convert_ms:.1f} ms; ran: "
+          f"{ran}", flush=True)
+    del w2x, model, renderer
+    torch.cuda.empty_cache()
+    return out
 
 
 def k2_row(torch, k2, rng, t, dev, shape, cin, cout):
@@ -1130,8 +1483,11 @@ def profile_frame(torch, program, frame, top=12, share_of=None):
         program(frame)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    ops = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    # the renderer's ranges may also show as device events: not kernels
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and e.key not in TURBO_RANGES]
+    ops = [e for e in events if not str(e.device_type).endswith("CUDA")
+           and e.key not in TURBO_RANGES]
     total = sum(dev_us(e) for e in kernels)
     print(f"profile: device time {total / 1e3:.2f} ms in one frame", flush=True)
     for label, rows in (("op", ops), ("kernel", kernels)):
@@ -1645,6 +2001,10 @@ def main() -> int:
     phase("iw3 cli")
     ran = iw3_cli(model_dir)
     print(f"iw3 image CLI ran: {ran}", flush=True)
+
+    # 14b. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
+    phase("waifu2x turbo")
+    turbo_phase(torch, dev, smi, model_dir)
     tmp.cleanup()
 
     # 15. the probes T1, T3, T4 against their twins, then their tools

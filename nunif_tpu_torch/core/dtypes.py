@@ -21,19 +21,28 @@ class Policy:
     output_dtype: torch.dtype = torch.float32
 
 
-def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def cast_param(p: torch.Tensor, dtype: torch.dtype,
+               memory_format=None) -> torch.Tensor:
     """``p`` in ``dtype``, as a flax layer casts its fp32 params to the
-    compute dtype.  Outside autograd the cast is made once per weight load
+    compute dtype; with ``memory_format`` also in that layout (a conv
+    weight in ``torch.channels_last``, so that cuDNN does not relayout it
+    on every call).  Outside autograd the cast is made once per weight load
     (cached on the parameter, keyed by its storage and version), not on
     every call."""
-    if p.dtype == dtype:
+    if p.dtype == dtype and (memory_format is None
+                             or p.is_contiguous(memory_format=memory_format)):
         return p
     if torch.is_grad_enabled() and p.requires_grad:
-        return p.to(dtype)
-    key = (dtype, p.data_ptr(), p.device, p._version)
+        p = p.to(dtype)
+        return p if memory_format is None else p.contiguous(
+            memory_format=memory_format)
+    key = (dtype, memory_format, p.data_ptr(), p.device, p._version)
     cached = getattr(p, "_nunif_cast", None)
     if cached is None or cached[0] != key:
-        cached = (key, p.detach().to(dtype))
+        q = p.detach().to(dtype)
+        if memory_format is not None:
+            q = q.contiguous(memory_format=memory_format)
+        cached = (key, q)
         p._nunif_cast = cached
     return cached[1]
 

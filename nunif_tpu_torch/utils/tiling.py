@@ -8,6 +8,11 @@ cancel).  Where the tile geometry aligns with the model's pre-shuffle factor,
 tiles are blended in the head's (H/s, W/s, C*s*s) layout and the sub-pixel
 reorder runs once, after uint8 quantization; where it does not align, the
 model shuffles itself and the blend runs at full resolution.
+
+A frame's phases run under ``torch.profiler`` ranges (``render.pad``,
+``render.tiles``, ``render.model``, ``render.blend``, ``render.quantize``),
+so a profile splits its device time by phase; outside a profile they
+cost nothing but a check.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.dtypes import DEFAULT_POLICY, Policy
+from ..core.profiling import phase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,37 +188,42 @@ class TiledRenderer:
         s = ps
         n_frames = xp.shape[0]
         if cfg.n_tiles == 1:
-            return self._apply(xp.to(dt), s).float().clamp(0.0, 1.0)
+            with phase("render.model"):
+                return self._apply(xp.to(dt), s).float().clamp(0.0, 1.0)
 
         th, tw = tile_hw
         origins = [(i * cfg.input_tile_step_h, j * cfg.input_tile_step_w)
                    for i in range(cfg.h_blocks) for j in range(cfg.w_blocks)]
         n = len(origins)
-        tiles = torch.stack([xp[f, oy:oy + th, ox:ox + tw]
-                             for f in range(n_frames) for oy, ox in origins])
-        outs = torch.cat([self._apply(tiles[i:i + batch_size].to(dt), s).float()
-                          for i in range(0, len(tiles), batch_size)])
+        with phase("render.tiles"):
+            tiles = torch.stack([xp[f, oy:oy + th, ox:ox + tw]
+                                 for f in range(n_frames) for oy, ox in origins])
+        with phase("render.model"):
+            outs = torch.cat([
+                self._apply(tiles[i:i + batch_size].to(dt), s).float()
+                for i in range(0, len(tiles), batch_size)])
         outs = outs.reshape(n_frames, n, *outs.shape[1:])
 
-        blend = torch.from_numpy(make_blend_filter(
-            cfg.scale, cfg.offset, tile_hw, cfg.blend_size)).to(xp.device)
-        oth, otw = cfg.out_tile_h // s, cfg.out_tile_w // s
-        # blend weights in head-channel order: channel c*s*s + dy*s + dx
-        # carries blend[y*s + dy, x*s + dx]
-        b2 = blend.reshape(oth, s, otw, s).permute(0, 2, 1, 3).reshape(
-            oth, otw, s * s)
-        blend_c = b2.repeat(1, 1, out_channels)
-        pixels = torch.zeros((n_frames, cfg.y_buffer_h // s,
-                              cfg.y_buffer_w // s, out_channels * s * s),
-                             dtype=torch.float32, device=xp.device)
-        weights = torch.zeros((cfg.y_buffer_h // s, cfg.y_buffer_w // s, s * s),
-                              dtype=torch.float32, device=xp.device)
-        for t, (oy, ox) in enumerate(origins):
-            y0, x0 = oy * cfg.scale // s, ox * cfg.scale // s
-            pixels[:, y0:y0 + oth, x0:x0 + otw] += outs[:, t] * blend_c
-            weights[y0:y0 + oth, x0:x0 + otw] += b2
-        wfull = weights.repeat(1, 1, out_channels)
-        return (pixels / wfull.clamp_min(1e-6)).clamp(0.0, 1.0)
+        with phase("render.blend"):
+            blend = torch.from_numpy(make_blend_filter(
+                cfg.scale, cfg.offset, tile_hw, cfg.blend_size)).to(xp.device)
+            oth, otw = cfg.out_tile_h // s, cfg.out_tile_w // s
+            # blend weights in head-channel order: channel c*s*s + dy*s + dx
+            # carries blend[y*s + dy, x*s + dx]
+            b2 = blend.reshape(oth, s, otw, s).permute(0, 2, 1, 3).reshape(
+                oth, otw, s * s)
+            blend_c = b2.repeat(1, 1, out_channels)
+            pixels = torch.zeros((n_frames, cfg.y_buffer_h // s,
+                                  cfg.y_buffer_w // s, out_channels * s * s),
+                                 dtype=torch.float32, device=xp.device)
+            weights = torch.zeros((cfg.y_buffer_h // s, cfg.y_buffer_w // s, s * s),
+                                  dtype=torch.float32, device=xp.device)
+            for t, (oy, ox) in enumerate(origins):
+                y0, x0 = oy * cfg.scale // s, ox * cfg.scale // s
+                pixels[:, y0:y0 + oth, x0:x0 + otw] += outs[:, t] * blend_c
+                weights[y0:y0 + oth, x0:x0 + otw] += b2
+            wfull = weights.repeat(1, 1, out_channels)
+            return (pixels / wfull.clamp_min(1e-6)).clamp(0.0, 1.0)
 
     @torch.inference_mode()
     def render(self, x, tile_size=None, batch_size=None) -> torch.Tensor:
@@ -264,23 +275,25 @@ class TiledRenderer:
                 raise ValueError(f"frame shape {tuple(x.shape)} != {expect}")
             if fb == 1:
                 x = x[None]
-            if in_dt == torch.uint8:
-                x = x.float() * (1.0 / 255.0)
-            elif in_dt == torch.uint16:
-                x = x.float() * (1.0 / 65535.0)
-            x = edge_pad(x, top, bottom, left, right)
+            with phase("render.pad"):
+                if in_dt == torch.uint8:
+                    x = x.float() * (1.0 / 255.0)
+                elif in_dt == torch.uint16:
+                    x = x.float() * (1.0 / 65535.0)
+                x = edge_pad(x, top, bottom, left, right)
             y = self._render_padded(x, cfg, tile_hw, batch_size,
                                     out_channels, ps)
-            if ps > 1:
-                y = _quantize(y, out_dt)
-                hs, ws_ = y.shape[1], y.shape[2]
-                y = y.reshape(fb, hs, ws_, out_channels, ps, ps)
-                y = y.permute(0, 1, 4, 2, 5, 3).reshape(
-                    fb, hs * ps, ws_ * ps, out_channels)
-                y = y[:, :cfg.y_h, :cfg.y_w, :]
-            else:
-                y = _quantize(y[:, :cfg.y_h, :cfg.y_w, :], out_dt)
-            y = y.contiguous()
+            with phase("render.quantize"):
+                if ps > 1:
+                    y = _quantize(y, out_dt)
+                    hs, ws_ = y.shape[1], y.shape[2]
+                    y = y.reshape(fb, hs, ws_, out_channels, ps, ps)
+                    y = y.permute(0, 1, 4, 2, 5, 3).reshape(
+                        fb, hs * ps, ws_ * ps, out_channels)
+                    y = y[:, :cfg.y_h, :cfg.y_w, :]
+                else:
+                    y = _quantize(y[:, :cfg.y_h, :cfg.y_w, :], out_dt)
+                y = y.contiguous()
             return y if fb > 1 else y[0]
 
         return program

@@ -4,9 +4,12 @@ baseline (counterpart of ``nunif_tpu/waifu2x/benchmark.py``).
 For each image in the eval directory: crop to a multiple of the scale,
 downscale by 1/scale (catrom, antialias), optionally add JPEG noise, render
 it back up with the model (and with the baseline filters), and report the
-mean PSNR / Y-PSNR and the model's time.
+mean PSNR / Y-PSNR and the model's time.  ``score_images`` runs the same
+protocol on arrays (no PIL unless JPEG noise is asked for).
 
 Usage:
+  python -m nunif_tpu_torch.waifu2x.benchmark -i ./eval_images \\
+      --model-file models/waifu2x/turbo/scale2x.nztm [--baseline]
   python -m nunif_tpu_torch.waifu2x.benchmark -i ./eval_images \\
       --model-file model.nztm [--baseline] [--noise-level 1]
   python -m nunif_tpu_torch.waifu2x.benchmark -i ./eval_images \\
@@ -123,49 +126,75 @@ def _load_renderer(args, device):
     return model, TiledRenderer(model)
 
 
+def degrade(hr, scale: int, noise_level: int = -1, style: str = "art"):
+    """The protocol's input for one image: hr cropped to a multiple of
+    ``scale``, downscaled by catrom with antialias and, for noise_level >=
+    0, put through the style's JPEG round trips (needs PIL).  Returns
+    (cropped hr, lr)."""
+    h, w = hr.shape[:2]
+    hr = hr[:h - h % scale, :w - w % scale]
+    lr = _np_resize(hr, hr.shape[0] // scale, hr.shape[1] // scale)
+    if noise_level >= 0:
+        from PIL import Image
+        im = Image.fromarray((lr * 255 + 0.5).astype(np.uint8))
+        for q in EVAL_QUALITY[style][noise_level]:
+            im = add_jpeg_noise(im, q, "4:2:0")
+        lr = np.asarray(im, np.float32) / 255.0
+    return hr, lr
+
+
+def score_images(images, renderer=None, scale: int = 2, noise_level: int = -1,
+                 style: str = "art", baseline: bool = False, tile_size=None,
+                 batch_size=None):
+    """Score (name, hr) pairs, hr (H, W, 3) float32 in [0, 1], by the
+    protocol.  Returns (rows, model seconds): a row per image with the
+    model's ``psnr`` / ``y_psnr`` (with a renderer) and, with
+    ``baseline``, catrom's, lanczos's and bilinear's."""
+    rows = []
+    t_model = 0.0
+    for name, hr in images:
+        hr, lr = degrade(hr, scale, noise_level, style)
+        h, w = hr.shape[:2]
+        row = {"file": name}
+        if renderer is not None:
+            t0 = time.perf_counter()
+            sr = renderer.render(lr, tile_size=tile_size,
+                                 batch_size=batch_size).cpu().numpy()
+            t_model += time.perf_counter() - t0
+            if renderer.model.i2i_scale != scale:
+                sr = _np_resize(sr, h, w)
+            row["psnr"] = round(float(psnr(sr, hr)), 4)
+            row["y_psnr"] = round(float(y_psnr(sr, hr)), 4)
+        if baseline:
+            for mode in ("catrom", "lanczos", "bilinear"):
+                up = _np_resize(lr, h, w, mode=mode, antialias=False)
+                row[f"{mode}_psnr"] = round(float(psnr(up, hr)), 4)
+                row[f"{mode}_y_psnr"] = round(float(y_psnr(up, hr)), 4)
+        rows.append(row)
+    return rows, t_model
+
+
+def mean_scores(rows) -> dict:
+    """{score name: mean over the rows}."""
+    keys = [k for k in rows[0] if k != "file"]
+    return {k: float(np.mean([r[k] for r in rows])) for k in keys}
+
+
 def main(argv=None) -> int:
     args = create_parser().parse_args(argv)
     device = resolve_device(args.device)
-    model, renderer = _load_renderer(args, device)
-
-    rows = []
-    t_model = 0.0
-    for path, hr in iter_images(args.input):
-        h, w = hr.shape[:2]
-        h -= h % args.scale
-        w -= w % args.scale
-        hr = hr[:h, :w]
-        lr = _np_resize(hr, h // args.scale, w // args.scale)
-        if args.noise_level >= 0:
-            from PIL import Image
-            im = Image.fromarray((lr * 255 + 0.5).astype(np.uint8))
-            for q in EVAL_QUALITY[args.style][args.noise_level]:
-                im = add_jpeg_noise(im, q, "4:2:0")
-            lr = np.asarray(im, np.float32) / 255.0
-
-        row = {"file": os.path.basename(path)}
-        if renderer is not None:
-            t0 = time.perf_counter()
-            sr = renderer.render(lr, tile_size=args.tile_size,
-                                 batch_size=args.batch_size).cpu().numpy()
-            t_model += time.perf_counter() - t0
-            if model.i2i_scale != args.scale:
-                sr = _np_resize(sr, h, w)
-            row["psnr"] = round(psnr(sr, hr), 4)
-            row["y_psnr"] = round(y_psnr(sr, hr), 4)
-        if args.baseline:
-            for mode in ("catrom", "lanczos", "bilinear"):
-                up = _np_resize(lr, h, w, mode=mode, antialias=False)
-                row[f"{mode}_psnr"] = round(psnr(up, hr), 4)
-                row[f"{mode}_y_psnr"] = round(y_psnr(up, hr), 4)
-        rows.append(row)
-
+    _model, renderer = _load_renderer(args, device)
+    images = ((os.path.basename(path), hr)
+              for path, hr in iter_images(args.input))
+    rows, t_model = score_images(
+        images, renderer, args.scale, args.noise_level, args.style,
+        args.baseline, args.tile_size, args.batch_size)
     if not rows:
         print("no images found", file=sys.stderr)
         return 1
     keys = [k for k in rows[0] if k != "file"]
-    for k in keys:
-        print(f"mean {k}: {float(np.mean([r[k] for r in rows])):.4f}")
+    for k, v in mean_scores(rows).items():
+        print(f"mean {k}: {v:.4f}")
     if renderer is not None:
         print(f"model time: {t_model:.2f}s ({len(rows) / t_model:.2f} img/s)")
     if args.output:

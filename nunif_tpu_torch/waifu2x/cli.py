@@ -1,6 +1,11 @@
 """waifu2x image CLI (counterpart of ``nunif_tpu/waifu2x/cli.py``).
 
 Usage:
+  python -m nunif_tpu_torch.waifu2x.cli -i in.png -o out.png
+                                           # the bundled turbo_2x zoo:
+                                           # noise0_scale2x.nztm
+  python -m nunif_tpu_torch.waifu2x.cli -i in.png -o out.png --tta \\
+      --depth 16 --grain                   # 8-way TTA, 16-bit PNG, grain
   python -m nunif_tpu_torch.waifu2x.cli -i in.png -o out.png --method scale \\
       --arch waifu2x.swin_unet_2x          # seeded random weights
   python -m nunif_tpu_torch.waifu2x.cli -i in_dir/ -o out_dir/ --method scale \\
@@ -10,8 +15,11 @@ Usage:
   python -m nunif_tpu_torch.waifu2x.cli -i in.png -o out.png --method scale4x \\
       --arch waifu2x.swin_unet_4xl         # seeded random weights
 
-Images only: a video input raises ``NotImplementedError``.  ``--device``
-defaults to ``cuda`` and fails where CUDA is missing.
+Images only: a video input raises ``NotImplementedError``; the video
+flags, ``--rotate-*`` and ``--devices`` are not ported.  RGBA and gray +
+alpha inputs keep their alpha; ``--grayscale`` reads the image as gray and
+writes gray.  ``--device`` defaults to ``cuda`` and fails where CUDA is
+missing.
 """
 from __future__ import annotations
 
@@ -21,10 +29,10 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 from ..utils import pil_io
+from ..utils.rgb_noise import apply_rgb_noise, rgb_noise_like
 from .runtime import METHODS, Waifu2x, default_model_dir
 
 logger = logging.getLogger("nunif_tpu_torch.waifu2x")
@@ -68,8 +76,18 @@ def create_parser():
     p.add_argument("--resume", action="store_true",
                    help="skip outputs that already exist")
     p.add_argument("--recursive", "-r", action="store_true")
+    p.add_argument("--grayscale", action="store_true",
+                   help="read the image as gray and write gray")
+    p.add_argument("--image-lib", default="pil", choices=["pil"])
+    p.add_argument("--style", default=None,
+                   choices=["art", "photo", "scan", "art_scan"],
+                   help="model style; selects <model-dir>/<style> when "
+                        "that subdirectory exists")
     p.add_argument("--depth", type=int, default=8, choices=[8, 16],
-                   help="output bit depth (16 is not supported for RGB yet)")
+                   help="output bit depth (16: a 16-bit PNG)")
+    p.add_argument("--grain", action="store_true",
+                   help="add film grain after denoising")
+    p.add_argument("--grain-strength", type=float, default=0.2)
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda fails where CUDA is missing")
     return p
@@ -107,7 +125,15 @@ def _output_path(args, in_path):
 
 
 def _build_runtime(args) -> Waifu2x:
-    model_dir = args.model_dir or default_model_dir() or ""
+    model_dir = args.model_dir
+    if not model_dir:
+        model_dir = default_model_dir() or ""
+        if model_dir:
+            logger.info("using bundled model dir %s", model_dir)
+    if model_dir and args.style:
+        styled = os.path.join(model_dir, args.style)
+        if os.path.isdir(styled):
+            model_dir = styled
     w2x = Waifu2x(model_dir=model_dir, device=args.device)
     if args.arch:
         from ..models import create_model, init_flax_default
@@ -127,21 +153,28 @@ def process_images(args, w2x: Waifu2x) -> int:
         out_path = _output_path(args, in_path)
         if args.resume and os.path.exists(out_path):
             continue
-        x, meta = pil_io.load_image(in_path)
+        x, meta = pil_io.load_image(
+            in_path, color="gray" if args.grayscale else "rgb")
         alpha = None
-        if x.shape[-1] == 4:
-            alpha = x[..., 3:4]
-            x = x[..., :3]
+        if x.shape[-1] in (2, 4):  # gray or RGB + alpha
+            alpha = x[..., -1:]
+            x = x[..., :-1]
         rgb, out_alpha = w2x.convert(
             x, alpha, method=args.method, noise_level=args.noise_level,
             tile_size=args.tile_size, batch_size=args.batch_size, tta=args.tta)
-        rgb = rgb.cpu().numpy()
+        if args.grain:
+            # half strength on images (the JAX CLI's rule), a generator
+            # seeded with the image's index
+            gen = torch.Generator(device=rgb.device).manual_seed(n)
+            rgb = apply_rgb_noise(rgb, rgb_noise_like(rgb, generator=gen),
+                                  strength=args.grain_strength * 0.5)
         if out_alpha is not None:
-            rgb = np.concatenate([rgb, out_alpha.cpu().numpy()], axis=-1)
+            rgb = torch.cat([rgb, out_alpha], dim=-1)
         kwargs = {}
         if args.format in ("jpeg", "webp"):
             kwargs["quality"] = args.quality
-        pil_io.save_image(rgb, out_path, meta, **kwargs)
+        pil_io.save_image(rgb.cpu().numpy(), out_path, meta,
+                          bit_depth=args.depth, **kwargs)
         n += 1
     dt = time.perf_counter() - t0
     logger.info("processed %d images in %.2fs", n, dt)
@@ -153,10 +186,6 @@ def main(argv=None) -> int:
     if args.input.lower().endswith(VIDEO_EXTS):
         raise NotImplementedError(
             "video input is not ported to nunif_tpu_torch yet")
-    if args.depth == 16:
-        raise NotImplementedError(
-            "16-bit RGB output is not ported to nunif_tpu_torch yet "
-            "(PIL writes 16 bits only for one channel)")
     w2x = _build_runtime(args)
     process_images(args, w2x)
     return 0

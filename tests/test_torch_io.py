@@ -96,10 +96,19 @@ def test_load_model_defaults_to_the_card(small, tmp_path, monkeypatch):
 
 
 def test_unported_architecture_raises(tmp_path):
-    """The bundled checkpoints are turbo_2x, which the port lacks so far."""
+    """A checkpoint of an architecture the port lacks (here cunet) raises
+    ``NotPortedError``; the bundled turbo_2x checkpoints load."""
+    import json
+    import zipfile
+    path = str(tmp_path / "cunet.nztm")
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("__meta__.json", json.dumps(
+            {"nunif_tpu_model": 1, "name": "waifu2x.cunet", "kwargs": {}}))
+    with pytest.raises(NotPortedError, match="waifu2x.cunet.*not ported"):
+        load_model(path, device="cpu")
     bundled = REPO / "models" / "waifu2x" / "turbo" / "scale2x.nztm"
-    with pytest.raises(NotPortedError, match="waifu2x.turbo_2x.*not ported"):
-        load_model(str(bundled), device="cpu")
+    model, meta = load_model(str(bundled), device="cpu")
+    assert meta["name"] == model.model_name == "waifu2x.turbo_2x"
     with pytest.raises(ValueError, match="unknown model"):
         create_model("waifu2x.no_such_model")
 

@@ -5,7 +5,9 @@ Each repair is a behaviour the port has and the JAX package does not:
   falls back to shuffling inside the model (nunif_tpu/utils/tiling.py sets
   the pre-shuffle apply outside its alignment check);
 - a missing runtime slot names the file and lists the checkpoints present;
-- the bundled turbo checkpoints fail with "not ported yet".
+- a checkpoint of an architecture the port lacks fails with "not ported".
+The bundled turbo checkpoints load (tests/test_torch_waifu2x_image.py holds
+them and the rest of the image path against the JAX package).
 """
 import math
 
@@ -91,14 +93,19 @@ def test_convert_and_render(model_dir):
 
 
 def test_convert_unported_options_raise(model_dir):
+    """Bad options raise; TTA and a non-blank alpha, which raised before
+    they were ported, now run."""
     w2x = Waifu2x(str(model_dir), device="cpu")
     x = np.zeros((20, 20, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="tta"):
-        w2x.convert(x, method="scale", tta=True)
-    with pytest.raises(NotImplementedError, match="alpha"):
-        w2x.convert(x, np.full((20, 20, 1), 0.5, np.float32), method="scale")
+    rgb, alpha = w2x.convert(x, method="scale", tta=True, tile_size=64)
+    assert rgb.shape == (40, 40, 3) and alpha is None
+    rgb, alpha = w2x.convert(x, np.full((20, 20, 1), 0.5, np.float32),
+                             method="scale", tile_size=64)
+    assert rgb.shape == (40, 40, 3) and alpha.shape == (40, 40, 1)
     with pytest.raises(ValueError, match="noise_level"):
         w2x.convert(x, method="noise_scale", noise_level=None)
+    with pytest.raises(ValueError, match="method"):
+        w2x.convert(x, method="resize")
 
 
 def test_missing_slot_names_file_and_lists_present(model_dir):
@@ -109,11 +116,23 @@ def test_missing_slot_names_file_and_lists_present(model_dir):
     assert "noise2_scale2x.nztm" in msg and "['scale2x']" in msg
 
 
-def test_bundled_turbo_dir_is_not_ported_yet():
+def test_bundled_turbo_dir_is_not_ported_yet(tmp_path):
+    """The bundled turbo_2x zoo is ported now: its scale2x converts; a
+    model dir whose checkpoint names an architecture the port lacks still
+    raises ``NotPortedError``."""
     assert default_model_dir() is not None
     w2x = Waifu2x(default_model_dir(), device="cpu")
-    with pytest.raises(NotPortedError, match="turbo_2x.*not ported"):
-        w2x.convert(np.zeros((8, 8, 3), np.float32), method="scale")
+    rgb, _ = w2x.convert(np.zeros((8, 8, 3), np.float32), method="scale",
+                         tile_size=64)
+    assert rgb.shape == (16, 16, 3)
+    import json
+    import zipfile
+    with zipfile.ZipFile(tmp_path / "scale2x.nztm", "w") as zf:
+        zf.writestr("__meta__.json", json.dumps(
+            {"nunif_tpu_model": 1, "name": "waifu2x.cunet", "kwargs": {}}))
+    with pytest.raises(NotPortedError, match="cunet.*not ported"):
+        Waifu2x(str(tmp_path), device="cpu").convert(
+            np.zeros((8, 8, 3), np.float32), method="scale")
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -184,9 +203,6 @@ def test_cli_arch_random_weights(tmp_path, caplog):
 def test_cli_rejects_video_and_missing_cuda(monkeypatch):
     with pytest.raises(NotImplementedError, match="video"):
         cli.main(["-i", "clip.mp4", "-o", "out.mp4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="16-bit"):
-        cli.main(["-i", "in.png", "-o", "out.png", "--depth", "16",
-                  "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-i", "in.png", "-o", "out.png", "--method", "scale",
