@@ -44,7 +44,15 @@ written by the port:
   batch of 8 uint8 1080p frames through ``Iw3FrameProcessor``
   (Any_V2_S depth, row_flow_v3, divergence 2, edge dilation 2, half-SBS),
   checks the launch counters, the time and the agreement with the twin
-  path, and drives the iw3 CLI on an image when PIL is present;
+  path, and drives the iw3 CLI on an image when PIL is present; then the
+  same batch through iw3's other methods (``mlbw_l2``, ``mlbw_l4``,
+  ``forward_fill``, ``forward_inpaint``, ``mlbw_l2_inpaint``; MLBW, mask-MLBW
+  and LightInpaintV1 weights seeded, written to and loaded from ``.nztm``):
+  exact K3 / K7 launches a method, not degenerate (pixels moved, inpaint
+  masks on 0-50% of the pixels and changed by the net), against the twins
+  (K7 on the depth; the methods that make discrete decisions on the depth,
+  K3 alone on the frame), timed and profiled; and the CLI with three of
+  them;
 - waifu2x turbo_2x, the bundled zoo (``models/waifu2x/turbo``, trained
   weights, no hand-written kernel: cuDNN convs): loads all four
   checkpoints through ``Waifu2x``; holds an untrained turbo_2x and
@@ -404,6 +412,211 @@ def iw3_cli(model_dir):
         if im.size != (960, 540):
             fail(f"iw3 CLI output size {im.size}")
     return "cli.main --half-sbs"
+
+
+# iw3's other methods (the "iw3 methods" phase): K3 launches a batch of 8
+# frames.  MLBW warps the [x, flip(x)] batch once a layer; mlbw_l2_inpaint's
+# two-layer mask-MLBW warps each eye by its own call, as the JAX package
+# does (2 layers x 2 eyes); the forward warps and their inpainting never
+# reach K3.  K7: the depth net's 12 launches under every method.
+IW3_METHODS = {"mlbw_l2": 2, "mlbw_l4": 4, "forward_fill": 0,
+               "forward_inpaint": 0, "mlbw_l2_inpaint": 4}
+IW3_DIVERGENCE, IW3_CONVERGENCE = 2.0, 0.5  # the CLI's defaults
+# Methods whose stereo step makes discrete decisions on the depth: the
+# depth-ordered splat (which source wins a pixel, where the holes fall) and
+# the thresholded hole mask, inpainted by a seeded net.  K7's rounding
+# against its twin (normalised depth: mean abs 0.0024, max 0.025 on this
+# batch) moves those decisions: their frames read 42.4-42.8 dB (forward
+# warps) and 37.8 dB (mlbw_l2_inpaint) against the full twin path, where
+# the MLBW methods read 53 (H100 80GB HBM3, 700 W).  So each kernel is
+# held at FRAME_PSNR_MIN where it acts: K7 on the depth, and K3 on the
+# frame with only K3 replaced by its twin (the same depth); the full twin
+# path's PSNR is printed beside them.
+IW3_DISCRETE = ("forward_fill", "forward_inpaint", "mlbw_l2_inpaint")
+# seeded weights of the methods' nets: (file, registry name, seed)
+IW3_METHOD_NETS = {"mlbw_l2": ("mlbw_l2.nztm", "sbs.mlbw_l2", 1),
+                   "mlbw_l4": ("mlbw_l4.nztm", "sbs.mlbw_l4", 1),
+                   "mask_mlbw": ("mask_mlbw_l2.nztm", "sbs.mask_mlbw_l2", 2),
+                   "inpaint": ("light_inpaint_v1.nztm",
+                               "inpaint.light_inpaint_v1", 3)}
+
+
+def iw3_method_models(torch, dev, model_dir):
+    """Write the methods' nets with shaped seeded weights to .nztm and
+    load them back through the port's loader: {method: side model}."""
+    from nunif_tpu_torch.iw3.forward_inpaint import ForwardInpaint
+    from nunif_tpu_torch.iw3.mlbw_inpaint import MLBWInpaint
+    from nunif_tpu_torch.iw3.models import light_inpaint_v1, mlbw
+    from nunif_tpu_torch.models import create_model, from_flax, load_model, save_model
+    nets = {}
+    for key, (fname, name, seed) in IW3_METHOD_NETS.items():
+        net = create_model(name)
+        shaped = (light_inpaint_v1 if key == "inpaint" else mlbw).shaped_flax_params
+        from_flax(net, shaped(net, seed))
+        path = os.path.join(model_dir, fname)
+        save_model(net, path)
+        nets[key], _meta = load_model(path, device=dev)
+    return {"mlbw_l2": nets["mlbw_l2"], "mlbw_l4": nets["mlbw_l4"],
+            "forward_fill": None,
+            "forward_inpaint": ForwardInpaint(nets["inpaint"]),
+            "mlbw_l2_inpaint": MLBWInpaint(nets["inpaint"], nets["mask_mlbw"])}
+
+
+def iw3_hole_check(torch, method, side, x, depth, left):
+    """(share of the left eye's pixels in the inpaint mask, mean abs
+    change the net made inside it): the mask the net was given (the left
+    eye runs flipped; the closing and the corner-anchored resize are
+    symmetric), against the same eye without inpainting."""
+    from nunif_tpu_torch.iw3.backward_warp import (
+        apply_divergence_nn_delta_weight, postprocess_hole_mask)
+    from nunif_tpu_torch.iw3.dilation import mask_closing
+    from nunif_tpu_torch.iw3.forward_warp import apply_divergence_forward_warp
+    from nunif_tpu_torch.iw3.mlbw_inpaint import MASK_MLBW_THRESHOLD
+    if method == "forward_inpaint":
+        bare, _r, lmask, _rm = apply_divergence_forward_warp(
+            x, depth, IW3_DIVERGENCE, IW3_CONVERGENCE, return_mask=True,
+            width_base=False)
+        mask = mask_closing((lmask > 0).float())
+    else:
+        bare, logits = apply_divergence_nn_delta_weight(
+            side.mask_model, x, depth, IW3_DIVERGENCE, IW3_CONVERGENCE,
+            shift=-1, return_mask=True)
+        mask = postprocess_hole_mask(logits, x.shape[1:3], MASK_MLBW_THRESHOLD)
+    inside = mask.bool().expand_as(bare)
+    return float(mask.mean()), float((left - bare).abs()[inside].mean())
+
+
+def iw3_methods_phase(torch, dev, model_dir, k3, k7):
+    """8 uint8 1080p frames through Iw3FrameProcessor with each method of
+    IW3_METHODS (half-SBS, divergence 2, convergence 0.5, edge dilation 2):
+    exact K3 / K7 launch counts, outputs finite in [0, 1], >= 10% of the
+    left eye's pixels moved, the inpaint mask on 0-50% of the pixels and
+    changed by the net, >= 45 dB against the twins (K7 on the depth; for
+    IW3_DISCRETE, K3 on the frame with K7 kept), median of 3 batches after
+    a warm one, and a torch.profiler split of one batch."""
+    from nunif_tpu_torch.iw3.composition import StereoFormat
+    from nunif_tpu_torch.iw3.depth import create_depth_model
+    from nunif_tpu_torch.iw3.pipeline import StereoConfig, apply_divergence
+    from nunif_tpu_torch.iw3.video import Iw3FrameProcessor
+    dm = create_depth_model("Any_V2_S", device=dev).load(
+        checkpoint=os.path.join(model_dir, "depth_any_v2_s.nztm"))
+    sides = iw3_method_models(torch, dev, model_dir)
+    frames = iw3_frames(torch, dev, IW3_BATCH, *IW3_HW, seed=4)
+    def norm_depth():
+        with torch.no_grad():
+            return torch.stack(dm.minmax_normalize(dm.infer(x, edge_dilation=2)))
+    x = frames.float() * (1.0 / 255.0)
+    depth = norm_depth()
+    with twins((k7, "sdpa")):
+        depth_twin = norm_depth()
+    to_u8 = lambda t: (t.clamp(0, 1) * 255 + 0.5).to(torch.uint8)  # noqa: E731
+    depth_psnr = uint8_psnr(to_u8(depth), to_u8(depth_twin))
+    print(f"iw3 methods: normalised depth {tuple(depth.shape)} vs twins PSNR "
+          f"{depth_psnr:.2f} dB, max abs "
+          f"{float((depth - depth_twin).abs().max()):.4g}, mean abs "
+          f"{float((depth - depth_twin).abs().mean()):.4g}", flush=True)
+    if depth_psnr < FRAME_PSNR_MIN:
+        fail(f"iw3 methods: depth PSNR vs twins {depth_psnr:.2f} dB < "
+             f"{FRAME_PSNR_MIN}")
+    del depth_twin
+    rows = {}
+    for method, k3_want in IW3_METHODS.items():
+        side = sides[method]
+        cfg = StereoConfig(method=method, divergence=IW3_DIVERGENCE,
+                           convergence=IW3_CONVERGENCE,
+                           format=StereoFormat(half_sbs=True))
+        proc = Iw3FrameProcessor(cfg, dm, side, edge_dilation=2)
+        k3.warp_x_bounded.launches = 0
+        k7.sdpa.launches = 0
+        out = proc(frames)
+        torch.cuda.synchronize()
+        launches = {"warp_x_bounded": k3.warp_x_bounded.launches,
+                    "sdpa": k7.sdpa.launches}
+        if launches != {"warp_x_bounded": k3_want, "sdpa": 12}:
+            fail(f"iw3 {method}: launches {launches}, want K3 {k3_want}, K7 12")
+        if tuple(out.shape) != (IW3_BATCH,) + IW3_HW + (3,):
+            fail(f"iw3 {method}: output shape {tuple(out.shape)}")
+        if not (bool(out.isfinite().all()) and float(out.min()) >= 0.0
+                and float(out.max()) <= 1.0):
+            fail(f"iw3 {method}: output not finite in [0, 1]")
+        with torch.no_grad():
+            left, right = apply_divergence(depth, x, cfg, side)
+            moved = float(((left - x).abs() > 0.5 / 255).float().mean())
+            holes = iw3_hole_check(torch, method, side, x, depth, left) \
+                if "inpaint" in method else None
+        del left, right
+        if moved < 0.10:
+            fail(f"iw3 {method}: {moved:.4f} of the left eye's pixels moved")
+        if holes is not None and not (0.0 < holes[0] < 0.5 and holes[1] > 1 / 255):
+            fail(f"iw3 {method}: inpaint mask on {holes[0]:.4f} of the pixels, "
+                 f"mean change inside {holes[1]:.4f}")
+        batch_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            proc(frames)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        with twins((k3, "warp_x_bounded"), (k7, "sdpa")):
+            out_twin = proc(frames)
+            torch.cuda.synchronize()
+        psnr = uint8_psnr(to_u8(out), to_u8(out_twin))
+        psnr_k3 = None
+        if method in IW3_DISCRETE:
+            with twins((k3, "warp_x_bounded")):
+                out_twin = proc(frames)
+                torch.cuda.synchronize()
+            psnr_k3 = uint8_psnr(to_u8(out), to_u8(out_twin))
+        del out, out_twin
+        med = statistics.median(batch_ms)
+        hole_txt = "" if holes is None else (
+            f"; left-eye inpaint mask {holes[0]:.4f} of the pixels, mean "
+            f"change inside {holes[1]:.4f}")
+        print(f"iw3 {method} batch 8 x 1080p -> half-SBS: median {med:.1f} ms "
+              f"({1000 * IW3_BATCH / med:.1f} fps; runs "
+              f"{[round(v, 1) for v in batch_ms]}); launches {launches}; "
+              f"left-eye pixels moved {moved:.4f}{hole_txt}; vs twins PSNR "
+              f"{psnr:.2f} dB" + ("" if psnr_k3 is None else
+                                   f", vs K3's twin alone {psnr_k3:.2f} dB"),
+              flush=True)
+        held = psnr if psnr_k3 is None else psnr_k3
+        if held < FRAME_PSNR_MIN:
+            fail(f"iw3 {method}: PSNR vs twins {held:.2f} dB < {FRAME_PSNR_MIN}")
+        print(f"iw3 {method} profile:", flush=True)
+        device_ms = profile_frame(torch, proc, frames, top=10,
+                                  share_of=("K3 warp_x_bounded", "warp_x_kernel"))
+        rows[method] = dict(ms=med, runs=batch_ms, launches=launches,
+                            psnr=psnr, psnr_k3=psnr_k3, moved=moved,
+                            device_ms=device_ms)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def iw3_methods_cli(model_dir):
+    """The iw3 CLI on one 540p PNG with --method mlbw_l2, forward_fill and
+    mlbw_l2_inpaint, from the written checkpoints."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return "skipped (no PIL)"
+    import torch
+    from nunif_tpu_torch.iw3 import cli
+    frame = iw3_frames(torch, torch.device("cuda"), 1, 540, 960, seed=5)[0]
+    src = os.path.join(model_dir, "iw3_methods_in.png")
+    Image.fromarray(frame.cpu().numpy()).save(src)
+    ckpt = {"mlbw_l2": "mlbw_l2.nztm", "forward_fill": None,
+            "mlbw_l2_inpaint": "light_inpaint_v1.nztm"}
+    for method, fname in ckpt.items():
+        out = os.path.join(model_dir, f"iw3_{method}.png")
+        argv = ["-i", src, "-o", out, "--method", method, "--half-sbs",
+                "--device", "cuda", "--depth-checkpoint",
+                os.path.join(model_dir, "depth_any_v2_s.nztm")]
+        if fname:
+            argv += ["--stereo-checkpoint", os.path.join(model_dir, fname)]
+        cli.main(argv)
+        with Image.open(out) as im:
+            if im.size != (960, 540):
+                fail(f"iw3 CLI --method {method}: output size {im.size}")
+    return "cli.main --method " + ", ".join(ckpt)
 
 
 # waifu2x turbo: the bundled zoo's slots (all turbo_2x, dim 128, 8 blocks)
@@ -2002,6 +2215,17 @@ def main() -> int:
     ran = iw3_cli(model_dir)
     print(f"iw3 image CLI ran: {ran}", flush=True)
 
+    # 14a. iw3's other methods on the same frames, and their CLI
+    phase("iw3 methods")
+    iw3_methods = iw3_methods_phase(torch, dev, model_dir, k3, k7)
+    print(f"iw3 methods CLI ran: {iw3_methods_cli(model_dir)}", flush=True)
+    print(f"iw3 methods: {smi}; " + json.dumps(
+        {m: {"ms": r["ms"], "fps": 1000 * IW3_BATCH / r["ms"],
+             "device_ms": r["device_ms"], "launches": r["launches"],
+             "psnr_vs_twins": r["psnr"], "psnr_vs_k3_twin": r["psnr_k3"]}
+         for m, r in iw3_methods.items()}),
+        flush=True)
+
     # 14b. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
     phase("waifu2x turbo")
     turbo_phase(torch, dev, smi, model_dir)
@@ -2131,6 +2355,9 @@ def main() -> int:
          "source": "nunif_tpu_torch/csrc/warp_x.cu",
          "replaces": "nunif_tpu/modules/grid_sample.py:176",
          "launches": iw3_launches["warp_x_bounded"], "max_abs_err": k3_err,
+         # each iw3 method's batch (the "iw3 methods" phase), counted alone
+         "method_launches": {m: r["launches"]["warp_x_bounded"]
+                             for m, r in iw3_methods.items()},
          "ms": k3_tm["kernel"], "plain_ms": k3_tm["plain"],
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": k3_tm["library"]},
@@ -2149,6 +2376,8 @@ def main() -> int:
          "source": "nunif_tpu_torch/csrc/flash_attn.cu",
          "replaces": "nunif_tpu/ops/sdpa.py:49",
          "launches": iw3_launches["sdpa"],
+         "method_launches": {m: r["launches"]["sdpa"]
+                             for m, r in iw3_methods.items()},
          "max_abs_err": max(r["max_abs_err"] for r in k7_rows.values()),
          # 12 launches a batch, all at (8, 6, 1373, 64)
          "ms": 12 * k7_main["ms"], "plain_ms": 12 * k7_main["plain_ms"],

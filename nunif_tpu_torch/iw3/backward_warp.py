@@ -1,10 +1,12 @@
-"""Backward (gather) stereo warps and the learned row_flow delta warp,
-NHWC (counterpart of ``nunif_tpu/iw3/backward_warp.py``).
+"""Backward (gather) stereo warps, the learned row_flow delta warp and
+MLBW's multi-layer blended warp, NHWC (counterpart of
+``nunif_tpu/iw3/backward_warp.py``).
 
 The stereo displacement is horizontal and bounded by the divergence, so
 the warp is ``modules.grid_sample.warp_x_bounded`` (kernel K3 on CUDA)
 wherever the bound is at most 128 pixels, and the gather ``warp_x``
-beyond it.
+beyond it.  The bound is taken from the divergence, a host float: MLBW
+launches K3 once a layer.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from ..modules import grid_sample as _gs
 from ..modules.resize import resize
+from .dilation import dilate_inner, dilate_outer, mask_closing
 from .mapper import get_mapper
 
 
@@ -154,38 +157,96 @@ def apply_divergence_nn_delta(model, c, depth, divergence, convergence,
     return c_warp
 
 
-def apply_divergence_nn_delta_weight(*args, **kwargs):
-    raise NotImplementedError(
-        "MLBW (multi-layer blended warp) is not ported to nunif_tpu_torch "
-        "yet (ROADMAP queue 1)")
+def apply_divergence_nn_delta_weight(model, c, depth, divergence,
+                                     convergence, shift=-1,
+                                     preserve_screen_border=False,
+                                     return_mask=False):
+    """MLBW: the sum over the model's layers of c warped by each layer's
+    delta, weighted by the layer's softmax weight, clipped to [0, 1].
+    shift=-1: left eye; shift=+1: right eye (flip, warp, flip back).
+    ``return_mask``: also the hole-mask logits (None without a mask
+    head), flipped with the eye."""
+    if shift > 0:
+        c = c.flip(2)
+        depth = depth.flip(2)
+    B, H, W, _ = depth.shape
+    x = make_input_tensor(None, depth, divergence=divergence,
+                          convergence=convergence, image_width=max(H, W),
+                          preserve_screen_border=preserve_screen_border)
+    out = model(x)
+    delta, layer_weight = out[0], out[1]
+    hole_mask_logits = out[2] if model.hole_mask else None
+    Hc, Wc = c.shape[1:3]
+    if tuple(layer_weight.shape[1:3]) != (Hc, Wc):
+        layer_weight = resize(layer_weight, Hc, Wc, mode="bilinear",
+                              antialias=True)
+        # backward_warp_delta's own resize, once for all layers
+        delta = resize(delta, Hc, Wc, mode="bilinear", antialias=False)
+    delta_scale = 1.0 / (W // 2 - 1)
+    ms = _delta_max_shift(divergence, Wc)
+    z = torch.zeros_like(c)
+    for i in range(model.num_layers):
+        z = z + (backward_warp_delta(c, delta[..., i], delta_scale,
+                                     max_shift=ms)
+                 * layer_weight[..., i:i + 1])
+    z = z.clamp(0.0, 1.0)
+    if shift > 0:
+        z = z.flip(2)
+        if hole_mask_logits is not None:
+            hole_mask_logits = hole_mask_logits.flip(2)
+    if return_mask:
+        return z, hole_mask_logits
+    return z
+
+
+def postprocess_hole_mask(mask_logits, target_hw, threshold,
+                          inner_dilation=0, outer_dilation=0):
+    """Hole mask {0, 1} (B, H, W, 1) from MLBW's logits (B, h, w, 1):
+    resize (bilinear, corner-anchored, no antialias), sigmoid > threshold,
+    close, grow inward and outward by the dilations (counted at the
+    logits' width).
+
+    The JAX function closes the raw logits before the threshold; its
+    closing clips to [0, 1], so every sigmoid is >= 0.5 and the mask is
+    all ones at any threshold below 0.5 (ROADMAP queue 3).  The port
+    closes the thresholded mask, which the closing is made for."""
+    base_width = mask_logits.shape[2]
+    m = mask_logits.float()
+    if tuple(m.shape[1:3]) != tuple(target_hw):
+        m = resize(m, target_hw[0], target_hw[1], mode="bilinear",
+                   antialias=False, align_corners=True)
+    mask = mask_closing((torch.sigmoid(m) > threshold).float(), n_iter=1)
+    mask = dilate_inner(mask, n_iter=inner_dilation, base_width=base_width)
+    return dilate_outer(mask, n_iter=outer_dilation, base_width=base_width)
 
 
 def apply_divergence_nn_LR(model, c, depth, divergence, convergence,
                            steps=None, synthetic_view: str = "both",
                            preserve_screen_border: bool = False):
-    """row_flow for the requested eyes.  Both eyes with a scalar
-    convergence run as one batch [x, flip(x)]: the right eye is the
-    flip-warp-flip of the left, so model and warp run once at 2B."""
+    """row_flow or MLBW (``model.model_name`` "sbs.mlbw") for the
+    requested eyes.  Both eyes with a scalar convergence run as one batch
+    [x, flip(x)]: the right eye is the flip-warp-flip of the left, so model
+    and warp run once at 2B."""
     if synthetic_view not in ("both", "right", "left"):
         raise ValueError(synthetic_view)
-    if getattr(model, "model_name", "").startswith("sbs.mlbw"):
-        return apply_divergence_nn_delta_weight()
-    kw = dict(steps=steps, preserve_screen_border=preserve_screen_border)
+    if getattr(model, "model_name", "") == "sbs.mlbw":
+        def one(c, depth, div, shift):
+            return apply_divergence_nn_delta_weight(
+                model, c, depth, div, convergence, shift=shift,
+                preserve_screen_border=preserve_screen_border)
+    else:
+        def one(c, depth, div, shift):
+            return apply_divergence_nn_delta(
+                model, c, depth, div, convergence, steps=steps, shift=shift,
+                preserve_screen_border=preserve_screen_border)
     conv_scalar = not (torch.is_tensor(convergence) and convergence.dim())
     if synthetic_view == "both" and conv_scalar:
         B = c.shape[0]
-        c2 = torch.cat([c, c.flip(2)], dim=0)
-        d2 = torch.cat([depth, depth.flip(2)], dim=0)
-        z = apply_divergence_nn_delta(model, c2, d2, divergence, convergence,
-                                      shift=-1, **kw)
+        z = one(torch.cat([c, c.flip(2)], dim=0),
+                torch.cat([depth, depth.flip(2)], dim=0), divergence, -1)
         return z[:B], z[B:].flip(2)
     if synthetic_view == "both":
-        return (apply_divergence_nn_delta(model, c, depth, divergence,
-                                          convergence, shift=-1, **kw),
-                apply_divergence_nn_delta(model, c, depth, divergence,
-                                          convergence, shift=1, **kw))
+        return one(c, depth, divergence, -1), one(c, depth, divergence, 1)
     if synthetic_view == "right":
-        return c, apply_divergence_nn_delta(model, c, depth, divergence * 2,
-                                            convergence, shift=1, **kw)
-    return apply_divergence_nn_delta(model, c, depth, divergence * 2,
-                                     convergence, shift=-1, **kw), c
+        return c, one(c, depth, divergence * 2, 1)
+    return one(c, depth, divergence * 2, -1), c

@@ -4,7 +4,13 @@
 Usage:
   python -m nunif_tpu_torch.iw3.cli -i in.png -o out.png --half-sbs \\
       --depth-checkpoint depth.nztm --stereo-checkpoint row_flow_v3.nztm
+  python -m nunif_tpu_torch.iw3.cli -i in.png -o out.png --method mlbw_l2 \\
+      --stereo-checkpoint mlbw_l2.nztm
   python -m nunif_tpu_torch.iw3.cli -i in_dir/ -o out_dir/ --seed 0  # random weights
+
+``--stereo-checkpoint`` holds the method's net: row_flow / MLBW, or the
+inpaint net of ``forward_inpaint`` / ``mlbw_l2_inpaint`` (whose mask-MLBW
+is always seeded, as in the JAX CLI).
 
 Images only: a video input raises ``NotImplementedError``.  ``--device``
 defaults to ``cuda`` and fails where CUDA is missing.
@@ -27,7 +33,17 @@ logger = logging.getLogger("nunif_tpu_torch.iw3")
 
 IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".webp", ".bmp"}
 VIDEO_EXTS = {".mp4", ".mkv", ".avi", ".webm", ".mov", ".m2ts", ".ts"}
-METHODS = ["row_flow_v3", "grid_sample", "backward", "NULL"]
+METHODS = ["row_flow_v3", "row_flow_v2", "row_flow_v3_sym",
+           "mlbw_l2", "mlbw_l4", "mlbw_l2s", "mlbw_l4s",
+           "forward", "forward_fill", "forward_inpaint",
+           "mlbw_l2_inpaint", "mlbw_l2_inpaint_video",
+           "grid_sample", "backward", "NULL"]
+# the stereo net a method builds without a checkpoint
+STEREO_MODELS = {"row_flow_v3": "sbs.row_flow_v3",
+                 "row_flow_v2": "sbs.row_flow_v2",
+                 "row_flow_v3_sym": "sbs.row_flow_v3",
+                 "mlbw_l2": "sbs.mlbw_l2", "mlbw_l4": "sbs.mlbw_l4",
+                 "mlbw_l2s": "sbs.mlbw_l2s", "mlbw_l4s": "sbs.mlbw_l4s"}
 
 
 def create_parser():
@@ -42,11 +58,13 @@ def create_parser():
     p.add_argument("--depth-checkpoint", default=None,
                    help=".nztm checkpoint of the depth model")
     p.add_argument("--stereo-checkpoint", default=None,
-                   help=".nztm checkpoint of the row_flow model")
+                   help=".nztm checkpoint of the method's net (row_flow, "
+                        "MLBW, or the inpaint net)")
     p.add_argument("--mapper", default=None, choices=MAPPER_ALL + [None])
     p.add_argument("--foreground-scale", type=float, default=0)
     p.add_argument("--synthetic-view", default="both",
                    choices=["both", "right", "left"])
+    p.add_argument("--preserve-screen-border", action="store_true")
     p.add_argument("--resolution", type=int, default=None,
                    help="depth model input resolution (multiple of 14)")
     p.add_argument("--tta", action="store_true")
@@ -57,6 +75,12 @@ def create_parser():
     p.add_argument("--half-tb", action="store_true")
     p.add_argument("--cross-eyed", action="store_true")
     p.add_argument("--format", default="png", choices=["png", "jpeg", "webp"])
+    p.add_argument("--mask-inner-dilation", type=int, default=0,
+                   help="inpaint mask inner dilation iterations")
+    p.add_argument("--mask-outer-dilation", type=int, default=0,
+                   help="inpaint mask outer dilation iterations")
+    p.add_argument("--inpaint-max-width", type=int, default=None,
+                   help="downscale frames wider than this before inpaint")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda fails where CUDA is missing")
     p.add_argument("--seed", type=int, default=0,
@@ -72,24 +96,50 @@ def build_config(args):
         method=args.method, divergence=args.divergence,
         convergence=args.convergence, mapper=args.mapper,
         foreground_scale=args.foreground_scale,
-        synthetic_view=args.synthetic_view, format=fmt)
+        synthetic_view=args.synthetic_view,
+        preserve_screen_border=args.preserve_screen_border,
+        mask_inner_dilation=args.mask_inner_dilation,
+        mask_outer_dilation=args.mask_outer_dilation,
+        inpaint_max_width=args.inpaint_max_width, format=fmt)
+
+
+def _seeded(name, device, seed):
+    """Model ``name`` with flax's init drawn from ``seed``, and the JAX
+    CLI's warning."""
+    from ..models import create_model, init_flax_default
+    model = create_model(name)
+    init_flax_default(model, torch.Generator().manual_seed(seed))
+    logger.warning("%s: no checkpoint given; random init "
+                   "(structure/benchmark use only)", name)
+    return model.eval().requires_grad_(False).to(device)
 
 
 def create_stereo_model(method, checkpoint=None, device="cuda", seed=0):
-    """(model or None) for ``method``: a checkpoint's row_flow model, or
-    row_flow_v3 with flax's init drawn from ``seed``."""
-    if method in ("grid_sample", "backward", "NULL"):
+    """The side model of ``method`` (None for the plain warps): the net
+    in ``checkpoint``, or flax's init drawn from ``seed``; the inpaint
+    methods wrap their inpaint net (and a seeded mask-MLBW)."""
+    if method in ("forward", "forward_fill", "grid_sample", "backward", "NULL"):
         return None
-    from ..models import create_model, init_flax_default, load_model
-    from . import models  # noqa: F401  (registers sbs.row_flow_v3)
+    if method == "mlbw_l2_inpaint_video":
+        raise NotImplementedError(
+            "method 'mlbw_l2_inpaint_video' is not ported to nunif_tpu_torch "
+            "yet (ROADMAP queue 1)")
+    from ..models import load_model
+    from . import models  # noqa: F401  (registers the iw3 nets)
+    if method in ("forward_inpaint", "mlbw_l2_inpaint"):
+        if checkpoint:
+            net, _meta = load_model(checkpoint, device=device)
+        else:
+            net = _seeded("inpaint.light_inpaint_v1", device, seed)
+        if method == "forward_inpaint":
+            from .forward_inpaint import ForwardInpaint
+            return ForwardInpaint(net)
+        from .mlbw_inpaint import MLBWInpaint
+        return MLBWInpaint(net, _seeded("sbs.mask_mlbw_l2", device, seed))
     if checkpoint:
         model, _meta = load_model(checkpoint, device=device)
         return model
-    model = create_model("sbs.row_flow_v3")
-    init_flax_default(model, torch.Generator().manual_seed(seed))
-    logger.warning("stereo model sbs.row_flow_v3: no checkpoint given; "
-                   "random init (structure/benchmark use only)")
-    return model.eval().requires_grad_(False).to(device)
+    return _seeded(STEREO_MODELS[method], device, seed)
 
 
 def iter_inputs(input_path):

@@ -1,6 +1,5 @@
-"""Depth-edge dilation, NHWC (counterpart of ``dilate_edge`` and its
-helpers in ``nunif_tpu/iw3/dilation.py``; the inpaint mask morphology is
-not ported yet)."""
+"""Depth-edge dilation and the inpaint masks' morphology, NHWC
+(counterpart of ``nunif_tpu/iw3/dilation.py``)."""
 from __future__ import annotations
 
 import functools
@@ -55,6 +54,57 @@ def dilate(mask, kernel_size=3):
 
 def erode(mask, kernel_size=3):
     return min_pool2d(mask, kernel_size)
+
+
+def closing(mask, kernel_size=3, n_iter=2):
+    mask = mask.float()
+    for _ in range(n_iter):
+        mask = dilate(mask, kernel_size)
+    for _ in range(n_iter):
+        mask = erode(mask, kernel_size)
+    return mask
+
+
+def mask_closing(mask, kernel_size=3, n_iter=2):
+    """Closing that puts back the isolated pixels it erased, clipped to
+    [0, 1]."""
+    mask_org = mask.float()
+    m = closing(mask_org, kernel_size=kernel_size, n_iter=n_iter)
+    return (m + mask_org).clamp(0.0, 1.0)
+
+
+def _dilate_x(mask, n_iter: int, direction: int):
+    """Grow a mask horizontally by n_iter pixels: a one-sided max over
+    n_iter + 1 columns, zero-padded.  direction +1 grows rightward (pads
+    left), -1 leftward."""
+    if n_iter <= 0:
+        return mask
+    pads = (n_iter, 0) if direction > 0 else (0, n_iter)
+    m = F.pad(mask.float().permute(0, 3, 1, 2), pads)
+    out = F.max_pool2d(m, (1, n_iter + 1), stride=1)
+    return out.permute(0, 2, 3, 1).to(mask.dtype)
+
+
+def _scaled_iter(mask, n_iter, base_width):
+    """n_iter counted at ``base_width``, rescaled to the mask's width
+    (Python's round: half to even), at least 1."""
+    if base_width is None:
+        return n_iter
+    return max(round(mask.shape[-2] / base_width * n_iter), 1)
+
+
+def dilate_outer(mask, n_iter, base_width=None):
+    """mask | mask shifted right, n_iter times."""
+    if n_iter <= 0:
+        return mask
+    return _dilate_x(mask, _scaled_iter(mask, n_iter, base_width), +1)
+
+
+def dilate_inner(mask, n_iter, base_width=None):
+    """mask | mask shifted left, n_iter times."""
+    if n_iter <= 0:
+        return mask
+    return _dilate_x(mask, _scaled_iter(mask, n_iter, base_width), -1)
 
 
 def edge_weight(x):

@@ -1,9 +1,12 @@
 """iw3 image pipeline: preprocess -> depth -> divergence -> composition,
 NHWC float in [0, 1] (counterpart of ``nunif_tpu/iw3/pipeline.py``).
 
-Methods: ``row_flow_v3`` (and the other sbs.row_flow models a checkpoint
-names), ``grid_sample`` / ``backward``, and ``NULL``.  Forward warps,
-inpainting and MLBW raise ``NotImplementedError``.
+Methods: the NN warps (``row_flow_v3``, ``row_flow_v2``, ``mlbw_*``: the
+side model a checkpoint names), ``grid_sample`` / ``backward``, the forward
+warps ``forward`` / ``forward_fill``, the inpaint methods
+``forward_inpaint`` / ``mlbw_l2_inpaint`` (the side model is a
+``ForwardInpaint`` / ``MLBWInpaint``) and ``NULL``.
+``mlbw_l2_inpaint_video`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,11 +18,10 @@ import torch
 from ..modules.resize import resize
 from .backward_warp import apply_divergence_grid_sample, apply_divergence_nn_LR
 from .composition import StereoFormat, postprocess_image
+from .forward_warp import apply_divergence_forward_warp
 from .mapper import get_mapper, resolve_mapper_name
 
-_NOT_PORTED = {"forward", "forward_fill", "forward_inpaint", "mlbw_l2_inpaint",
-               "mlbw_l2_inpaint_video", "mlbw_l2", "mlbw_l4", "mlbw_l2s",
-               "mlbw_l4s"}
+_NOT_PORTED = {"mlbw_l2_inpaint_video"}
 
 
 @dataclasses.dataclass
@@ -34,6 +36,10 @@ class StereoConfig:
     preserve_screen_border: bool = False
     warp_steps: Optional[int] = None
     stereo_width: Optional[int] = None
+    # the inpaint methods' mask shaping and their frame-width cap
+    mask_inner_dilation: int = 0
+    mask_outer_dilation: int = 0
+    inpaint_max_width: Optional[int] = None
     rotate_left: bool = False
     rotate_right: bool = False
     max_output_width: Optional[int] = None
@@ -78,10 +84,23 @@ def apply_divergence(depth, im, cfg: StereoConfig, side_model=None,
     depth = mapper_fn(depth)
     if cfg.method == "NULL":
         return im, im
+    if cfg.method in ("forward_inpaint", "mlbw_l2_inpaint"):
+        if side_model is None:
+            raise ValueError(f"method {cfg.method} needs an inpaint model")
+        return side_model.infer(
+            im, depth, cfg.divergence, convergence,
+            synthetic_view=cfg.synthetic_view,
+            inner_dilation=cfg.mask_inner_dilation,
+            outer_dilation=cfg.mask_outer_dilation,
+            max_width=cfg.inpaint_max_width)
     if cfg.method in ("grid_sample", "backward"):
         return apply_divergence_grid_sample(
             im, depth, cfg.divergence, convergence,
             synthetic_view=cfg.synthetic_view)
+    if cfg.method in ("forward", "forward_fill"):
+        return apply_divergence_forward_warp(
+            im, depth, cfg.divergence, convergence, method=cfg.method,
+            synthetic_view=cfg.synthetic_view, width_base=False)
     if cfg.stereo_width is not None:
         H, W = im.shape[1:3]
         stereo_width = min(W, cfg.stereo_width)
@@ -98,8 +117,8 @@ def apply_divergence(depth, im, cfg: StereoConfig, side_model=None,
 
 
 def resize_depth_for(depth, im, cfg: StereoConfig):
-    """The plain warps need depth at frame resolution (the NN warps resize
-    their delta themselves)."""
+    """The plain backward warps need depth at frame resolution (the NN
+    warps resize their deltas, the forward warps their depth)."""
     if cfg.method in ("grid_sample", "backward", "NULL") and \
             tuple(depth.shape[1:3]) != tuple(im.shape[1:3]):
         depth = resize(depth, im.shape[1], im.shape[2], mode="bilinear",

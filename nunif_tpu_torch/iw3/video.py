@@ -6,9 +6,13 @@ Two paths are ported, both with a depth scaler of buffer size 1:
   stereo -> composition with no host synchronisation;
 - EMA (``update_values``): the (B, 2) per-frame stats are read back once a
   batch, the host advances the EMA, and the constants normalise the batch.
-The lookahead buffer, Video Depth Anything, the convergence estimator,
-device meshes, crop and scene cuts raise ``NotImplementedError``; decoding
-and encoding video (``process_video_full``) is not ported yet.
+Every method of ``pipeline.apply_divergence`` runs, its side model passed
+through (a row_flow / MLBW net, ``ForwardInpaint``, ``MLBWInpaint``); the
+forward and inpaint methods get depth at the preprocess resolution, as in
+JAX.  The lookahead buffer, Video Depth Anything, the convergence
+estimator, device meshes, crop and scene cuts raise
+``NotImplementedError``; decoding and encoding video
+(``process_video_full``) is not ported yet.
 """
 from __future__ import annotations
 

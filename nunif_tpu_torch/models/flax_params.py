@@ -1,9 +1,13 @@
 """Weights between the JAX package's flax layout and the port's modules.
 
 A flax path ``a/b/c/kernel`` is the torch parameter ``a.b.c.weight``,
-except that a ``LayerNorm``'s weight is flax's ``a/b/scale``; ``bias`` and
-every other leaf name (``relative_position_bias_table``, ``cls_token``,
-``pos_embed``, ``ls1/gamma``) keep their name.  Dense kernels ``(in, out)``
+except that a ``LayerNorm``'s weight is flax's ``a/b/scale`` (a
+``LayerNormNoBias`` holds its ``LayerNorm`` as ``LayerNorm_0``, flax's
+auto-name); ``bias`` and every other leaf name
+(``relative_position_bias_table``, ``cls_token``, ``pos_embed``,
+``ls1/gamma``, the inpaint net's ``mask_bias``, gMLP's
+``proj_spatial_kernel`` / ``proj_spatial_bias``) keep their name and
+layout.  Dense kernels ``(in, out)``
 become Linear weights ``(out, in)``, conv kernels HWIO become OIHW, flax
 ``ConvTranspose(transpose_kernel=True)`` kernels ``(kh, kw, O, I)`` become
 ``ConvTranspose2d`` weights ``(I, O, kh, kw)`` by the same 4-D rule, and

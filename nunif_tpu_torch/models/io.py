@@ -31,7 +31,8 @@ FORMAT_VERSION = 1
 META_ENTRY = "__meta__.json"
 
 _APP_PACKAGES = {"waifu2x": "nunif_tpu_torch.waifu2x",
-                 "iw3": "nunif_tpu_torch.iw3", "sbs": "nunif_tpu_torch.iw3"}
+                 "iw3": "nunif_tpu_torch.iw3", "sbs": "nunif_tpu_torch.iw3",
+                 "inpaint": "nunif_tpu_torch.iw3"}
 
 
 class NotPortedError(NotImplementedError):

@@ -75,16 +75,24 @@ def _truncated_normal(shape, std: float, generator: torch.Generator):
 def init_flax_default(module: nn.Module, generator: torch.Generator):
     """Initialise like the JAX package's flax modules, by flax leaf name:
     lecun_normal kernels, zero biases and class tokens, unit LayerNorm
-    scales, 1e-5 LayerScale gammas, N(0, 0.02) position embeddings and
-    truncated_normal(0.02) relative-position tables."""
+    scales, 1e-5 LayerScale gammas, N(0, 0.02) position embeddings,
+    truncated_normal(0.02) relative-position tables, truncated_normal(0.01)
+    mask tokens, and gMLP's spatial projection: kernel uniform on [0, 2e-3
+    / C), unit bias."""
     from .flax_params import flax_keys
     for name, key in flax_keys(module).items():
         p = module.get_parameter(name)
         leaf = key.rsplit("/", 1)[-1]
         if leaf in ("bias", "cls_token"):
             p.zero_()
-        elif leaf == "scale":
+        elif leaf in ("scale", "proj_spatial_bias"):
             p.fill_(1.0)
+        elif leaf == "mask_bias":
+            p.copy_(_truncated_normal(p.shape, 0.01, generator))
+        elif leaf == "proj_spatial_kernel":
+            owner = module.get_submodule(name.rpartition(".")[0])
+            p.copy_(torch.rand(p.shape, generator=generator)
+                    * (2e-3 / owner.embed_dim))
         elif leaf == "gamma":
             p.fill_(1e-5)
         elif leaf == "pos_embed":

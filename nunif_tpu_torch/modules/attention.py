@@ -5,8 +5,10 @@ Swin blocks: with ``norm="none"`` the whole block is kernel K1, or K5 on
 window-ordered tokens when ``NUNIF_TPU_SWIN_IMG`` is not "1" (as in the JAX
 module); with a LayerNorm the block runs on window-ordered tokens and its
 attention is kernel K4 (all in ``ops/swin_attention.py``).
-``WindowScoreBias`` and ``WindowMHA2d`` (row_flow_v3's rectangular-window
-attention) are plain PyTorch, as the JAX package leaves them to XLA.
+``WindowScoreBias`` and ``WindowMHA2d`` (row_flow_v3's and MLBW's
+rectangular-window attention) and ``GMLP`` / ``WindowGMLP2d`` (the inpaint
+net's token mixer) are plain PyTorch, as the JAX package leaves them to
+XLA.
 """
 from __future__ import annotations
 
@@ -365,4 +367,58 @@ class WindowMHA2d(nn.Module):
         out = window_reverse2(dense(out, self.head_proj), (wh, ww), H, W)
         if pad_h or pad_w:
             out = out[:, pad_h:H - pad_h, pad_w:W - pad_w, :]
+        return out
+
+
+class GMLP(nn.Module):
+    """gMLP token mixer on (B, N, C) (flax paths ``proj_in``,
+    ``proj_spatial_kernel``, ``proj_spatial_bias``, ``proj_out``): x +
+    proj_out(u * (W v + b)), where (u, v) is the split of GELU(exact)
+    proj_in(norm1(x)), v goes through norm2, and W (N, N) mixes the tokens.
+    In x's dtype."""
+
+    def __init__(self, embed_dim: int, seq_len: int, mlp_ratio: int = 1):
+        super().__init__()
+        self.embed_dim = embed_dim
+        hidden = int(embed_dim * mlp_ratio * 2)
+        self.proj_in = nn.Linear(embed_dim, hidden)
+        self.proj_spatial_kernel = nn.Parameter(torch.zeros(seq_len, seq_len))
+        self.proj_spatial_bias = nn.Parameter(torch.ones(seq_len))
+        self.proj_out = nn.Linear(hidden // 2, embed_dim)
+
+    def forward(self, x: torch.Tensor, norm1=None, norm2=None) -> torch.Tensor:
+        shortcut = x
+        if norm1 is not None:
+            x = norm1(x)
+        u, v = F.gelu(dense(x, self.proj_in), approximate="none").chunk(2, dim=-1)
+        if norm2 is not None:
+            v = norm2(v)
+        v = torch.einsum("mn,bnc->bmc",
+                         cast_param(self.proj_spatial_kernel, v.dtype), v)
+        v = v + cast_param(self.proj_spatial_bias, v.dtype)[None, :, None]
+        return dense(u * v, self.proj_out) + shortcut
+
+
+class WindowGMLP2d(nn.Module):
+    """``GMLP`` inside square windows of an NHWC image (flax path
+    ``gmlp``); ``shift`` pads by half a window with zeros, as
+    ``WindowMHA2d`` does."""
+
+    def __init__(self, in_channels: int, window_size: int, mlp_ratio: int = 2,
+                 shift: bool = False):
+        super().__init__()
+        self.window_size = window_size
+        self.shift = shift
+        self.gmlp = GMLP(in_channels, window_size * window_size, mlp_ratio)
+
+    def forward(self, x: torch.Tensor, norm1=None, norm2=None) -> torch.Tensor:
+        ws = self.window_size
+        pad = ws // 2 if self.shift else 0
+        if pad:
+            x = F.pad(x, (0, 0, pad, pad, pad, pad))
+        _b, H, W, _c = x.shape
+        out = window_reverse2(self.gmlp(window_partition2(x, ws), norm1, norm2),
+                              ws, H, W)
+        if pad:
+            out = out[:, pad:H - pad, pad:W - pad, :]
         return out

@@ -13,6 +13,14 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(b, h * r, w * r, c)
 
 
+def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of ``pixel_shuffle``: (B, H*r, W*r, C) -> (B, H, W, C*r*r)."""
+    b, hr, wr, c = x.shape
+    h, w = hr // r, wr // r
+    x = x.reshape(b, h, r, w, r, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(b, h, w, c * r * r)
+
+
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
     """(B, H, W, C) -> (B*nH*nW, window, window, C)."""
     b, h, w, c = x.shape

@@ -244,7 +244,8 @@ def test_unported_paths_raise(weights, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Iw3FrameProcessor(StereoConfig(), dm, flow, crop=(slice(0, 4), slice(None)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        process_image(torch.zeros(8, 8, 3), StereoConfig(method="forward_fill"), dm)
+        process_image(torch.zeros(8, 8, 3),
+                      StereoConfig(method="mlbw_l2_inpaint_video"), dm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         postprocess_image(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 3),
                           StereoFormat(anaglyph="dubois"))
