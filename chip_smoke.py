@@ -40,7 +40,8 @@ written by the port:
 - iw3: holds K3 (stereo warp) and K7 (DINOv2 attention) against their twins
   at the shapes of the 1080p half-SBS path, each with controls that must
   fail, K7 also on strided views of a qkv projection as the path passes
-  them and timed back to back and by device time beside SDPA, runs a
+  them and timed back to back and by device time beside SDPA (device time
+  in a process of its own, ``chip_smoke.py --k7-device-ms``), runs a
   batch of 8 uint8 1080p frames through ``Iw3FrameProcessor``
   (Any_V2_S depth, row_flow_v3, divergence 2, edge dilation 2, half-SBS),
   checks the launch counters, the time and the agreement with the twin
@@ -53,6 +54,18 @@ written by the port:
   (K7 on the depth; the methods that make discrete decisions on the depth,
   K3 alone on the frame), timed and profiled; and the CLI with three of
   them;
+- iw3's temporal path ("iw3 temporal"): 48 (or 40) indexed uint8 1080p
+  frames in batches of 8 through ``Iw3FrameProcessor`` and its ``flush``
+  in five cases: windowed and streaming Video Depth Anything (VDA-S,
+  seeded weights with active motion modules, from ``.nztm``) with
+  row_flow_v3, Any_V2_S under an EMA lookahead of 30, and
+  ``mlbw_l2_inpaint_video`` (LightVideoInpaintV1, 12-frame clips) under
+  Any_V2_S and streaming VDA: the frames each call returns, every frame
+  once and in order, exact K3 / K7 launches (K7 also at the window's
+  (32, 6, 1373, 64)), the twins (K7 at the normalised depth, K3 alone on
+  the frame for the clip inpaint, both on the other cases' frames), the
+  windowed model's temporal mixing, fps over whole runs, peak memory and
+  a profiler split;
 - waifu2x turbo_2x, the bundled zoo (``models/waifu2x/turbo``, trained
   weights, no hand-written kernel: cuDNN convs): loads all four
   checkpoints through ``Waifu2x``; holds an untrained turbo_2x and
@@ -370,28 +383,54 @@ def iw3_batch(torch, dev, model_dir, k3, k7):
     return med, launches, psnr
 
 
-def k7_inputs(torch, gen, n, layout):
-    """(8, 6, n, 64) bf16 q, k, v: three contiguous tensors, or ("strided")
-    views of one (8, n, 3, 6, 64) qkv tensor, as dinov2.Attention passes
-    them on the iw3 path."""
+def k7_inputs(torch, gen, n, layout, batch=IW3_BATCH):
+    """(batch, 6, n, 64) bf16 q, k, v: three contiguous tensors, or
+    ("strided") views of one (batch, n, 3, 6, 64) qkv tensor, as
+    dinov2.Attention passes them on the iw3 path."""
     if layout == "strided":
-        qkv = torch.randn((IW3_BATCH, n, 3, 6, 64), generator=gen,
+        qkv = torch.randn((batch, n, 3, 6, 64), generator=gen,
                           device="cuda").to(torch.bfloat16)
         return tuple(qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-    return tuple(torch.randn((IW3_BATCH, 6, n, 64), generator=gen,
+    return tuple(torch.randn((batch, 6, n, 64), generator=gen,
                              device="cuda").to(torch.bfloat16)
                  for _ in range(3))
 
 
 def k7_launch_times(torch, F, k7, q, k, v):
     """K7 and SDPA on the same inputs without the host's share: 20 launches
-    back to back between two CUDA events (median of 3), and torch.profiler's
-    device time a launch."""
-    from nunif_tpu_torch.tools import device_ms, time_ms
+    back to back between two CUDA events (median of 3)."""
+    from nunif_tpu_torch.tools import time_ms
     kernel = lambda: k7.sdpa(q, k, v)  # noqa: E731
     library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-    return dict(ms_b2b=time_ms(kernel, 20), library_ms_b2b=time_ms(library, 20),
-                ms_device=device_ms(kernel), library_ms_device=device_ms(library))
+    return dict(ms_b2b=time_ms(kernel, 20), library_ms_b2b=time_ms(library, 20))
+
+
+# K7's shapes (tokens, layout, batch): the iw3 batch's (8 frames of 1080p:
+# 28 x 49 patches + cls), two others, and Video Depth Anything's window of
+# 32 frames
+K7_SHAPES = ((1373, "contiguous", IW3_BATCH), (1344, "contiguous", IW3_BATCH),
+             (197, "contiguous", IW3_BATCH), (1373, "strided", IW3_BATCH),
+             (1373, "strided", 32))
+
+
+def k7_device_child():
+    """``chip_smoke.py --k7-device-ms``: K7's and SDPA's device time a
+    launch (``tools.device_ms``, torch.profiler) at each of K7_SHAPES, as
+    one JSON line.  The smoke run starts it in a process of its own: in the
+    long one the profiler drops kernel records, and SDPA's read None."""
+    import torch
+    import torch.nn.functional as F
+    from nunif_tpu_torch.ops import sdpa as k7
+    from nunif_tpu_torch.tools import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for n, layout, batch in K7_SHAPES:
+        q, k, v = k7_inputs(torch, gen, n, layout, batch)
+        out[f"{batch} {n} {layout}"] = dict(
+            ms_device=device_ms(lambda: k7.sdpa(q, k, v)),
+            library_ms_device=device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v)))
+    print(json.dumps(out), flush=True)
 
 
 def iw3_cli(model_dir):
@@ -619,6 +658,240 @@ def iw3_methods_cli(model_dir):
     return "cli.main --method " + ", ".join(ckpt)
 
 
+# iw3's temporal path (the "iw3 temporal" phase): uint8 1080p frames in
+# batches of 8 through Iw3FrameProcessor and its flush, half-SBS,
+# divergence 2, convergence 0.5, edge dilation 2.  Case: (depth model,
+# method, frames, EMA (decay, lookahead) or None).
+TEMPORAL_CASES = {
+    "a": ("VDA_S", "row_flow_v3", 48, None),
+    "b": ("VDA_Stream_S", "row_flow_v3", 48, None),
+    "c": ("Any_V2_S", "row_flow_v3", 48, (0.9, 30)),
+    "d": ("Any_V2_S", "mlbw_l2_inpaint_video", 40, None),
+    "e": ("VDA_Stream_S", "mlbw_l2_inpaint_video", 40, None),
+}
+# frames each call returns (the batches, then the flush) and the exact
+# launches of a whole run.  (a) windowed VDA: one window of 32 frames when
+# the 32nd arrives, then the flush's window of 10 context + 16 new frames
+# padded to 32 (K7: 2 windows x 12 blocks at (32, 6, 1373, 64)); K3 once
+# a compose call.  (b) streaming: no lag, K7 12 a batch at (8, 6, 1373,
+# 64).  (c) the lookahead of 30 holds frames 29 deep.  (d, e) the clip
+# queue drains 12 at frames 16, 24 and 40, the flush pads the last 4 to a
+# clip; the mask-MLBW warps each eye of a batch (K3 4 a batch).
+TEMPORAL_COUNTS = {"a": [0, 0, 0, 32, 0, 0, 16], "b": [8] * 6 + [0],
+                   "c": [0, 0, 0, 3, 8, 8, 29], "d": [0, 12, 12, 0, 12, 4],
+                   "e": [0, 12, 12, 0, 12, 4]}
+TEMPORAL_LAUNCHES = {"a": {"sdpa": 24, "warp_x_bounded": 2},
+                     "b": {"sdpa": 72, "warp_x_bounded": 6},
+                     "c": {"sdpa": 72, "warp_x_bounded": 4},
+                     "d": {"sdpa": 60, "warp_x_bounded": 20},
+                     "e": {"sdpa": 60, "warp_x_bounded": 20}}
+# the methods that decide on the depth (the hole mask), held where K3 acts
+TEMPORAL_DISCRETE = ("d", "e")
+CODE_BITS, CODE_ROWS = 6, 96  # the frame index, burnt into the top rows
+
+
+def indexed_frames(torch, dev, n, seed):
+    """iw3_frames with the frame index burnt into the top CODE_ROWS rows as
+    CODE_BITS black / white blocks, most significant first."""
+    frames = iw3_frames(torch, dev, n, *IW3_HW, seed=seed)
+    bw = IW3_HW[1] // CODE_BITS
+    for i in range(n):
+        for b in range(CODE_BITS):
+            frames[i, :CODE_ROWS, b * bw:(b + 1) * bw] = 255 * ((i >> (CODE_BITS - 1 - b)) & 1)
+    return frames
+
+
+def read_indexes(out):
+    """The indexes burnt into half-SBS output frames, from the centres of
+    the left eye's code blocks (which the warp moves by < 40 px)."""
+    bw = out.shape[2] // 2 // CODE_BITS
+    idx = [0] * out.shape[0]
+    for b in range(CODE_BITS):
+        c = b * bw + bw // 2
+        v = out[:, 16:CODE_ROWS - 16, c - bw // 4:c + bw // 4].float().mean(dim=(1, 2, 3))
+        idx = [2 * i + int(x > 127.5) for i, x in zip(idx, v.tolist())]
+    return idx
+
+
+def temporal_models(torch, dev, model_dir):
+    """Seeded VDA-S (motion modules' output projections non-zero) and
+    LightVideoInpaintV1 weights written to .nztm and loaded back through
+    the port's loaders, beside the earlier phases' Any_V2_S, row_flow_v3
+    and mask-MLBW: {name: model}."""
+    from nunif_tpu_torch.iw3.depth import create_depth_model
+    from nunif_tpu_torch.iw3.depth.vda import VideoDepthAnything, shaped_flax_params
+    from nunif_tpu_torch.iw3.mlbw_inpaint import MLBWInpaintVideo
+    from nunif_tpu_torch.iw3.models import light_video_inpaint_v1 as lv
+    from nunif_tpu_torch.models import from_flax, load_model, save_model
+    vda = VideoDepthAnything(encoder="vits")
+    from_flax(vda, shaped_flax_params(vda, 5))
+    save_model(vda, os.path.join(model_dir, "vda_s.nztm"))
+    net = lv.LightVideoInpaintV1()
+    from_flax(net, lv.shaped_flax_params(net, 6))
+    save_model(net, os.path.join(model_dir, "light_video_inpaint_v1.nztm"))
+    del vda, net
+    path = lambda f: os.path.join(model_dir, f)  # noqa: E731
+    models = {name: create_depth_model(name, device=dev).load(checkpoint=path(f))
+              for name, f in (("VDA_S", "vda_s.nztm"), ("VDA_Stream_S", "vda_s.nztm"),
+                              ("Any_V2_S", "depth_any_v2_s.nztm"))}
+    models["row_flow_v3"] = load_model(path("row_flow_v3.nztm"), device=dev)[0]
+    models["mlbw_l2_inpaint_video"] = MLBWInpaintVideo(
+        load_model(path("light_video_inpaint_v1.nztm"), device=dev)[0],
+        load_model(path("mask_mlbw_l2.nztm"), device=dev)[0])
+    return models
+
+
+def temporal_run(torch, models, case, frames):
+    """One whole run of a case from a reset state: (frames each call
+    returned, the outputs as uint8)."""
+    from nunif_tpu_torch.iw3.composition import StereoFormat
+    from nunif_tpu_torch.iw3.pipeline import StereoConfig
+    from nunif_tpu_torch.iw3.video import Iw3FrameProcessor
+    depth_name, method, n, ema = TEMPORAL_CASES[case]
+    dm, side = models[depth_name], models[method]
+    dm.reset()
+    if ema is None:
+        dm.disable_ema()
+    else:
+        dm.enable_ema(ema[0], buffer_size=ema[1])
+    if hasattr(side, "reset"):
+        side.reset()
+    cfg = StereoConfig(method=method, divergence=IW3_DIVERGENCE,
+                       convergence=IW3_CONVERGENCE, format=StereoFormat(half_sbs=True))
+    proc = Iw3FrameProcessor(cfg, dm, side, edge_dilation=2)
+    counts, outs = [], []
+    for y in [proc(frames[i:i + IW3_BATCH]) for i in range(0, n, IW3_BATCH)] + [proc.flush()]:
+        counts.append(0 if y is None else int(y.shape[0]))
+        if y is not None:
+            if not (bool(y.isfinite().all()) and float(y.min()) >= 0.0
+                    and float(y.max()) <= 1.0):
+                fail(f"iw3 temporal ({case}): output not finite in [0, 1]")
+            outs.append((y * 255 + 0.5).to(torch.uint8))
+    torch.cuda.synchronize()
+    return counts, torch.cat(outs)
+
+
+def temporal_depth_psnr(torch, k7, dm, x):
+    """Normalised depth of the frames x (n, H, W, 3) in [0, 1] with K7
+    against K7's twin, uint8 PSNR: a window of the windowed model, or the
+    streaming model from a reset state."""
+    from nunif_tpu_torch.iw3.depth_scaler import frame_stats, minmax_normalize
+
+    def depth():
+        dm.reset()
+        with torch.no_grad():
+            d = dm.infer(x, edge_dilation=2)
+        st = frame_stats(d)
+        return minmax_normalize(d, st[:, 0].reshape(-1, 1, 1, 1),
+                                st[:, 1].reshape(-1, 1, 1, 1))
+    got = depth()
+    with twins((k7, "sdpa")):
+        want = depth()
+    dm.reset()
+    to_u8 = lambda t: (t.clamp(0, 1) * 255 + 0.5).to(torch.uint8)  # noqa: E731
+    return uint8_psnr(to_u8(got), to_u8(want)), float(got.std())
+
+
+def iw3_temporal_phase(torch, dev, model_dir, k3, k7):
+    """The five TEMPORAL_CASES: exact frame counts and launches, every
+    frame once and in order (the burnt-in indexes), outputs finite in [0,
+    1], >= 10% of the left eye's pixels moved, >= 45 dB against the twins
+    (K7 at the normalised depth, K3 alone on the frame where the method
+    decides on the depth, both twins on the frames of the others), the
+    windowed model's temporal mixing, fps (host median of 3 whole runs
+    after a warm one, the flush included), peak memory and a
+    torch.profiler split of one run."""
+    from nunif_tpu_torch.iw3.composition import StereoFormat, postprocess_image
+    models = temporal_models(torch, dev, model_dir)
+    frames = indexed_frames(torch, dev, 48, seed=6)
+    x = frames.float() * (1.0 / 255.0)
+    to_u8 = lambda t: (t.clamp(0, 1) * 255 + 0.5).to(torch.uint8)  # noqa: E731
+    # K7 at the normalised depth; windowed VDA's temporal mixing
+    vda = models["VDA_S"]
+    checks = {}
+    for name, n in (("VDA_S", 32), ("VDA_Stream_S", IW3_BATCH)):
+        checks[name] = temporal_depth_psnr(torch, k7, models[name], x[:n])
+    with torch.no_grad():
+        prep = vda._preprocess(x[:32])
+        window0 = vda.window_forward(prep)[0]
+        alone0 = vda.window_forward(prep[:1])[0]
+    mixing = float((window0 - alone0).abs().max() / (window0.max() - window0.min()))
+    del prep, window0, alone0
+    print(f"iw3 temporal: normalised depth vs K7's twin (PSNR dB, depth std) "
+          f"{checks}; windowed VDA frame 0 in its window vs alone: max diff "
+          f"{mixing:.4f} of its range", flush=True)
+    for name, (psnr, std) in checks.items():
+        if psnr < FRAME_PSNR_MIN or std <= 0.05:
+            fail(f"iw3 temporal: {name} depth vs K7's twin {psnr:.2f} dB, std {std:.4f}")
+    if mixing < 1e-2:
+        fail(f"iw3 temporal: windowed VDA's frame 0 does not depend on its window "
+             f"({mixing:.3g})")
+    rows = {}
+    for case, (depth_name, method, n, ema) in TEMPORAL_CASES.items():
+        what = f"iw3 temporal ({case}: {depth_name}, {method}" + (
+            f", EMA {ema}" if ema else "") + ")"
+        for fn in (k3.warp_x_bounded, k7.sdpa):
+            fn.launches = 0
+        counts, out = temporal_run(torch, models, case, frames)
+        launches = {"sdpa": k7.sdpa.launches,
+                    "warp_x_bounded": k3.warp_x_bounded.launches}
+        order = read_indexes(out)
+        if counts != TEMPORAL_COUNTS[case] or sum(counts) != n:
+            fail(f"{what}: frames a call {counts}, want {TEMPORAL_COUNTS[case]}")
+        if order != list(range(n)):
+            fail(f"{what}: frames out of order or lost: {order}")
+        if launches != TEMPORAL_LAUNCHES[case]:
+            fail(f"{what}: launches {launches}, want {TEMPORAL_LAUNCHES[case]}")
+        # the left eye against the frame composed unwarped
+        first = out[:IW3_BATCH]
+        with torch.no_grad():
+            ref = to_u8(postprocess_image(x[:IW3_BATCH], x[:IW3_BATCH],
+                                          StereoFormat(half_sbs=True)))
+        half = out.shape[2] // 2
+        moved = float(((first[:, :, :half].int() - ref[:, :, :half].int()).abs() > 1)
+                      .float().mean())
+        del ref, first
+        if moved < 0.10:
+            fail(f"{what}: {moved:.4f} of the left eye's pixels moved")
+        pairs = ((k3, "warp_x_bounded"),) if case in TEMPORAL_DISCRETE else (
+            (k3, "warp_x_bounded"), (k7, "sdpa"))
+        with twins(*pairs):
+            _c, out_twin = temporal_run(torch, models, case, frames)
+        psnr = uint8_psnr(out, out_twin)
+        del out, out_twin
+        if psnr < FRAME_PSNR_MIN:
+            fail(f"{what}: PSNR vs twins {psnr:.2f} dB < {FRAME_PSNR_MIN}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            temporal_run(torch, models, case, frames)
+            run_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(run_s)
+        print(f"{what}, {n} x 1080p -> half-SBS: median {med * 1e3:.1f} ms a run "
+              f"({n / med:.2f} fps; runs {[round(v * 1e3, 1) for v in run_s]}); frames "
+              f"a call {counts}; launches {launches}; left-eye pixels moved "
+              f"{moved:.4f}; vs {'K3' if len(pairs) == 1 else 'both'} twin"
+              f"{'' if len(pairs) == 1 else 's'} PSNR {psnr:.2f} dB; peak memory "
+              f"{peak:.2f} GiB", flush=True)
+        print(f"iw3 temporal ({case}) profile:", flush=True)
+        device = profile_frame(torch, lambda f: temporal_run(torch, models, case, f),
+                               frames, top=10,
+                               share_of=("K7 flash_attn", "flash"))
+        rows[case] = dict(ms=med * 1e3, runs_ms=[v * 1e3 for v in run_s], fps=n / med,
+                          frames=n, counts=counts, launches=launches, moved=moved,
+                          psnr=psnr, psnr_twins="K3" if len(pairs) == 1 else "K3 K7",
+                          peak_gib=peak, device_ms=device)
+        torch.cuda.empty_cache()
+    rows["depth_checks"] = {k: {"psnr": v[0], "std": v[1]} for k, v in checks.items()}
+    rows["mixing"] = mixing
+    del models, frames, x
+    torch.cuda.empty_cache()
+    return rows
+
+
 # waifu2x turbo: the bundled zoo's slots (all turbo_2x, dim 128, 8 blocks)
 TURBO_SLOTS = (("scale", None), ("noise_scale", 0), ("noise_scale", 1),
                ("noise_scale", 3))
@@ -678,23 +951,26 @@ def decode_png16(path):
 
 
 def turbo_split(torch, program, frame):
-    """torch.profiler over one frame: device ms of the frame (all kernels),
-    of each renderer / model range, and of the ops that launch kernels
-    inside the model (cuDNN convs, elementwise, copies), by self device
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        program(frame)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    """torch.profiler over one frame (a complete session, ``profiled``):
+    device ms of the frame (all kernels), of each renderer / model range,
+    and of the ops that launch kernels inside the model (cuDNN convs,
+    elementwise, copies), by self device time.  A range that reads 0 is
+    "not measured"; so is the whole split where no session was complete."""
+    session = profiled(torch, program, frame)
+    if session is None:
+        return "not measured (every profiler session dropped records)"
+    events = session.key_averages()
 
     def is_cuda(e):
         return str(e.device_type).endswith("CUDA")
     kernels = [e for e in events if is_cuda(e) and e.key not in TURBO_RANGES]
     total = sum(dev_us(e) for e in kernels) / 1e3
-    ranges = {e.key: (getattr(e, "device_time_total", None)
-                      or getattr(e, "cuda_time_total", 0)) / 1e3
-              for e in events if not is_cuda(e) and e.key in TURBO_RANGES}
+    ranges = {}
+    for e in events:
+        if not is_cuda(e) and e.key in TURBO_RANGES:
+            ms = (getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0)) / 1e3
+            ranges[e.key] = ms if ms > 0 else "not measured"
     ops = {}
     for e in events:
         if not is_cuda(e) and e.key not in TURBO_RANGES and dev_us(e) > 0:
@@ -703,7 +979,8 @@ def turbo_split(torch, program, frame):
     kern = sorted(((dev_us(e) / 1e3, e.count, e.key) for e in kernels),
                   reverse=True)[:8]
     return {"device_ms": total, "ranges_ms": ranges, "ops_ms": top,
-            "kernels": [(round(ms, 4), n, k[:90]) for ms, n, k in kern]}
+            "kernels": [(round(ms, 4), n, k[:90]) for ms, n, k in kern],
+            "session": session.counts}
 
 
 def turbo_phase(torch, dev, smi, work_dir, hw=(1080, 1920)):
@@ -1685,24 +1962,63 @@ def dev_us(e):
         getattr(e, "self_cuda_time_total", 0)
 
 
-def profile_frame(torch, program, frame, top=12, share_of=None):
-    """torch.profiler over one frame: the device time (sum over kernels),
-    the top ops by the device time of the kernels they launch, and the top
-    kernels by name (the port's own kernels, launched through ctypes, belong
-    to no op and show only there); with ``share_of`` (label, name part), the
-    device time and share of the kernels whose name holds the part."""
+class Session:
+    """A complete torch.profiler session: ``key_averages()`` and the
+    (kernels recorded, kernels launched) ``counts``."""
+
+    def __init__(self, prof, counts):
+        self.key_averages = prof.key_averages
+        self.counts = counts
+
+
+def profiled(torch, program, frame, tries=3):
+    """torch.profiler over program(frame), as a ``Session``, or None.  On
+    the card's machine the profiler now and then drops kernel records in a
+    long process, and a split summed from such a session reads short (a
+    range at 0.0 ms); so, as ``nunif_tpu_torch.tools.device_ms`` does, a
+    session counts only if it recorded a device kernel for every launch
+    the host recorded (``*LaunchKernel*``), and up to ``tries`` sessions
+    run."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        program(frame)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            program(frame)
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e for e in events if str(e.device_type).endswith("CUDA")]
+        kernels = sum(1 for e in device if e.name not in TURBO_RANGES
+                      and not e.name.startswith(("Memcpy", "Memset")))
+        launched = sum("LaunchKernel" in e.name for e in events
+                       if not str(e.device_type).endswith("CUDA"))
+        if launched and kernels >= launched:
+            return Session(prof, (kernels, launched))
+        print(f"profiler: a session recorded {kernels} kernels of {launched} "
+              f"launched", flush=True)
+    return None
+
+
+def profile_frame(torch, program, frame, top=12, share_of=None):
+    """torch.profiler over one frame (a complete session, ``profiled``):
+    the device time (sum over kernels), the top ops by the device time of
+    the kernels they launch, and the top kernels by name (the port's own
+    kernels, launched through ctypes, belong to no op and show only there);
+    with ``share_of`` (label, name part), the device time and share of the
+    kernels whose name holds the part.  None, and "not measured", where no
+    session was complete."""
+    session = profiled(torch, program, frame)
+    if session is None:
+        print("profile: not measured (every profiler session dropped records)",
+              flush=True)
+        return None
+    events = session.key_averages()
     # the renderer's ranges may also show as device events: not kernels
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")
                and e.key not in TURBO_RANGES]
     ops = [e for e in events if not str(e.device_type).endswith("CUDA")
            and e.key not in TURBO_RANGES]
     total = sum(dev_us(e) for e in kernels)
-    print(f"profile: device time {total / 1e3:.2f} ms in one frame", flush=True)
+    print(f"profile: device time {total / 1e3:.2f} ms in one frame "
+          f"(kernels recorded / launched {session.counts})", flush=True)
     for label, rows in (("op", ops), ("kernel", kernels)):
         for e in sorted(rows, key=dev_us, reverse=True)[:top]:
             if dev_us(e) <= 0:
@@ -2160,13 +2476,20 @@ def main() -> int:
     del xw, dw, xb, x_nchw, grid, gx, gy
     torch.cuda.empty_cache()
 
-    # 12. K7 at DINOv2-S shapes: 1373 = the 1080p path's 28x49 patches + cls,
-    # on contiguous q, k, v and on the path's strided views of a qkv tensor
+    # 12. K7 at DINOv2-S shapes (K7_SHAPES): 1373 = the 1080p path's 28x49
+    # patches + cls, on contiguous q, k, v and on the path's strided views
+    # of a qkv tensor, at the iw3 batch's 8 frames and VDA's window of 32
     phase("k7")
     k7_rows = {}
-    for n, layout in ((1373, "contiguous"), (1344, "contiguous"),
-                      (197, "contiguous"), (1373, "strided")):
-        q, k, v = k7_inputs(torch, gen, n, layout)
+    # the device times a launch, in a process of their own
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--k7-device-ms"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        fail(f"K7 device time: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    print(proc.stdout.strip(), flush=True)
+    k7_device = json.loads(proc.stdout.strip().splitlines()[-1])
+    for n, layout, batch in K7_SHAPES:
+        q, k, v = k7_inputs(torch, gen, n, layout, batch)
         got = k7.sdpa(q, k, v)
         torch.cuda.synchronize()
         want = k7.sdpa_plain(q, k, v)
@@ -2189,14 +2512,16 @@ def main() -> int:
         tm = compare_timed(lambda: k7.sdpa(q, k, v),
                            lambda: k7.sdpa_plain(q, k, v), torch,
                            library=lambda: F.scaled_dot_product_attention(q, k, v))
-        lt = k7_launch_times(torch, F, k7, q, k, v)
-        bound_ms, bound_by = bound(4 * q.numel() * 2, 4 * IW3_BATCH * 6 * n * n * 64)
-        k7_rows[n, layout] = dict(max_abs_err=err, rel_l2=rel_l2, ms=tm["kernel"],
-                                  plain_ms=tm["plain"], library_ms=tm["library"],
-                                  bound_ms=bound_ms, bound_by=bound_by, **lt)
+        lt = dict(k7_launch_times(torch, F, k7, q, k, v),
+                  **k7_device[f"{batch} {n} {layout}"])
+        bound_ms, bound_by = bound(4 * q.numel() * 2, 4 * batch * 6 * n * n * 64)
+        k7_rows[n, layout, batch] = dict(
+            batch=batch, max_abs_err=err, rel_l2=rel_l2, ms=tm["kernel"],
+            plain_ms=tm["plain"], library_ms=tm["library"], bound_ms=bound_ms,
+            bound_by=bound_by, **lt)
         share = {key: "not measured" if t is None else
                  f"{t:.4f} ms ({bound_ms / t:.1%})" for key, t in lt.items()}
-        print(f"K7 sdpa (8, 6, {n}, 64) {layout}: err {err:.3g} rel-L2 "
+        print(f"K7 sdpa ({batch}, 6, {n}, 64) {layout}: err {err:.3g} rel-L2 "
               f"{rel_l2:.3g} ({'; '.join(ctrl_errs)}); one launch: kernel "
               f"{tm['kernel']:.4f} ms plain {tm['plain']:.3f} ms SDPA "
               f"{tm['library']:.4f} ms; back to back: kernel {share['ms_b2b']} "
@@ -2226,7 +2551,13 @@ def main() -> int:
          for m, r in iw3_methods.items()}),
         flush=True)
 
-    # 14b. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
+    # 14b. iw3's temporal path: VDA (windowed, streaming), the EMA
+    #      lookahead, mlbw_l2_inpaint_video, through the lagged processor
+    phase("iw3 temporal")
+    iw3_temporal = iw3_temporal_phase(torch, dev, model_dir, k3, k7)
+    print(f"iw3 temporal: {smi}; " + json.dumps(iw3_temporal), flush=True)
+
+    # 14c. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
     phase("waifu2x turbo")
     turbo_phase(torch, dev, smi, model_dir)
     tmp.cleanup()
@@ -2269,7 +2600,8 @@ def main() -> int:
     def k2_sum(key):  # one launch in each path's frame
         return sum(r[key] for r in k2_rows)
 
-    k7_main, k7_path = k7_rows[1373, "contiguous"], k7_rows[1373, "strided"]
+    k7_main = k7_rows[1373, "contiguous", IW3_BATCH]
+    k7_path = k7_rows[1373, "strided", IW3_BATCH]
     # the bf16 K1 / K5 kernel's build: one instantiation a tile size
     swin_build = {f"{rows} rows": ptxas_usage(log, f"swin_block_wgmmaILi96ELi{mt}E")
                   for rows, mt in ((256, 2), (128, 1))}
@@ -2358,6 +2690,9 @@ def main() -> int:
          # each iw3 method's batch (the "iw3 methods" phase), counted alone
          "method_launches": {m: r["launches"]["warp_x_bounded"]
                              for m, r in iw3_methods.items()},
+         # each "iw3 temporal" case's whole run (flush included)
+         "temporal_launches": {c: iw3_temporal[c]["launches"]["warp_x_bounded"]
+                               for c in TEMPORAL_CASES},
          "ms": k3_tm["kernel"], "plain_ms": k3_tm["plain"],
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": k3_tm["library"]},
@@ -2378,6 +2713,8 @@ def main() -> int:
          "launches": iw3_launches["sdpa"],
          "method_launches": {m: r["launches"]["sdpa"]
                              for m, r in iw3_methods.items()},
+         "temporal_launches": {c: iw3_temporal[c]["launches"]["sdpa"]
+                               for c in TEMPORAL_CASES},
          "max_abs_err": max(r["max_abs_err"] for r in k7_rows.values()),
          # 12 launches a batch, all at (8, 6, 1373, 64)
          "ms": 12 * k7_main["ms"], "plain_ms": 12 * k7_main["plain_ms"],
@@ -2387,7 +2724,10 @@ def main() -> int:
          # launches back to back (median of 3); the strided row per launch
          "ms_b2b": 12 * k7_path["ms_b2b"],
          "library_ms_b2b": 12 * k7_path["library_ms_b2b"],
-         "strided_per_launch": k7_path},
+         "strided_per_launch": k7_path,
+         # windowed VDA's shape, one launch (strided views, as its trunk
+         # passes them); 12 a window of 32 frames
+         "vda_window_per_launch": k7_rows[1373, "strided", 32]},
         {"name": "fused_swin_block", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/swin_block.cu",
          "replaces": "nunif_tpu/ops/swin_attention.py:780",
@@ -2512,4 +2852,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--k7-device-ms"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        k7_device_child()
+        sys.exit(0)
     sys.exit(main())

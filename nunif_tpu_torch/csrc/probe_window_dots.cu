@@ -103,13 +103,19 @@ struct DotPlan {
   size_t q_raw, q_bytes, kt_chunk, vt_chunk, stage_bytes, part_off, cbar_off, bar_off, total;
 };
 
+// A test hook: bf16 chunks of 128 at C = 128 (the configuration that gave
+// NaNs, see the header) in place of 64, set only by
+// nunif_window_dots_force_chunk128 for a sanitizer run; the path's plan
+// never sets it.
+int g_dot_chunk128 = 0;
+
 // es: element bytes (2 bf16, 1 int8).  N = 0 gives the pack's widths only.
 __host__ inline bool dot_plan(int es, int N, int C, int P, DotPlan* D) {
   if ((es != 1 && es != 2) || N < 0 || N > 128 || C < 1 || C > 128 || P < 1) return false;
   DotPlan d{};
   d.cn = C <= 48 ? 48 : C <= 96 ? 96 : 128;
   d.kp = es == 2 ? d.cn : (int)align_up(C, 32);
-  d.pc = es == 2 && d.cn < 128 ? 112 : 64;
+  d.pc = es == 2 && d.cn < 128 ? 112 : es == 2 && g_dot_chunk128 ? 128 : 64;
   d.nch = (P + d.pc - 1) / d.pc;
   if (N == 0) {
     *D = d;
@@ -391,6 +397,8 @@ int dots(int dtype, DotArgs p, int P, int bw, cudaStream_t stream) {
       err = launch_dots_t<__nv_bfloat16, 96, 96, 112>(p, smem, stream);
     else if (d.kp == 128 && d.cn == 128 && d.pc == 64)
       err = launch_dots_t<__nv_bfloat16, 128, 128, 64>(p, smem, stream);
+    else if (d.kp == 128 && d.cn == 128 && d.pc == 128)
+      err = launch_dots_t<__nv_bfloat16, 128, 128, 128>(p, smem, stream);
     else if (d.kp == 48 && d.cn == 48 && d.pc == 112)
       err = launch_dots_t<__nv_bfloat16, 48, 48, 112>(p, smem, stream);
   } else {
@@ -419,6 +427,14 @@ extern "C" int nunif_window_dots_plan(int dtype, int N, int C, int P, int* out) 
                     (int)d.total};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
   return 0;
+}
+
+// The test hook above: 1 plans bf16 C = 128 in chunks of 128, 0 restores
+// the plan.  Returns the previous setting.
+extern "C" int nunif_window_dots_force_chunk128(int on) {
+  const int old = nunif::g_dot_chunk128;
+  nunif::g_dot_chunk128 = on != 0;
+  return old;
 }
 
 // T4.  q, kt, vt packed by ops/probes.py:pack_dots to the plan's widths;

@@ -9,8 +9,10 @@ Usage:
   python -m nunif_tpu_torch.iw3.cli -i in_dir/ -o out_dir/ --seed 0  # random weights
 
 ``--stereo-checkpoint`` holds the method's net: row_flow / MLBW, or the
-inpaint net of ``forward_inpaint`` / ``mlbw_l2_inpaint`` (whose mask-MLBW
-is always seeded, as in the JAX CLI).
+inpaint net of ``forward_inpaint`` / ``mlbw_l2_inpaint`` /
+``mlbw_l2_inpaint_video`` (whose mask-MLBW is always seeded, as in the JAX
+CLI).  On a still image ``mlbw_l2_inpaint_video`` inpaints the frame as a
+clip padded to 12 frames.
 
 Images only: a video input raises ``NotImplementedError``.  ``--device``
 defaults to ``cuda`` and fails where CUDA is missing.
@@ -120,22 +122,21 @@ def create_stereo_model(method, checkpoint=None, device="cuda", seed=0):
     methods wrap their inpaint net (and a seeded mask-MLBW)."""
     if method in ("forward", "forward_fill", "grid_sample", "backward", "NULL"):
         return None
-    if method == "mlbw_l2_inpaint_video":
-        raise NotImplementedError(
-            "method 'mlbw_l2_inpaint_video' is not ported to nunif_tpu_torch "
-            "yet (ROADMAP queue 1)")
     from ..models import load_model
     from . import models  # noqa: F401  (registers the iw3 nets)
-    if method in ("forward_inpaint", "mlbw_l2_inpaint"):
+    if method in ("forward_inpaint", "mlbw_l2_inpaint", "mlbw_l2_inpaint_video"):
+        video = method == "mlbw_l2_inpaint_video"
         if checkpoint:
             net, _meta = load_model(checkpoint, device=device)
         else:
-            net = _seeded("inpaint.light_inpaint_v1", device, seed)
+            net = _seeded("inpaint.light_video_inpaint_v1" if video
+                          else "inpaint.light_inpaint_v1", device, seed)
         if method == "forward_inpaint":
             from .forward_inpaint import ForwardInpaint
             return ForwardInpaint(net)
-        from .mlbw_inpaint import MLBWInpaint
-        return MLBWInpaint(net, _seeded("sbs.mask_mlbw_l2", device, seed))
+        from .mlbw_inpaint import MLBWInpaint, MLBWInpaintVideo
+        return (MLBWInpaintVideo if video else MLBWInpaint)(
+            net, _seeded("sbs.mask_mlbw_l2", device, seed))
     if checkpoint:
         model, _meta = load_model(checkpoint, device=device)
         return model

@@ -1,6 +1,11 @@
 """Depth model base: lifecycle and the EMA min-max normalisation hooks
 (counterpart of ``nunif_tpu/iw3/depth/base.py``; the DepthAA filter and
-the 16-bit depth PNG round trip are not ported yet)."""
+the 16-bit depth PNG round trip are not ported yet).
+
+With a lookahead buffer (``buffer_size > 1``) the scaler holds frames back:
+``minmax_normalize`` returns fewer frames than it was given and
+``flush_minmax_normalize`` the rest.  ``reset`` clears the scaler and any
+temporal state of the model (``reset_state``)."""
 from __future__ import annotations
 
 from abc import ABCMeta, abstractmethod
@@ -58,14 +63,21 @@ class BaseDepthModel(metaclass=ABCMeta):
     def enable_ema(self, decay, buffer_size=None):
         self.scaler.reset(decay=decay, buffer_size=buffer_size)
 
+    def get_ema_state(self):
+        return self.scaler.decay, self.scaler.buffer_size
+
     def disable_ema(self):
         self.scaler.reset(decay=0, buffer_size=1)
 
     def reset_ema(self, decay=None, buffer_size=None):
         self.scaler.reset(decay=decay, buffer_size=buffer_size)
 
+    def reset_state(self):
+        """Clear the model's temporal state (none here)."""
+
     def reset(self):
         self.reset_ema()
+        self.reset_state()
 
     def get_ema_buffer_size(self):
         return self.scaler.buffer_size
@@ -78,3 +90,7 @@ class BaseDepthModel(metaclass=ABCMeta):
         if reset_ema is not None and len(reset_ema) != depth.shape[0]:
             raise ValueError("reset_ema needs one flag per frame")
         return self.scaler.update_batch(depth, reset_flags=reset_ema)
+
+    def flush_minmax_normalize(self, return_minmax=False):
+        """The frames the lookahead buffer still holds, normalised."""
+        return self.scaler.flush(return_minmax=return_minmax)

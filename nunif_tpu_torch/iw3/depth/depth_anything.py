@@ -70,7 +70,8 @@ class DepthAnything(Model):
         return self.depth_head(feats, patch_hw)
 
 
-def shaped_flax_params(model: DepthAnything, seed: int) -> dict:
+def shaped_flax_params(model: DepthAnything, seed: int,
+                       head: str = "depth_head") -> dict:
     """Seeded random weights in flax layout (numpy, so both packages can be
     given the same arrays) under which the depth map is not degenerate.
 
@@ -85,6 +86,7 @@ def shaped_flax_params(model: DepthAnything, seed: int) -> dict:
       0.5: the head ends in a ReLU, and at a zero bias about half the
       pixels are clipped to 0 and the normalised depth is half flat.  With
       the shift the ReLU output is positive and varies with the image.
+    ``head``: the DPT head's flax name (``head`` in Video Depth Anything).
     """
     rng = np.random.default_rng(seed)
     flat = {}
@@ -99,9 +101,9 @@ def shaped_flax_params(model: DepthAnything, seed: int) -> dict:
             a = np.full(ref.shape, 0.1)
         else:  # bias, cls_token, pos_embed
             a = rng.normal(0.0, 0.02, ref.shape)
-        if key == "depth_head/output_conv2_2/bias":
+        if key == f"{head}/output_conv2_2/bias":
             a = np.ones(ref.shape)
-        elif key == "depth_head/output_conv2_2/kernel":
+        elif key == f"{head}/output_conv2_2/kernel":
             a = a * 0.5
         flat[key] = a.astype(np.float32)
     return flat

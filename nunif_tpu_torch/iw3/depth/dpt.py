@@ -95,7 +95,11 @@ class DPTHead(nn.Module):
         self.output_conv2_0 = nn.Conv2d(features // 2, 32, 3)
         self.output_conv2_2 = nn.Conv2d(32, 1, 1)
 
-    def forward(self, feats, patch_hw):
+    # The forward runs in stages, each batched over frames; Video Depth
+    # Anything's head (``vda.DPTHeadTemporal``) puts its temporal modules
+    # between them.
+    def levels(self, feats, patch_hw):
+        """Token maps -> the resize pyramid's four levels."""
         ph, pw = patch_hw
         B = feats[0].shape[0]
         levels = []
@@ -110,12 +114,17 @@ class DPTHead(nn.Module):
                 # torch Conv2d(stride 2, padding 1) alignment
                 x = conv(x, self.resize_3, stride=2, padding=1)
             levels.append(x)
-        rn = [conv(levels[i], getattr(self, f"layer{i + 1}_rn"), padding=1)
-              for i in range(4)]
-        p4 = self.refinenet4(rn[3], out_hw=rn[2].shape[1:3])
-        p3 = self.refinenet3(p4, rn[2], out_hw=rn[1].shape[1:3])
-        p2 = self.refinenet2(p3, rn[1], out_hw=rn[0].shape[1:3])
-        p1 = self.refinenet1(p2, rn[0])
+        return levels
+
+    def rn(self, levels):
+        return [conv(levels[i], getattr(self, f"layer{i + 1}_rn"), padding=1)
+                for i in range(4)]
+
+    def final(self, p3, rn1, rn0, patch_hw):
+        """Fusion paths 2 and 1 and the output head."""
+        ph, pw = patch_hw
+        p2 = self.refinenet2(p3, rn1, out_hw=rn0.shape[1:3])
+        p1 = self.refinenet1(p2, rn0)
         out = conv(p1, self.output_conv1, padding=1)
         out = _interp(out, ph * 14, pw * 14)
         out = F.relu(conv(out, self.output_conv2_0, padding=1))
@@ -123,3 +132,9 @@ class DPTHead(nn.Module):
         if self.max_depth > 0:
             return torch.sigmoid(out.float()) * self.max_depth
         return F.relu(out)  # (B, H, W, 1)
+
+    def forward(self, feats, patch_hw):
+        rn = self.rn(self.levels(feats, patch_hw))
+        p4 = self.refinenet4(rn[3], out_hw=rn[2].shape[1:3])
+        p3 = self.refinenet3(p4, rn[2], out_hw=rn[1].shape[1:3])
+        return self.final(p3, rn[1], rn[0], patch_hw)

@@ -4,3 +4,4 @@ from .light_inpaint_v1 import LightInpaintV1  # noqa: F401  (inpaint.light_inpai
 from .mlbw import MLBW  # noqa: F401  (sbs.mlbw and sbs.mlbw_l2 ... mask_mlbw_l2)
 from .row_flow_v2 import RowFlowV2  # noqa: F401  (sbs.row_flow_v2)
 from .row_flow_v3 import RowFlowV3  # noqa: F401  (sbs.row_flow_v3)
+from .light_video_inpaint_v1 import LightVideoInpaintV1  # noqa: F401  (inpaint.light_video_inpaint_v1*)

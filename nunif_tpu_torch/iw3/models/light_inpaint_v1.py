@@ -159,7 +159,8 @@ def inpaint_infer(model, x, mask, closing=False, inner_dilation=0,
 RESIDUAL_SCALE = 0.25
 
 
-def shaped_flax_params(model: LightInpaintV1, seed: int) -> dict:
+def shaped_flax_params(model: LightInpaintV1, seed: int,
+                       head=("to_image_1/kernel", 1 / 64)) -> dict:
     """Seeded random weights in flax layout (numpy, shared by both
     packages) under which every layer of the net acts.
 
@@ -176,7 +177,8 @@ def shaped_flax_params(model: LightInpaintV1, seed: int) -> dict:
     that end each residual branch (gMLP's ``proj_out``, the GLU MLP's
     ``w2``) are scaled by ``RESIDUAL_SCALE`` (growth ~2.1x a block, 4.5e-4
     at an output of std 42), and the head ``to_image_1`` by 1/64 for the
-    six blocks' doubling, so the net's output is of the image's order.
+    six blocks' doubling, so the net's output is of the image's order
+    (``head``: (its flax path, its scale)).
     """
     rng = np.random.default_rng(seed)
     flat = {}
@@ -188,8 +190,8 @@ def shaped_flax_params(model: LightInpaintV1, seed: int) -> dict:
             a = np.clip(rng.standard_normal(ref.shape), -2.0, 2.0) * std
             if key.endswith(("proj_out/kernel", "w2/kernel")):
                 a = a * RESIDUAL_SCALE
-            elif key == "to_image_1/kernel":
-                a = a / 64.0
+            elif key == head[0]:
+                a = a * head[1]
         elif leaf == "scale":
             a = rng.normal(1.0, 0.1, ref.shape)
         elif leaf == "mask_bias":

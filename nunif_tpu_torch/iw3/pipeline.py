@@ -4,9 +4,10 @@ NHWC float in [0, 1] (counterpart of ``nunif_tpu/iw3/pipeline.py``).
 Methods: the NN warps (``row_flow_v3``, ``row_flow_v2``, ``mlbw_*``: the
 side model a checkpoint names), ``grid_sample`` / ``backward``, the forward
 warps ``forward`` / ``forward_fill``, the inpaint methods
-``forward_inpaint`` / ``mlbw_l2_inpaint`` (the side model is a
-``ForwardInpaint`` / ``MLBWInpaint``) and ``NULL``.
-``mlbw_l2_inpaint_video`` raises ``NotImplementedError``.
+``forward_inpaint`` / ``mlbw_l2_inpaint`` / ``mlbw_l2_inpaint_video``
+(the side model is a ``ForwardInpaint`` / ``MLBWInpaint`` /
+``MLBWInpaintVideo``, which queues frames into clips and may return
+``(None, None)``: ``video.Iw3FrameProcessor`` carries that) and ``NULL``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from .composition import StereoFormat, postprocess_image
 from .forward_warp import apply_divergence_forward_warp
 from .mapper import get_mapper, resolve_mapper_name
 
-_NOT_PORTED = {"mlbw_l2_inpaint_video"}
+INPAINT_METHODS = ("forward_inpaint", "mlbw_l2_inpaint", "mlbw_l2_inpaint_video")
 
 
 @dataclasses.dataclass
@@ -74,17 +75,13 @@ def apply_divergence(depth, im, cfg: StereoConfig, side_model=None,
                      metric_depth: bool = False, convergence=None):
     """depth (B, h, w, 1) normalised, im (B, H, W, 3) -> (left, right).
     ``convergence``: an optional per-frame (B,) override."""
-    if cfg.method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {cfg.method!r} is not ported to nunif_tpu_torch yet "
-            "(ROADMAP queue 1)")
     mapper_fn = get_mapper(cfg.resolved_mapper(metric_depth))
     if convergence is None:
         convergence = cfg.convergence
     depth = mapper_fn(depth)
     if cfg.method == "NULL":
         return im, im
-    if cfg.method in ("forward_inpaint", "mlbw_l2_inpaint"):
+    if cfg.method in INPAINT_METHODS:
         if side_model is None:
             raise ValueError(f"method {cfg.method} needs an inpaint model")
         return side_model.infer(
@@ -142,6 +139,12 @@ def process_image(x, cfg: StereoConfig, depth_model, side_model=None,
     depth = resize_depth_for(torch.stack(normalized, dim=0), x, cfg)
     left, right = apply_divergence(depth, x, cfg, side_model,
                                    metric_depth=depth_model.is_metric())
+    if cfg.method == "mlbw_l2_inpaint_video":
+        # a clip model: the frames it still queues come out of its flush
+        rest = side_model.flush(inner_dilation=cfg.mask_inner_dilation,
+                                outer_dilation=cfg.mask_outer_dilation)
+        left, right = (a if b is None else b if a is None else torch.cat([a, b])
+                       for a, b in zip((left, right), rest))
     out = postprocess_image(left, right, cfg.format)
     if not batch:
         out = out[0]

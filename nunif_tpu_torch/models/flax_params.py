@@ -1,13 +1,15 @@
 """Weights between the JAX package's flax layout and the port's modules.
 
 A flax path ``a/b/c/kernel`` is the torch parameter ``a.b.c.weight``,
-except that a ``LayerNorm``'s weight is flax's ``a/b/scale`` (a
+except that a ``LayerNorm``'s or ``GroupNorm``'s weight is flax's
+``a/b/scale`` (a
 ``LayerNormNoBias`` holds its ``LayerNorm`` as ``LayerNorm_0``, flax's
 auto-name); ``bias`` and every other leaf name
 (``relative_position_bias_table``, ``cls_token``, ``pos_embed``,
 ``ls1/gamma``, the inpaint net's ``mask_bias``, gMLP's
 ``proj_spatial_kernel`` / ``proj_spatial_bias``) keep their name and
-layout.  Dense kernels ``(in, out)``
+layout.  Video Depth Anything's trees (``pretrained/...``, ``head/...``,
+``head/motion_modules_i/...``) follow the same rules.  Dense kernels ``(in, out)``
 become Linear weights ``(out, in)``, conv kernels HWIO become OIHW, flax
 ``ConvTranspose(transpose_kernel=True)`` kernels ``(kh, kw, O, I)`` become
 ``ConvTranspose2d`` weights ``(I, O, kh, kw)`` by the same 4-D rule, and
@@ -31,7 +33,7 @@ def flax_key(torch_name: str, layer_norm: bool = False) -> str:
 def flax_keys(module: nn.Module) -> dict:
     """{torch parameter name: flax path} for every parameter of module."""
     norms = {name for name, m in module.named_modules()
-             if isinstance(m, nn.LayerNorm)}
+             if isinstance(m, (nn.LayerNorm, nn.GroupNorm))}
     return {name: flax_key(name, name.rpartition(".")[0] in norms)
             for name, _p in module.named_parameters()}
 

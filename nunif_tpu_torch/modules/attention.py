@@ -6,13 +6,14 @@ window-ordered tokens when ``NUNIF_TPU_SWIN_IMG`` is not "1" (as in the JAX
 module); with a LayerNorm the block runs on window-ordered tokens and its
 attention is kernel K4 (all in ``ops/swin_attention.py``).
 ``WindowScoreBias`` and ``WindowMHA2d`` (row_flow_v3's and MLBW's
-rectangular-window attention) and ``GMLP`` / ``WindowGMLP2d`` (the inpaint
-net's token mixer) are plain PyTorch, as the JAX package leaves them to
-XLA.
+rectangular-window attention) and ``GMLP`` / ``WindowGMLP2d`` /
+``WindowGMLP3d`` (the inpaint nets' token mixers, in space and in time)
+are plain PyTorch, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
 import functools
+import math
 import os
 
 import numpy as np
@@ -23,7 +24,8 @@ from torch import nn
 from ..core.dtypes import cast_param
 from ..ops import swin_attention as _kernels
 from .norm import LayerNorm
-from .permute import window_partition2, window_reverse2
+from .permute import (window_partition2, window_partition3, window_reverse2,
+                      window_reverse3)
 
 
 @functools.lru_cache(maxsize=32)
@@ -421,4 +423,35 @@ class WindowGMLP2d(nn.Module):
                               ws, H, W)
         if pad:
             out = out[:, pad:H - pad, pad:W - pad, :]
+        return out
+
+
+class WindowGMLP3d(nn.Module):
+    """``GMLP`` inside (wd, wh, ww) windows of an NDHWC clip (flax path
+    ``gmlp``); ``shift`` pads by half a window: H and W with zeros, D (the
+    frame axis) by reflection."""
+
+    def __init__(self, in_channels: int, window_size=(4, 4, 4),
+                 mlp_ratio: int = 2, shift: bool = False):
+        super().__init__()
+        self.window_size = (tuple(window_size)
+                            if isinstance(window_size, (tuple, list))
+                            else (window_size,) * 3)
+        self.shift = shift
+        self.gmlp = GMLP(in_channels, math.prod(self.window_size), mlp_ratio)
+
+    def forward(self, x: torch.Tensor, norm1=None, norm2=None) -> torch.Tensor:
+        window = self.window_size
+        pd, ph, pw = (s // 2 if self.shift else 0 for s in window)
+        if ph or pw:
+            x = F.pad(x, (0, 0, pw, pw, ph, ph))
+        if pd:
+            # reflect-pad the frame axis (torch reflects only trailing axes)
+            x = torch.cat([x[:, 1:pd + 1].flip(1), x,
+                           x[:, -pd - 1:-1].flip(1)], dim=1)
+        _b, D, H, W, _c = x.shape
+        out = window_reverse3(self.gmlp(window_partition3(x, window), norm1, norm2),
+                              window, D, H, W)
+        if pd or ph or pw:
+            out = out[:, pd:D - pd, ph:H - ph, pw:W - pw, :]
         return out

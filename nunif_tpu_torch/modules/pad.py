@@ -18,6 +18,10 @@ def replication_pad2d(x: torch.Tensor, pads) -> torch.Tensor:
     return _pad_nchw(x, pads, "replicate")
 
 
+def reflection_pad2d(x: torch.Tensor, pads) -> torch.Tensor:
+    return _pad_nchw(x, pads, "reflect")
+
+
 def zero_pad2d(x: torch.Tensor, pads) -> torch.Tensor:
     return _pad_nchw(x, pads, "constant")
 

@@ -78,3 +78,22 @@ def window_reverse2(x: torch.Tensor, window, h: int, w: int) -> torch.Tensor:
     c = x.shape[-1]
     x = x.reshape(b, nh, nw, wh, ww, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h, w, c)
+
+
+def window_partition3(x: torch.Tensor, window) -> torch.Tensor:
+    """(B, D, H, W, C) -> (B*nD*nH*nW, wd*wh*ww, C) with a (wd, wh, ww)
+    window."""
+    wd, wh, ww = window
+    b, d, h, w, c = x.shape
+    nd, nh, nw = d // wd, h // wh, w // ww
+    x = x.reshape(b, nd, wd, nh, wh, nw, ww, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(b * nd * nh * nw, wd * wh * ww, c)
+
+
+def window_reverse3(x: torch.Tensor, window, d: int, h: int, w: int) -> torch.Tensor:
+    """Inverse of ``window_partition3``."""
+    wd, wh, ww = window
+    nd, nh, nw = d // wd, h // wh, w // ww
+    c = x.shape[-1]
+    x = x.reshape(-1, nd, nh, nw, wd, wh, ww, c).permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return x.reshape(-1, d, h, w, c)

@@ -74,6 +74,8 @@ _SIGNATURES = {
     "nunif_window_dots_repeat": [_I] + [_P] * 5 + [_I] * 6 + [_P],
     # dtype, N, C, P, int out[9]
     "nunif_window_dots_plan": [_I] * 4 + [_P],
+    # on (T4's test-only bf16 chunk-128 plan)
+    "nunif_window_dots_force_chunk128": [_I],
     # x, (w, b, s) of qkv, proj, fc1, fc2, bias, out, H, W, C, G, rh, cw,
     # pieces, dense_int8, scores_int8, w_scale, cut, qscale, eps, inv127,
     # stream

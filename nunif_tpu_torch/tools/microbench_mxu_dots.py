@@ -6,7 +6,13 @@ times on operands that stay on the chip, with a data dependency, over
 1024 windows in blocks of 16.  Prints ns per window dot pair, beside the
 plain twin and, in bf16, the same REPS loop of torch.bmm pairs.
 
+With ``--chunk128`` it runs instead, once, the configuration that gave
+NaNs (bf16 at C = 128 with P in chunks of 128, a plan only this switch
+sets) against the twin and prints its NaN count and error: the target of
+a ``compute-sanitizer`` run.
+
 Usage: python -m nunif_tpu_torch.tools.microbench_mxu_dots [index ...]
+       python -m nunif_tpu_torch.tools.microbench_mxu_dots --chunk128
 """
 from __future__ import annotations
 
@@ -85,5 +91,36 @@ def run(select=None) -> list:
             if select is None or i in select]
 
 
+def chunk128() -> dict:
+    """bf16 N 36 C 128 P 256 in chunks of 128 (the test hook), once, with
+    the per-window check against the twin."""
+    import torch
+    from ..ops import _build, probes
+    print(f"device: {require_cuda()}", flush=True)
+    q, khat, vhat = inputs(36, 128, 256, False, seed=11)
+    lib = _build.library()
+    lib.nunif_window_dots_force_chunk128(1)
+    try:
+        print(f"plan: {probes.window_dots_plan(torch.bfloat16, 36, 128, 256)}",
+              flush=True)
+        check = torch.zeros((q.shape[0], 36, 128), device="cuda")
+        got = probes.window_dots_repeat(q, khat, vhat, check=check)
+        torch.cuda.synchronize()
+    finally:
+        lib.nunif_window_dots_force_chunk128(0)
+    want_check = torch.zeros_like(check)
+    want = probes.window_dots_repeat_plain(q, khat, vhat, want_check)
+    out = dict(nan_out=int(got.isnan().sum()), nan_windows=int(check.isnan().sum()),
+               windows_with_nan=int(check.isnan().flatten(1).any(1).sum()),
+               max_abs_err=float((got - want).abs().nan_to_num(float("inf")).max()),
+               max_abs_err_windows=float(
+                   (check - want_check).abs().nan_to_num(float("inf")).max()))
+    print(out, flush=True)
+    return out
+
+
 if __name__ == "__main__":
-    run(set(int(a) for a in sys.argv[1:]) or None)
+    if sys.argv[1:] == ["--chunk128"]:
+        chunk128()
+    else:
+        run(set(int(a) for a in sys.argv[1:]) or None)

@@ -226,7 +226,7 @@ def test_checkpoint_round_trip_both_packages(pair, tmp_path):
 
 def test_unported_depth_inputs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_depth_model("VDA_S", device="cpu")
+        create_depth_model("DepthPro", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_depth_model("ZoeD_N", device="cpu")
     dm = create_depth_model("Any_V2_S", device="cpu")

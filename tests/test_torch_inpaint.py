@@ -18,11 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import nunif_tpu.iw3.mlbw_inpaint as j_mlbw_inpaint
-from nunif_tpu.iw3 import dilation as jdil
 from nunif_tpu.iw3.backward_warp import postprocess_hole_mask as j_hole_mask
 from nunif_tpu.iw3.forward_inpaint import ForwardInpaint as JForwardInpaint
 from nunif_tpu.iw3.models import light_inpaint_v1 as jli
@@ -40,21 +38,7 @@ from nunif_tpu_torch.iw3.models import mlbw as tmlbw
 from nunif_tpu_torch.models import from_flax, init_flax_default, model_kwargs, to_flax
 
 import torch_iw3_helpers as h
-
-
-def j_hole_mask_port_order(mask_logits, target_hw, threshold,
-                           inner_dilation=0, outer_dilation=0):
-    """The JAX package's steps of ``postprocess_hole_mask`` in the port's
-    order: resize, threshold, close, dilate."""
-    base_width = mask_logits.shape[2]
-    m = mask_logits.astype(jnp.float32)
-    if tuple(m.shape[1:3]) != tuple(target_hw):
-        m = j_resize(m, target_hw[0], target_hw[1], mode="bilinear",
-                     antialias=False, align_corners=True)
-    mask = jdil.mask_closing((jax.nn.sigmoid(m) > threshold).astype(jnp.float32),
-                             n_iter=1)
-    mask = jdil.dilate_inner(mask, n_iter=inner_dilation, base_width=base_width)
-    return jdil.dilate_outer(mask, n_iter=outer_dilation, base_width=base_width)
+from torch_iw3_helpers import j_hole_mask_port_order
 
 
 @pytest.fixture

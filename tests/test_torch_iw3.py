@@ -244,14 +244,10 @@ def test_unported_paths_raise(weights, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Iw3FrameProcessor(StereoConfig(), dm, flow, crop=(slice(0, 4), slice(None)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        process_image(torch.zeros(8, 8, 3),
-                      StereoConfig(method="mlbw_l2_inpaint_video"), dm)
+        Iw3FrameProcessor(StereoConfig(), dm, flow, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         postprocess_image(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 3),
                           StereoFormat(anaglyph="dubois"))
-    dm.enable_ema(0.9, buffer_size=30)
-    with pytest.raises(NotImplementedError, match="lookahead"):
-        Iw3FrameProcessor(StereoConfig(), dm, flow)(np.zeros((1, 8, 8, 3), np.uint8))
     with pytest.raises(NotImplementedError, match="video"):
         cli.main(["-i", str(tmp_path / "clip.mp4"), "-o", str(tmp_path / "o.mp4"),
                   "--device", "cpu"])

@@ -131,8 +131,9 @@ def test_cli_methods_on_cpu(tmp_path, depth_weights, frames, method):
 
 def test_cli_seeded_models_and_unported_method(frames):
     """Without a checkpoint each method builds its nets from flax's init
-    (seeded); the new flags reach the config; mlbw_l2_inpaint_video still
-    raises."""
+    (seeded); the new flags reach the config; mlbw_l2_inpaint_video builds
+    its clip model (tests/test_torch_inpaint_video.py) and, like every
+    inpaint method, needs it."""
     from nunif_tpu_torch.iw3 import cli
     for method in ("row_flow_v2", "row_flow_v3_sym", "mlbw_l4s"):
         model = cli.create_stereo_model(method, device="cpu", seed=3)
@@ -142,8 +143,11 @@ def test_cli_seeded_models_and_unported_method(frames):
         assert not any(p.requires_grad for p in model.parameters())
     for method in ("forward", "forward_fill", "grid_sample", "NULL"):
         assert cli.create_stereo_model(method, device="cpu") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.create_stereo_model("mlbw_l2_inpaint_video", device="cpu")
+    from nunif_tpu_torch.iw3.mlbw_inpaint import MLBWInpaintVideo
+    from nunif_tpu_torch.iw3.models.light_video_inpaint_v1 import LightVideoInpaintV1
+    video = cli.create_stereo_model("mlbw_l2_inpaint_video", device="cpu")
+    assert type(video) is MLBWInpaintVideo
+    assert type(video.inpaint_model) is LightVideoInpaintV1
     args = cli.create_parser().parse_args(
         ["-i", "a", "-o", "b", "--preserve-screen-border",
          "--mask-inner-dilation", "2", "--mask-outer-dilation", "3",
@@ -152,5 +156,5 @@ def test_cli_seeded_models_and_unported_method(frames):
     assert (cfg.preserve_screen_border, cfg.mask_inner_dilation,
             cfg.mask_outer_dilation, cfg.inpaint_max_width) == (True, 2, 3, 640)
     x = h.t(frames[:1]).float() / 255
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="inpaint model"):
         apply_divergence(x[..., :1], x, StereoConfig(method="mlbw_l2_inpaint_video"))

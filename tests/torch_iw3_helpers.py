@@ -5,12 +5,15 @@ the depth models of both packages on the same weights."""
 import types
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
 
 import nunif_tpu.iw3.composition as j_composition
+from nunif_tpu.iw3 import dilation as jdil
+from nunif_tpu.modules.resize import resize as j_resize
 import nunif_tpu.iw3.depth.depth_anything as j_depth_anything
 import nunif_tpu.modules.grid_sample as j_grid_sample
 from nunif_tpu.models import unflatten_params
@@ -87,14 +90,20 @@ def frames():
     return u8(np.stack(f))
 
 
-def patch_fp32(monkeypatch):
-    """Both packages with their hard-coded bf16 image casts resolved to
-    fp32: JAX's ``jnp.bfloat16`` in three modules, the port's
-    ``IMAGE_DTYPE`` (as tests/test_torch_iw3.py does)."""
+def jnp_fp32():
+    """A stand-in for ``jax.numpy`` whose ``bfloat16`` is fp32."""
     proxy = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
                                      if not k.startswith("__")})
     proxy.bfloat16 = jnp.float32
-    for mod in (j_depth_anything, j_grid_sample, j_composition):
+    return proxy
+
+
+def patch_fp32(monkeypatch, *modules):
+    """Both packages with their hard-coded bf16 image casts resolved to
+    fp32: JAX's ``jnp.bfloat16`` in three modules (and in ``modules``), the
+    port's ``IMAGE_DTYPE`` (as tests/test_torch_iw3.py does)."""
+    proxy = jnp_fp32()
+    for mod in (j_depth_anything, j_grid_sample, j_composition) + modules:
         monkeypatch.setattr(mod, "jnp", proxy)
     monkeypatch.setattr(dtypes, "IMAGE_DTYPE", torch.float32)
 
@@ -109,3 +118,74 @@ def depth_models(dflat):
     jdm.params = jparams(dflat)
     jdm.prep_lower_bound = RESOLUTION
     return dm, jdm
+
+
+def j_hole_mask_port_order(mask_logits, target_hw, threshold,
+                           inner_dilation=0, outer_dilation=0):
+    """The JAX package's steps of ``postprocess_hole_mask`` in the port's
+    order: resize, threshold, close, dilate."""
+    base_width = mask_logits.shape[2]
+    m = mask_logits.astype(jnp.float32)
+    if tuple(m.shape[1:3]) != tuple(target_hw):
+        m = j_resize(m, target_hw[0], target_hw[1], mode="bilinear",
+                     antialias=False, align_corners=True)
+    mask = jdil.mask_closing((jax.nn.sigmoid(m) > threshold).astype(jnp.float32),
+                             n_iter=1)
+    mask = jdil.dilate_inner(mask, n_iter=inner_dilation, base_width=base_width)
+    return jdil.dilate_outer(mask, n_iter=outer_dilation, base_width=base_width)
+
+
+CODE_BITS, CODE_ROWS = 4, 24  # the frame index, burnt into the top rows
+
+
+def indexed_frames(n, h=96, w=256, seed=8):
+    """n uint8 frames (n, h, w, 3) with structure (smooth colour fields, a
+    moving block, noise) whose index i is burnt into the top CODE_ROWS
+    rows as CODE_BITS black / white blocks, most significant first."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / h
+    out = []
+    for i in range(n):
+        f = 0.5 + 0.3 * np.stack([np.sin(3 * xx + 0.2 * i), np.cos(2 * yy - xx),
+                                  xx * yy / 3], -1)
+        f[h // 3:2 * h // 3, 20 + 6 * i:60 + 6 * i] = 0.85
+        f = f + 0.03 * rng.standard_normal(f.shape)
+        bw = w // CODE_BITS
+        for b in range(CODE_BITS):
+            f[:CODE_ROWS, b * bw:(b + 1) * bw] = (i >> (CODE_BITS - 1 - b)) & 1
+        out.append(f)
+    return u8(np.stack(out))
+
+
+def read_indexes(out):
+    """The frame indexes burnt into half-SBS output frames (n, h, w, 3),
+    read from the centres of the left eye's code blocks."""
+    out = np.asarray(out, np.float32)
+    bw = out.shape[2] // 2 // CODE_BITS
+    idx = np.zeros(out.shape[0], np.int64)
+    for b in range(CODE_BITS):
+        c = b * bw + bw // 2
+        v = out[:, 4:CODE_ROWS - 4, c - bw // 4:c + bw // 4].mean(axis=(1, 2, 3))
+        idx = idx * 2 + (v > 0.5)
+    return idx.tolist()
+
+
+def add_vitt(mp, jdino, tdino, jvda, tvda):
+    """Both packages' tables with the tests-only encoder ``vitt`` and a
+    narrow DPT head (undone by ``mp.undo()``)."""
+    for mod in (jdino, tdino):
+        mp.setitem(mod.INTERMEDIATE_LAYER_IDX, "vitt", [0, 1, 1, 1])
+    for mod in (jvda, tvda):
+        mp.setitem(mod._DPT_CONFIGS, "vitt",
+                   dict(features=16, out_channels=(8, 16, 32, 64)))
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two torch threads for a test file, restored after: the runner's
+    parallel workers each default to one thread a core, which
+    oversubscribes the CPU for the files that run whole networks."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
