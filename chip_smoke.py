@@ -66,6 +66,17 @@ written by the port:
   the frame for the clip inpaint, both on the other cases' frames), the
   windowed model's temporal mixing, fps over whole runs, peak memory and
   a profiler split;
+- iw3's other depth families ("iw3 depth families"): ZoeD_N, ZoeD_NK,
+  ZoeD_Any_N, Any_V3_Mono and NULL on 8 structured 1080p frames through
+  ``Iw3FrameProcessor`` with row_flow_v3, DepthPro and DepthPro_S on one
+  through ``process_image``, at full width (BEiT-L / ViT-L) on weights
+  seeded on the card (ZoeD_N's through a .nztm round trip): exact K7
+  launches (``FAMILY_K7``), not degenerate, K7 against its twin at the
+  normalised depth and the frame against the twin path (>= 45 dB), the
+  time (median of 3 after a warm run) and peak memory; then the image CLI
+  with ``--depth-model ZoeD_N`` and ``DepthPro``; K7 is also held and
+  timed at DepthPro's (35, 16, 577, 64) and ZoeD_Any_N's (8, 16, 1401,
+  64);
 - waifu2x turbo_2x, the bundled zoo (``models/waifu2x/turbo``, trained
   weights, no hand-written kernel: cuDNN convs): loads all four
   checkpoints through ``Waifu2x``; holds an untrained turbo_2x and
@@ -383,15 +394,15 @@ def iw3_batch(torch, dev, model_dir, k3, k7):
     return med, launches, psnr
 
 
-def k7_inputs(torch, gen, n, layout, batch=IW3_BATCH):
-    """(batch, 6, n, 64) bf16 q, k, v: three contiguous tensors, or
-    ("strided") views of one (batch, n, 3, 6, 64) qkv tensor, as
+def k7_inputs(torch, gen, n, layout, batch=IW3_BATCH, heads=6):
+    """(batch, heads, n, 64) bf16 q, k, v: three contiguous tensors, or
+    ("strided") views of one (batch, n, 3, heads, 64) qkv tensor, as
     dinov2.Attention passes them on the iw3 path."""
     if layout == "strided":
-        qkv = torch.randn((batch, n, 3, 6, 64), generator=gen,
+        qkv = torch.randn((batch, n, 3, heads, 64), generator=gen,
                           device="cuda").to(torch.bfloat16)
         return tuple(qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-    return tuple(torch.randn((batch, 6, n, 64), generator=gen,
+    return tuple(torch.randn((batch, heads, n, 64), generator=gen,
                              device="cuda").to(torch.bfloat16)
                  for _ in range(3))
 
@@ -405,12 +416,15 @@ def k7_launch_times(torch, F, k7, q, k, v):
     return dict(ms_b2b=time_ms(kernel, 20), library_ms_b2b=time_ms(library, 20))
 
 
-# K7's shapes (tokens, layout, batch): the iw3 batch's (8 frames of 1080p:
-# 28 x 49 patches + cls), two others, and Video Depth Anything's window of
-# 32 frames
-K7_SHAPES = ((1373, "contiguous", IW3_BATCH), (1344, "contiguous", IW3_BATCH),
-             (197, "contiguous", IW3_BATCH), (1373, "strided", IW3_BATCH),
-             (1373, "strided", 32))
+# K7's shapes (tokens, layout, batch, heads): the iw3 batch's (8 frames of
+# 1080p: 28 x 49 patches + cls), two others, Video Depth Anything's window
+# of 32 frames (ViT-S, 6 heads); the ViT-L trunks at 16 heads: DepthPro's
+# 35 tiles of a frame (24 x 24 patches + cls) and ZoeD_Any_N's batch of 8
+# (a 392 x 700 input: 28 x 50 patches + cls)
+K7_SHAPES = ((1373, "contiguous", IW3_BATCH, 6), (1344, "contiguous", IW3_BATCH, 6),
+             (197, "contiguous", IW3_BATCH, 6), (1373, "strided", IW3_BATCH, 6),
+             (1373, "strided", 32, 6), (577, "strided", 35, 16),
+             (1401, "strided", IW3_BATCH, 16))
 
 
 def k7_device_child():
@@ -424,9 +438,9 @@ def k7_device_child():
     from nunif_tpu_torch.tools import device_ms
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {}
-    for n, layout, batch in K7_SHAPES:
-        q, k, v = k7_inputs(torch, gen, n, layout, batch)
-        out[f"{batch} {n} {layout}"] = dict(
+    for n, layout, batch, heads in K7_SHAPES:
+        q, k, v = k7_inputs(torch, gen, n, layout, batch, heads)
+        out[f"{batch} {heads} {n} {layout}"] = dict(
             ms_device=device_ms(lambda: k7.sdpa(q, k, v)),
             library_ms_device=device_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v)))
@@ -889,6 +903,205 @@ def iw3_temporal_phase(torch, dev, model_dir, k3, k7):
     rows["mixing"] = mixing
     del models, frames, x
     torch.cuda.empty_cache()
+    return rows
+
+
+# iw3's other depth families (the "iw3 depth families" phase): K7 launches a
+# batch of 8 1080p frames (DepthPro / DepthPro_S: one frame), from the
+# code's shape math.  ZoeD_N / NK run the BEiT attention (plain, with its
+# bias) and no K7; ZoeD_Any_N's DINOv2-L takes 24 blocks at (8, 16, 1401,
+# 64); Any_V3_Mono's at (8, 16, 1373, 64); DepthPro's patch ViT runs its
+# 35 tiles as one batch, (35, 16, 577, 64) x 24, and the image and FOV
+# ViTs (1, 16, 577, 64) x 24 each (DepthPro_S: 257 tokens); NULL has no
+# network.
+FAMILY_K7 = {"ZoeD_N": 0, "ZoeD_NK": 0, "ZoeD_Any_N": 24, "Any_V3_Mono": 24,
+             "NULL": 0, "DepthPro": 72, "DepthPro_S": 72}
+FAMILY_FRAMES = {"DepthPro": 1, "DepthPro_S": 1}  # process_image, one frame
+ROUND_TRIP_FAMILY = "ZoeD_N"
+
+
+def family_model(torch, dev, name, model_dir, seed):
+    """(depth wrapper, parameters): the wrapper's own ``load()`` on the card
+    (its full-width net, flax's init drawn from a card generator), then
+    ``seeded_weights_`` in place from the same generator with the family's
+    ``SEEDED_FILLS``; ``ROUND_TRIP_FAMILY``'s weights are then written to
+    .nztm and loaded back through ``load(checkpoint=)`` (the others skip
+    the round trip: DepthPro's ~950M parameters would make a 3.8 GB
+    file)."""
+    from nunif_tpu_torch.iw3.depth import create_depth_model
+    from nunif_tpu_torch.iw3.depth.base import SEEDED_FILLS, seeded_weights_
+    from nunif_tpu_torch.models import save_model, to_flax
+    dm = create_depth_model(name, device=dev)
+    if name == "NULL":
+        return dm.load(), 0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dm.load(generator=gen)
+    seeded_weights_(dm.model, gen, fills=SEEDED_FILLS[name])
+    n_params = sum(p.numel() for p in dm.model.parameters())
+    if name == ROUND_TRIP_FAMILY:
+        net = dm.model
+        path = os.path.join(model_dir, "zoed_n.nztm")
+        t0 = time.perf_counter()
+        save_model(net, path)
+        dm.load(checkpoint=path)
+        loaded = to_flax(dm.model)
+        same = all(np.array_equal(loaded[k], v) for k, v in to_flax(net).items())
+        print(f"iw3 depth families: {name} weights -> {path} "
+              f"({os.path.getsize(path) / 2 ** 30:.2f} GiB) -> load(checkpoint=) in "
+              f"{time.perf_counter() - t0:.1f} s; arrays equal {same}", flush=True)
+        if not same:
+            fail(f"iw3 depth families: {name}'s .nztm round trip changed the weights")
+        del net, loaded
+    return dm, n_params
+
+
+def family_depth(torch, dm, x):
+    """The normalised depth (the family's scaler mode, per frame) of x."""
+    from nunif_tpu_torch.iw3.depth_scaler import frame_stats
+    with torch.no_grad():
+        d = dm.infer(x, edge_dilation=2)
+        st = frame_stats(d)
+        return dm.scaler.normalize(d, st[:, 0].reshape(-1, 1, 1, 1),
+                                   st[:, 1].reshape(-1, 1, 1, 1))
+
+
+def family_run(torch, dm, flow, frames, name):
+    """The family's frames -> half-SBS: Iw3FrameProcessor on a batch, or
+    process_image on one frame (DepthPro).  uint8 out."""
+    from nunif_tpu_torch.iw3.composition import StereoFormat
+    from nunif_tpu_torch.iw3.pipeline import StereoConfig, process_image
+    from nunif_tpu_torch.iw3.video import Iw3FrameProcessor
+    cfg = StereoConfig(method="row_flow_v3", divergence=IW3_DIVERGENCE,
+                       convergence=IW3_CONVERGENCE, format=StereoFormat(half_sbs=True))
+    if name in FAMILY_FRAMES:
+        x = frames[0].float() * (1.0 / 255.0)
+        y = process_image(x, cfg, dm, flow, edge_dilation=2)[None]
+    else:
+        y = Iw3FrameProcessor(cfg, dm, flow, edge_dilation=2)(frames)
+    if not (bool(y.isfinite().all()) and float(y.min()) >= 0.0 and float(y.max()) <= 1.0):
+        fail(f"iw3 depth families ({name}): output not finite in [0, 1]")
+    return (y * 255 + 0.5).to(torch.uint8)
+
+
+def family_cli(model_dir):
+    """The image CLI with --depth-model ZoeD_N (the .nztm written by the
+    round trip) and DepthPro (its default seeded init)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return "skipped (no PIL)"
+    import torch
+    from nunif_tpu_torch.iw3 import cli
+    frame = iw3_frames(torch, torch.device("cuda"), 1, 540, 960, seed=22)[0]
+    src = os.path.join(model_dir, "families_in.png")
+    Image.fromarray(frame.cpu().numpy()).save(src)
+    ran = []
+    for name, extra in (("ZoeD_N", ["--depth-checkpoint",
+                                    os.path.join(model_dir, "zoed_n.nztm")]),
+                        ("DepthPro", [])):
+        out = os.path.join(model_dir, f"families_{name}.png")
+        t0 = time.perf_counter()
+        cli.main(["-i", src, "-o", out, "--half-sbs", "--device", "cuda",
+                  "--depth-model", name, "--stereo-checkpoint",
+                  os.path.join(model_dir, "row_flow_v3.nztm")] + extra)
+        with Image.open(out) as im:
+            if im.size != (960, 540):
+                fail(f"iw3 CLI --depth-model {name}: output size {im.size}")
+        ran.append(f"--depth-model {name} ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    return "; ".join(ran)
+
+
+def depth_families_phase(torch, dev, model_dir, k3, k7):
+    """Every family of FAMILY_K7 at full width on seeded weights: 8
+    structured 1080p frames through Iw3FrameProcessor with row_flow_v3
+    (DepthPro / DepthPro_S: one frame through process_image), exact K7
+    launches, outputs finite in [0, 1], the normalised depth not flat
+    (std > 0.05) and >= 10% of the left eye's pixels moved, K7 against its
+    twin at the normalised depth and the frame against the twin path
+    (K3 and K7), both >= 45 dB, the time (median of 3 after a warm run) and
+    peak memory; then the image CLI with ZoeD_N and DepthPro.  (No
+    torch.profiler split: in this long process every session of these
+    batches recorded 20-26 kernels fewer than it launched.)"""
+    from nunif_tpu_torch.iw3.composition import StereoFormat, postprocess_image
+    from nunif_tpu_torch.models import load_model
+    t_phase = time.perf_counter()
+    flow = load_model(os.path.join(model_dir, "row_flow_v3.nztm"), device=dev)[0]
+    frames = iw3_frames(torch, dev, IW3_BATCH, *IW3_HW, seed=21)
+    to_u8 = lambda t: (t.clamp(0, 1) * 255 + 0.5).to(torch.uint8)  # noqa: E731
+    rows = {}
+    for seed, name in enumerate(FAMILY_K7, start=30):
+        t_family = time.perf_counter()
+        torch.cuda.empty_cache()
+        dm, n_params = family_model(torch, dev, name, model_dir, seed)
+        n = FAMILY_FRAMES.get(name, IW3_BATCH)
+        what = f"iw3 depth families ({name}, {n} x 1080p -> half-SBS)"
+        for fn in (k3.warp_x_bounded, k7.sdpa):
+            fn.launches = 0
+        out = family_run(torch, dm, flow, frames, name)
+        torch.cuda.synchronize()
+        launches = {"sdpa": k7.sdpa.launches, "warp_x_bounded": k3.warp_x_bounded.launches}
+        if tuple(out.shape) != (n,) + IW3_HW + (3,):
+            fail(f"{what}: output shape {tuple(out.shape)}")
+        if launches["sdpa"] != FAMILY_K7[name] or launches["warp_x_bounded"] != 1:
+            fail(f"{what}: launches {launches}, want sdpa {FAMILY_K7[name]}, "
+                 f"warp_x_bounded 1")
+        x = frames[:n].float() * (1.0 / 255.0)
+        depth = family_depth(torch, dm, x)
+        depth_std = float(depth.std())
+        if FAMILY_K7[name]:
+            with twins((k7, "sdpa")):
+                depth_twin = family_depth(torch, dm, x)
+            depth_psnr = uint8_psnr(to_u8(depth), to_u8(depth_twin))
+            del depth_twin
+        else:
+            depth_psnr = None  # no K7 on this family's path
+        with torch.no_grad():
+            ref = to_u8(postprocess_image(x, x, StereoFormat(half_sbs=True)))
+        half = IW3_HW[1] // 2
+        moved = float(((out[:, :, :half].int() - ref[:, :, :half].int()).abs() > 1)
+                      .float().mean())
+        del ref, depth, x
+        if depth_std <= 0.05 or moved < 0.10:
+            fail(f"{what}: degenerate: normalised depth std {depth_std:.4f}, "
+                 f"left-eye pixels moved {moved:.4f}")
+        if depth_psnr is not None and depth_psnr < FRAME_PSNR_MIN:
+            fail(f"{what}: normalised depth vs K7's twin {depth_psnr:.2f} dB "
+                 f"< {FRAME_PSNR_MIN}")
+        with twins((k3, "warp_x_bounded"), (k7, "sdpa")):
+            out_twin = family_run(torch, dm, flow, frames, name)
+        psnr = uint8_psnr(out, out_twin)
+        del out, out_twin
+        if psnr < FRAME_PSNR_MIN:
+            fail(f"{what}: PSNR vs twins {psnr:.2f} dB < {FRAME_PSNR_MIN}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            family_run(torch, dm, flow, frames, name)
+            torch.cuda.synchronize()
+            run_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(run_ms)
+        rows[name] = dict(ms=med, runs_ms=run_ms, fps=1000 * n / med, frames=n,
+                          params=n_params, launches=launches,
+                          depth_psnr_vs_k7_twin=depth_psnr, depth_std=depth_std,
+                          moved=moved, psnr_vs_twins=psnr, peak_gib=peak,
+                          seconds=time.perf_counter() - t_family)
+        print(f"{what}: median {med:.1f} ms ({1000 * n / med:.2f} fps; runs "
+              f"{[round(v, 1) for v in run_ms]}); {n_params / 1e6:.1f}M parameters; "
+              f"peak memory {peak:.2f} GiB; launches {launches} (K7 want "
+              f"{FAMILY_K7[name]}); normalised depth std {depth_std:.4f}, vs K7's "
+              f"twin {'no K7' if depth_psnr is None else f'{depth_psnr:.2f} dB'}; "
+              f"left-eye pixels moved {moved:.4f}; frame vs twins {psnr:.2f} dB; "
+              f"{rows[name]['seconds']:.1f} s", flush=True)
+        del dm
+        torch.cuda.empty_cache()
+    ran = family_cli(model_dir)
+    print(f"iw3 depth families CLI ran: {ran}", flush=True)
+    print(f"iw3 depth families: phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return rows
 
 
@@ -2488,8 +2701,8 @@ def main() -> int:
         fail(f"K7 device time: rc {proc.returncode}: {proc.stderr[-2000:]}")
     print(proc.stdout.strip(), flush=True)
     k7_device = json.loads(proc.stdout.strip().splitlines()[-1])
-    for n, layout, batch in K7_SHAPES:
-        q, k, v = k7_inputs(torch, gen, n, layout, batch)
+    for n, layout, batch, heads in K7_SHAPES:
+        q, k, v = k7_inputs(torch, gen, n, layout, batch, heads)
         got = k7.sdpa(q, k, v)
         torch.cuda.synchronize()
         want = k7.sdpa_plain(q, k, v)
@@ -2513,15 +2726,15 @@ def main() -> int:
                            lambda: k7.sdpa_plain(q, k, v), torch,
                            library=lambda: F.scaled_dot_product_attention(q, k, v))
         lt = dict(k7_launch_times(torch, F, k7, q, k, v),
-                  **k7_device[f"{batch} {n} {layout}"])
-        bound_ms, bound_by = bound(4 * q.numel() * 2, 4 * batch * 6 * n * n * 64)
-        k7_rows[n, layout, batch] = dict(
-            batch=batch, max_abs_err=err, rel_l2=rel_l2, ms=tm["kernel"],
+                  **k7_device[f"{batch} {heads} {n} {layout}"])
+        bound_ms, bound_by = bound(4 * q.numel() * 2, 4 * batch * heads * n * n * 64)
+        k7_rows[n, layout, batch, heads] = dict(
+            batch=batch, heads=heads, max_abs_err=err, rel_l2=rel_l2, ms=tm["kernel"],
             plain_ms=tm["plain"], library_ms=tm["library"], bound_ms=bound_ms,
             bound_by=bound_by, **lt)
         share = {key: "not measured" if t is None else
                  f"{t:.4f} ms ({bound_ms / t:.1%})" for key, t in lt.items()}
-        print(f"K7 sdpa ({batch}, 6, {n}, 64) {layout}: err {err:.3g} rel-L2 "
+        print(f"K7 sdpa ({batch}, {heads}, {n}, 64) {layout}: err {err:.3g} rel-L2 "
               f"{rel_l2:.3g} ({'; '.join(ctrl_errs)}); one launch: kernel "
               f"{tm['kernel']:.4f} ms plain {tm['plain']:.3f} ms SDPA "
               f"{tm['library']:.4f} ms; back to back: kernel {share['ms_b2b']} "
@@ -2557,7 +2770,12 @@ def main() -> int:
     iw3_temporal = iw3_temporal_phase(torch, dev, model_dir, k3, k7)
     print(f"iw3 temporal: {smi}; " + json.dumps(iw3_temporal), flush=True)
 
-    # 14c. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
+    # 14c. iw3's other depth families at full width on seeded weights
+    phase("iw3 depth families")
+    families = depth_families_phase(torch, dev, model_dir, k3, k7)
+    print(f"iw3 depth families: {smi}; " + json.dumps(families), flush=True)
+
+    # 14d. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
     phase("waifu2x turbo")
     turbo_phase(torch, dev, smi, model_dir)
     tmp.cleanup()
@@ -2600,8 +2818,8 @@ def main() -> int:
     def k2_sum(key):  # one launch in each path's frame
         return sum(r[key] for r in k2_rows)
 
-    k7_main = k7_rows[1373, "contiguous", IW3_BATCH]
-    k7_path = k7_rows[1373, "strided", IW3_BATCH]
+    k7_main = k7_rows[1373, "contiguous", IW3_BATCH, 6]
+    k7_path = k7_rows[1373, "strided", IW3_BATCH, 6]
     # the bf16 K1 / K5 kernel's build: one instantiation a tile size
     swin_build = {f"{rows} rows": ptxas_usage(log, f"swin_block_wgmmaILi96ELi{mt}E")
                   for rows, mt in ((256, 2), (128, 1))}
@@ -2727,7 +2945,13 @@ def main() -> int:
          "strided_per_launch": k7_path,
          # windowed VDA's shape, one launch (strided views, as its trunk
          # passes them); 12 a window of 32 frames
-         "vda_window_per_launch": k7_rows[1373, "strided", 32]},
+         "vda_window_per_launch": k7_rows[1373, "strided", 32, 6],
+         # the "iw3 depth families" phase: each family's batch of 8 frames
+         # (DepthPro / DepthPro_S: one frame), counted alone; one launch at
+         # DepthPro's 35 tiles and at ZoeD_Any_N's batch (ViT-L, 16 heads)
+         "family_launches": {f: r["launches"]["sdpa"] for f, r in families.items()},
+         "depth_pro_tiles_per_launch": k7_rows[577, "strided", 35, 16],
+         "zoe_any_per_launch": k7_rows[1401, "strided", IW3_BATCH, 16]},
         {"name": "fused_swin_block", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/swin_block.cu",
          "replaces": "nunif_tpu/ops/swin_attention.py:780",

@@ -22,8 +22,11 @@
 //   64 used at N = 36); P is cut into chunks of PC columns (bf16 112, or 64
 //   at C = 128; int8 64), so that s of one chunk, e and o fit the
 //   registers: o accumulates over the chunks.  (bf16 chunks of 128 at C =
-//   128 gave NaNs on the H100 in every plan, with every other piece of the
-//   kernel unchanged; the cause was not found, and 64 is exact.)  (The transposed form, P
+//   128 gave NaNs on the H100: ptxas gave e's A fragments q's registers
+//   and never reloaded q, so every repetition after the first read e as
+//   q.  That plan now reloads q's fragments a chunk (see the consumer
+//   loop): a workaround for that register allocation, not a fault found in
+//   the asm operands' constraints.  The path keeps chunks of 64.)  (The transposed form, P
 //   and C as M, pads less but runs n40 products whose A and B come from
 //   shared memory at once, about the same time by shared-memory bytes, and
 //   moves e through shared memory between the products.)
@@ -279,10 +282,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kDotThreads, 1)
       // q's fragments for rows 64 mt + 16 warp .. (rows past N read the
       // next plane or khat: finite, and only their own rows use them)
       uint32_t qf[KS][4];
+      auto load_q = [&]() {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldmatrix_x4(qf[ks], st + (2 * ks + (lane >> 4)) * qplane +
-                                (mt * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * 16);
+        for (int ks = 0; ks < KS; ++ks)
+          ldmatrix_x4(qf[ks], st + (2 * ks + (lane >> 4)) * qplane +
+                                  (mt * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * 16);
+      };
+      load_q();
       const bool chain = w % kDotBlockWindows == 0 && mt == 0;  // window 0: the carry's source
       const uint32_t kt_addr = smem_addr(st) + p.q_bytes;
       const uint32_t vt_addr = kt_addr + per * p.kt_chunk;
@@ -296,6 +302,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kDotThreads, 1)
       uint32_t a[KS2][4] = {};
       for (int rep = 0; rep < p.reps; ++rep) {
         for (int c = 0; c < per; ++c) {
+          // chunks of 128: q's fragments again from shared memory.  With
+          // them held across the loop, ptxas put e's A fragments in q's
+          // registers (R152-R183 in both products' SASS) and never loaded q
+          // again, so every product after the first read e as q and the
+          // repetitions diverged to NaN.  This works around that
+          // allocation; why ptxas reused live registers is not known.
+          if (PC == 128 && (rep > 0 || c > 0)) load_q();
           Acc S[PC / 2];
           wgmma_fence();
 #pragma unroll
@@ -397,7 +410,7 @@ int dots(int dtype, DotArgs p, int P, int bw, cudaStream_t stream) {
       err = launch_dots_t<__nv_bfloat16, 96, 96, 112>(p, smem, stream);
     else if (d.kp == 128 && d.cn == 128 && d.pc == 64)
       err = launch_dots_t<__nv_bfloat16, 128, 128, 64>(p, smem, stream);
-    else if (d.kp == 128 && d.cn == 128 && d.pc == 128)
+    else if (d.kp == 128 && d.cn == 128 && d.pc == 128)  // the test hook only
       err = launch_dots_t<__nv_bfloat16, 128, 128, 128>(p, smem, stream);
     else if (d.kp == 48 && d.cn == 48 && d.pc == 112)
       err = launch_dots_t<__nv_bfloat16, 48, 48, 112>(p, smem, stream);

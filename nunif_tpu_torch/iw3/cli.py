@@ -7,6 +7,9 @@ Usage:
   python -m nunif_tpu_torch.iw3.cli -i in.png -o out.png --method mlbw_l2 \\
       --stereo-checkpoint mlbw_l2.nztm
   python -m nunif_tpu_torch.iw3.cli -i in_dir/ -o out_dir/ --seed 0  # random weights
+  python -m nunif_tpu_torch.iw3.cli -i in.png -o out.png --depth-model ZoeD_N
+  python -m nunif_tpu_torch.iw3.cli -i in.png -o out.png --depth-model DepthPro \
+      --depth-checkpoint depth_pro.pt
 
 ``--stereo-checkpoint`` holds the method's net: row_flow / MLBW, or the
 inpaint net of ``forward_inpaint`` / ``mlbw_l2_inpaint`` /
@@ -56,9 +59,14 @@ def create_parser():
     p.add_argument("--method", default="row_flow_v3", choices=METHODS)
     p.add_argument("--divergence", "-d", type=float, default=2.0)
     p.add_argument("--convergence", "-c", type=float, default=0.5)
-    p.add_argument("--depth-model", default="Any_V2_S")
+    p.add_argument("--depth-model", default="Any_V2_S",
+                   help="depth model type (nunif_tpu_torch.iw3.depth."
+                        "DEPTH_MODEL_TYPES: Depth-Anything, NULL, VDA, ZoeD_*, "
+                        "DepthPro / DepthPro_S, Any_V3_Mono / Any_V3_Mono_01)")
     p.add_argument("--depth-checkpoint", default=None,
-                   help=".nztm checkpoint of the depth model")
+                   help="depth model weights: a .nztm file, or a raw upstream "
+                        ".pth / .pt / .safetensors (Depth-Anything, DepthPro, "
+                        "DA3), by suffix")
     p.add_argument("--stereo-checkpoint", default=None,
                    help=".nztm checkpoint of the method's net (row_flow, "
                         "MLBW, or the inpaint net)")
@@ -68,7 +76,9 @@ def create_parser():
                    choices=["both", "right", "left"])
     p.add_argument("--preserve-screen-border", action="store_true")
     p.add_argument("--resolution", type=int, default=None,
-                   help="depth model input resolution (multiple of 14)")
+                   help="depth model input resolution, rounded up to a "
+                        "multiple of 32 for ZoeD_N / K / NK and of 14 for the "
+                        "others; DepthPro ignores it")
     p.add_argument("--tta", action="store_true")
     p.add_argument("--edge-dilation", type=int, default=None,
                    help="depth edge dilation (default 2)")
@@ -162,7 +172,7 @@ def main(argv=None) -> int:
     depth_model = create_depth_model(args.depth_model, device=device)
     depth_model.load(resolution=args.resolution,
                      checkpoint=args.depth_checkpoint,
-                     generator=torch.Generator().manual_seed(args.seed))
+                     generator=torch.Generator(device=device).manual_seed(args.seed))
     side_model = create_stereo_model(args.method, args.stereo_checkpoint,
                                      device=device, seed=args.seed)
     edge_dilation = 2 if args.edge_dilation is None else args.edge_dilation

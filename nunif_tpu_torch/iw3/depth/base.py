@@ -1,6 +1,7 @@
-"""Depth model base: lifecycle and the EMA min-max normalisation hooks
-(counterpart of ``nunif_tpu/iw3/depth/base.py``; the DepthAA filter and
-the 16-bit depth PNG round trip are not ported yet).
+"""Depth model base: lifecycle, the EMA min-max normalisation hooks and
+the network loader of every family (counterpart of
+``nunif_tpu/iw3/depth/base.py``; the DepthAA filter and the 16-bit depth
+PNG round trip are not ported yet).
 
 With a lookahead buffer (``buffer_size > 1``) the scaler holds frames back:
 ``minmax_normalize`` returns fewer frames than it was given and
@@ -8,12 +9,110 @@ With a lookahead buffer (``buffer_size > 1``) the scaler holds frames back:
 temporal state of the model (``reset_state``)."""
 from __future__ import annotations
 
+import logging
+import math
 from abc import ABCMeta, abstractmethod
 
 import torch
 
 from ...core.device import resolve_device
 from ..depth_scaler import EMAMinMaxScaler
+
+logger = logging.getLogger("nunif_tpu_torch.iw3")
+
+
+def load_depth_net(checkpoint, device, cls, build, convert=None, generator=None):
+    """A depth wrapper's network on ``device``, in eval mode:
+    - a raw upstream checkpoint (``.pth`` / ``.pt`` / ``.safetensors``, by
+      suffix) converted by ``convert(state_dict) -> (model, flax tree)``;
+    - a ``.nztm`` file, which must hold a ``cls``;
+    - without a checkpoint, ``build()`` with flax's init drawn from
+      ``generator`` (default: seed 0), and the JAX package's warning."""
+    from ...models import from_flax, init_flax_default, load_model
+    from ...models.pth_import import is_raw_checkpoint, load_torch_checkpoint
+    from ...models.torch_convert import flatten
+    if checkpoint is not None and is_raw_checkpoint(checkpoint):
+        if convert is None:
+            raise ValueError(f"{checkpoint}: {cls.__name__} reads .nztm "
+                             "checkpoints only")
+        _name, _kwargs, sd = load_torch_checkpoint(checkpoint)
+        with torch.device(device):
+            model, tree = convert(sd)
+        from_flax(model, flatten(tree))
+        logger.info("converted %s checkpoint %s", cls.__name__, checkpoint)
+    elif checkpoint is not None:
+        model, _meta = load_model(checkpoint, device=device)
+        if not isinstance(model, cls):
+            raise ValueError(f"{checkpoint}: not an {cls.model_name} "
+                             f"checkpoint ({type(model).__name__})")
+        return model
+    else:
+        logger.warning("%s: no checkpoint given; random init "
+                       "(structure/benchmark use only)", cls.__name__)
+        with torch.device(device):  # torch's own init runs where the net will
+            model = build()
+        init_flax_default(model, generator or torch.Generator().manual_seed(0))
+    return model.eval().requires_grad_(False).to(device)
+
+
+# the heads' output biases under seeded weights (``seeded_weights_``'s
+# fills), by model type: positive ReLU maps, a sky map that is not all sky,
+# a field of view near 60 degrees (else f_px is far off)
+_ZOE_FILLS = {"core/output_conv2_2/bias": [1.0]}
+_ZOE_ANY_FILLS = {"core/depth_head/output_conv2_2/bias": [1.0]}
+_DA3_FILLS = {"depth_head/output_conv2_2/bias": [0.5, -0.8]}
+_PRO_FILLS = {"head_conv4/bias": [1.0], "fov_head4/bias": [60.0]}
+SEEDED_FILLS = {"ZoeD_N": _ZOE_FILLS, "ZoeD_K": _ZOE_FILLS, "ZoeD_NK": _ZOE_FILLS,
+                "ZoeD_Any_N": _ZOE_ANY_FILLS, "ZoeD_Any_K": _ZOE_ANY_FILLS,
+                "Any_V3_Mono": _DA3_FILLS, "Any_V3_Mono_01": _DA3_FILLS,
+                "DepthPro": _PRO_FILLS, "DepthPro_S": _PRO_FILLS}
+
+
+def seeded_leaf(leaf, shape, fan_in, normal):
+    """The seeded value of a flax leaf named ``leaf``, from ``normal(shape)``
+    (standard normal draws, numpy's or torch's): kernels N(0, 1/fan_in)
+    clipped at 2 std, LayerNorm scales 1 + N(0, 0.02), LayerScale gammas
+    0.1 (a float), relative-position tables N(0, 0.5) (so the bias moves
+    the scores), every other leaf (biases, class tokens, position
+    embeddings) N(0, 0.02)."""
+    if leaf in ("kernel", "qkv_kernel"):
+        return normal(shape).clip(-2.0, 2.0) * (math.sqrt(1.0 / fan_in) / 0.8796256610342398)
+    if leaf == "scale":
+        return 1.0 + 0.02 * normal(shape)
+    if leaf in ("gamma", "gamma_1", "gamma_2"):
+        return 0.1
+    if leaf == "relative_position_bias_table":
+        return 0.5 * normal(shape)
+    return 0.02 * normal(shape)
+
+
+@torch.no_grad()
+def seeded_weights_(model, generator, fills=None):
+    """Fill ``model`` in place with seeded random weights under which its
+    maps are not degenerate: ``seeded_leaf`` by flax leaf name (fan-in of
+    the flax layout), drawn from ``generator`` on its own device so that a
+    full-width net is filled on the card.  ``fills``: {flax path: value or
+    list of values} set afterwards (``SEEDED_FILLS``)."""
+    from ...models.flax_params import flax_keys
+
+    def randn(shape):
+        return torch.randn(shape, generator=generator, device=generator.device)
+
+    params = dict(model.named_parameters())
+    keys = flax_keys(model)
+    for name, key in keys.items():
+        p = params[name]
+        leaf = key.rsplit("/", 1)[-1]
+        owner = model.get_submodule(name.rpartition(".")[0])
+        # torch layout (out, in, ...): the flax layout's fan-in
+        fan_in = (owner.fan_in if hasattr(owner, "fan_in") else
+                  p.shape[0] if leaf == "qkv_kernel" else math.prod(p.shape[1:]))
+        a = seeded_leaf(leaf, p.shape, fan_in, randn)
+        p.copy_(a) if torch.is_tensor(a) else p.fill_(a)
+    for key, value in (fills or {}).items():
+        name = next(n for n, k in keys.items() if k == key)
+        params[name].copy_(torch.as_tensor(value, dtype=torch.float32))
+    return model
 
 
 class BaseDepthModel(metaclass=ABCMeta):
@@ -44,6 +143,12 @@ class BaseDepthModel(metaclass=ABCMeta):
     @abstractmethod
     def is_metric(self):
         ...
+
+    def is_image_supported(self):
+        return True
+
+    def is_video_supported(self):
+        return True
 
     @abstractmethod
     def load_model(self, model_type, resolution=None, **kwargs):

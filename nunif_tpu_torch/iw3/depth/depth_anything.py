@@ -10,20 +10,17 @@ one forward pass, edge dilation and metric inversion.
 from __future__ import annotations
 
 import functools
-import logging
 import math
 
 import numpy as np
 import torch
 
-from ...models import Model, init_flax_default, register_model, to_flax
+from ...models import Model, register_model, to_flax
 from ...modules.resize import resize
 from ..dilation import dilate_edge, edge_dilation_is_enabled
-from .base import BaseDepthModel
+from .base import BaseDepthModel, load_depth_net, seeded_leaf
 from .dinov2 import INTERMEDIATE_LAYER_IDX, VIT_CONFIGS, DinoVisionTransformer
 from .dpt import DPTHead
-
-logger = logging.getLogger("nunif_tpu_torch.iw3")
 
 MIN_RESOLUTION = 224
 
@@ -72,18 +69,20 @@ class DepthAnything(Model):
 
 def shaped_flax_params(model: DepthAnything, seed: int,
                        head: str = "depth_head") -> dict:
-    """Seeded random weights in flax layout (numpy, so both packages can be
-    given the same arrays) under which the depth map is not degenerate.
+    """Seeded random weights in flax layout under which the depth map is
+    not degenerate: ``base.seeded_leaf``'s rules (those of
+    ``seeded_weights_``) on numpy's draws, so that both packages can be
+    given the same arrays, which the earlier tests and smoke phases hold.
 
-    The base draw is flax's init (lecun-normal kernels clipped at 2 std,
+    The rules are flax's init (lecun-normal kernels clipped at 2 std,
     N(0, 0.02) position embedding), with three changes:
     - biases, LayerNorm scales and shifts are drawn N(0, 0.02) around their
       init (0, 1, 0) and the class token N(0, 0.02), so that no path is
       exactly symmetric;
     - LayerScale gammas are 0.1 instead of 1e-5: at 1e-5 the blocks add
       nothing and the features are the patch embedding alone;
-    - ``depth_head/output_conv2_2/bias`` is 1.0 and its kernel scaled by
-      0.5: the head ends in a ReLU, and at a zero bias about half the
+    - here, ``depth_head/output_conv2_2/bias`` is 1.0 and its kernel scaled
+      by 0.5: the head ends in a ReLU, and at a zero bias about half the
       pixels are clipped to 0 and the normalised depth is half flat.  With
       the shift the ReLU output is positive and varies with the image.
     ``head``: the DPT head's flax name (``head`` in Video Depth Anything).
@@ -91,16 +90,9 @@ def shaped_flax_params(model: DepthAnything, seed: int,
     rng = np.random.default_rng(seed)
     flat = {}
     for key, ref in to_flax(model).items():
-        leaf = key.rsplit("/", 1)[-1]
-        if leaf == "kernel":
-            std = math.sqrt(1.0 / math.prod(ref.shape[:-1])) / 0.8796256610342398
-            a = np.clip(rng.standard_normal(ref.shape), -2.0, 2.0) * std
-        elif leaf == "scale":
-            a = 1.0 + rng.normal(0.0, 0.02, ref.shape)
-        elif leaf == "gamma":
-            a = np.full(ref.shape, 0.1)
-        else:  # bias, cls_token, pos_embed
-            a = rng.normal(0.0, 0.02, ref.shape)
+        a = np.broadcast_to(seeded_leaf(key.rsplit("/", 1)[-1], ref.shape,
+                                        math.prod(ref.shape[:-1]), rng.standard_normal),
+                            ref.shape)
         if key == f"{head}/output_conv2_2/bias":
             a = np.ones(ref.shape)
         elif key == f"{head}/output_conv2_2/kernel":
@@ -179,28 +171,19 @@ class DepthAnythingModel(BaseDepthModel):
 
     def load_model(self, model_type, resolution=None, checkpoint=None,
                    generator=None, **kwargs):
-        """``checkpoint``: a ``.nztm`` file; without one the weights are
-        flax's init drawn from ``generator`` (default: seed 0)."""
-        from ...models import load_model
+        """``checkpoint``: a ``.nztm`` file or a raw torch.hub state dict
+        (``.pth`` / ``.pt`` / ``.safetensors``); without one the weights
+        are flax's init drawn from ``generator`` (default: seed 0)."""
+        from ...models.torch_convert import convert_depth_anything
         self.prep_lower_bound = resolution or 392
         if self.prep_lower_bound % 14 != 0:
             self.prep_lower_bound += 14 - self.prep_lower_bound % 14
-        if checkpoint is not None and str(checkpoint).endswith(".pth"):
-            raise NotImplementedError(
-                "reading raw .pth depth checkpoints is not ported to "
-                "nunif_tpu_torch yet (ROADMAP queue 1: the models/torch_convert "
-                "path); convert to .nztm with the JAX package first")
-        if checkpoint is not None:
-            model, _meta = load_model(checkpoint, device=self.device)
-            if not isinstance(model, DepthAnything):
-                raise ValueError(f"{checkpoint}: not an iw3.depth_anything "
-                                 f"checkpoint ({type(model).__name__})")
-            return model
-        logger.warning("DepthAnything: no checkpoint given; random init "
-                       "(structure/benchmark use only)")
-        model = DepthAnything(encoder=self.encoder, max_depth=self.max_depth)
-        init_flax_default(model, generator or torch.Generator().manual_seed(0))
-        return model.eval().requires_grad_(False).to(self.device)
+        build = lambda: DepthAnything(encoder=self.encoder,  # noqa: E731
+                                      max_depth=self.max_depth)
+        return load_depth_net(
+            checkpoint, self.device, DepthAnything, build,
+            lambda sd: (build(), convert_depth_anything(sd, self.encoder)),
+            generator)
 
     @torch.no_grad()
     def infer(self, x, tta=False, edge_dilation=0, **kwargs):

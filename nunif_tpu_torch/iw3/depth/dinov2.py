@@ -1,7 +1,7 @@
 """DINOv2 vision transformer encoder, NHWC input (counterpart of
 ``nunif_tpu/iw3/depth/dinov2.py``).
 
-Patch-14 conv embedding, class token, learned position embedding resized
+Patch-14 (DepthPro: patch-16) conv embedding, class token, learned position embedding resized
 bicubically to the patch grid, pre-norm blocks with LayerScale and an exact
 GELU MLP, final LayerNorm on the requested intermediate outputs.  The
 attention of every block runs kernel K7 (``ops/sdpa.py``) on CUDA.  Module
@@ -118,7 +118,11 @@ class DinoVisionTransformer(nn.Module):
             self._pos_key = key
         return self._pos
 
-    def forward(self, x: torch.Tensor, out_indices: Sequence[int] = ()):
+    def forward(self, x: torch.Tensor, out_indices: Sequence[int] = (),
+                raw_indices: Sequence[int] = ()):
+        """out_indices: block outputs with the final norm applied;
+        raw_indices: block outputs without it (DepthPro's latents),
+        appended after the normed ones.  Class token dropped."""
         B, H, W, _ = x.shape
         ps = self.patch_size
         ph, pw = H // ps, W // ps
@@ -129,12 +133,14 @@ class DinoVisionTransformer(nn.Module):
         cls = cast_param(self.cls_token, x.dtype).expand(B, 1, self.embed_dim)
         tokens = torch.cat([cls, tokens], dim=1) \
             + self.position_embedding(ph, pw).to(x.dtype)
+        keep = set(out_indices) | set(raw_indices)
         outputs = {}
         for i in range(self.depth):
             tokens = getattr(self, f"blocks_{i}")(tokens)
-            if i in out_indices:
+            if i in keep:
                 outputs[i] = tokens
-        feats = [layer_norm(outputs[i], self.norm)[:, 1:] for i in out_indices]
+        feats = ([layer_norm(outputs[i], self.norm)[:, 1:] for i in out_indices]
+                 + [outputs[i][:, 1:] for i in raw_indices])
         return feats, (ph, pw)
 
 

@@ -23,6 +23,17 @@ def minmax_normalize(frame, min_value, max_value):
     return torch.where(scale > 0, normalized, frame.clamp(0.0, 1.0))
 
 
+def max_normalize(frame, min_value, max_value):
+    """frame / max clipped to [0, 1] (the minimum is not used); a max <= 0
+    gives clip(frame, 0, 1)."""
+    max_value = _as(max_value, frame)
+    normalized = (frame / max_value.clamp(min=1e-38)).clamp(0.0, 1.0)
+    return torch.where(max_value > 0, normalized, frame.clamp(0.0, 1.0))
+
+
+NORMALIZERS = {"minmax": minmax_normalize, "max": max_normalize}
+
+
 def frame_stats(frames: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 1) -> (B, 2) per-frame [min, max]."""
     flat = frames.reshape(frames.shape[0], -1)
@@ -59,12 +70,17 @@ class MinMaxBuffer:
 
 class EMAMinMaxScaler:
     """decay 0 / buffer 1 is per-frame min-max; decay > 0 smooths the range
-    over frames; buffer > 1 looks ahead that many frames."""
-    normalize = staticmethod(minmax_normalize)
+    over frames; buffer > 1 looks ahead that many frames.  ``mode``
+    "minmax" maps [min, max] to [0, 1], "max" divides by the max only
+    (Depth-Anything-V3 mono)."""
 
-    def __init__(self, decay=0.0, buffer_size=1):
+    def __init__(self, decay=0.0, buffer_size=1, mode="minmax"):
         if buffer_size <= 0:
             raise ValueError("buffer_size must be positive")
+        if mode not in NORMALIZERS:
+            raise ValueError(f"unknown scaler mode {mode!r}")
+        self.mode = mode
+        self.normalize = NORMALIZERS[mode]
         self.frame_queue = []
         self.reset(decay=decay, buffer_size=buffer_size)
 

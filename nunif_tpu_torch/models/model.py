@@ -20,7 +20,12 @@ class Model(nn.Module):
 
 
 def model_kwargs(model: nn.Module) -> dict:
-    """Constructor kwargs of ``model`` (for checkpoint metadata)."""
+    """Constructor kwargs of ``model`` (for checkpoint metadata); a model
+    whose argument shares its name with a submodule returns them from
+    ``constructor_kwargs()``."""
+    own = getattr(model, "constructor_kwargs", None)
+    if own is not None:
+        return own()
     sig = inspect.signature(type(model).__init__)
     out = {}
     for name, p in sig.parameters.items():
@@ -64,9 +69,11 @@ _TRUNC_STD_CORRECTION = 0.87962566103423978
 
 
 def _truncated_normal(shape, std: float, generator: torch.Generator):
-    """N(0, std) truncated to [-2 std, 2 std] by inverse-CDF sampling."""
+    """N(0, std) truncated to [-2 std, 2 std] by inverse-CDF sampling, on
+    the generator's device."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = torch.rand(shape, generator=generator, dtype=torch.float64,
+                   device=generator.device)
     u = lo + u * (1.0 - 2.0 * lo)
     return (std * math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).float()
 
@@ -75,28 +82,37 @@ def _truncated_normal(shape, std: float, generator: torch.Generator):
 def init_flax_default(module: nn.Module, generator: torch.Generator):
     """Initialise like the JAX package's flax modules, by flax leaf name:
     lecun_normal kernels, zero biases and class tokens, unit LayerNorm
-    scales, 1e-5 LayerScale gammas, N(0, 0.02) position embeddings,
-    truncated_normal(0.02) relative-position tables, truncated_normal(0.01)
-    mask tokens, and gMLP's spatial projection: kernel uniform on [0, 2e-3
-    / C), unit bias."""
+    scales, 1e-5 LayerScale gammas (BEiT's ``gamma_1`` / ``gamma_2``: 0.1),
+    N(0, 0.02) position embeddings, truncated_normal(0.02)
+    relative-position tables, truncated_normal(0.01) mask tokens, and gMLP's
+    spatial projection: kernel uniform on [0, 2e-3 / C), unit bias.  A
+    kernel kept in flax layout (BEiT's ``qkv_kernel``, a module with a
+    ``fan_in``) takes its fan-in from there.  Drawn on the generator's
+    device: a card generator fills a net on the card without host draws."""
     from .flax_params import flax_keys
     for name, key in flax_keys(module).items():
         p = module.get_parameter(name)
         leaf = key.rsplit("/", 1)[-1]
-        if leaf in ("bias", "cls_token"):
+        owner = module.get_submodule(name.rpartition(".")[0])
+        if leaf in ("bias", "cls_token", "q_bias", "v_bias"):
             p.zero_()
+        elif leaf in ("gamma_1", "gamma_2"):
+            p.fill_(0.1)
+        elif leaf == "qkv_kernel" or (leaf == "kernel" and hasattr(owner, "fan_in")):
+            fan_in = p.shape[0] if leaf == "qkv_kernel" else owner.fan_in
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
+            p.copy_(_truncated_normal(p.shape, std, generator))
         elif leaf in ("scale", "proj_spatial_bias"):
             p.fill_(1.0)
         elif leaf == "mask_bias":
             p.copy_(_truncated_normal(p.shape, 0.01, generator))
         elif leaf == "proj_spatial_kernel":
-            owner = module.get_submodule(name.rpartition(".")[0])
-            p.copy_(torch.rand(p.shape, generator=generator)
+            p.copy_(torch.rand(p.shape, generator=generator, device=generator.device)
                     * (2e-3 / owner.embed_dim))
         elif leaf == "gamma":
             p.fill_(1e-5)
         elif leaf == "pos_embed":
-            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * 0.02)
         elif leaf == "relative_position_bias_table":
             p.copy_(_truncated_normal(p.shape, 0.02, generator))
         elif leaf == "kernel":

@@ -1,0 +1,314 @@
+"""Upstream PyTorch state dicts -> the flax-named parameter tree that
+``models.flax_params`` loads (the port's own copy of the depth converters
+of ``nunif_tpu/models/torch_convert.py``, which it does not import).
+
+Works on numpy arrays or anything with ``.numpy()``.  Layout rules:
+  Conv2d           (O, I, kh, kw) -> HWIO (kh, kw, I, O)
+  ConvTranspose2d  (I, O, kh, kw) -> flax ConvTranspose(transpose_kernel=True)
+                                     kernel (kh, kw, O, I)
+  Linear           (O, I)         -> (I, O)
+  LayerNorm        weight / bias  -> scale / bias
+``flatten`` turns a nested tree into the ``{"a/b/c": array}`` form of
+``from_flax``.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _np(t):
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _key(prefix, name):
+    return f"{prefix}.{name}" if prefix else name
+
+
+def conv2d(sd, prefix):
+    out = {"kernel": _np(sd[_key(prefix, "weight")]).transpose(2, 3, 1, 0)}
+    if _key(prefix, "bias") in sd:
+        out["bias"] = _np(sd[_key(prefix, "bias")])
+    return out
+
+
+def conv_transpose2d(sd, prefix):
+    # torch weight (I, O, kh, kw) -> (kh, kw, O, I) for transpose_kernel=True
+    out = {"kernel": _np(sd[_key(prefix, "weight")]).transpose(2, 3, 1, 0)}
+    if _key(prefix, "bias") in sd:
+        out["bias"] = _np(sd[_key(prefix, "bias")])
+    return out
+
+
+def linear(sd, prefix):
+    out = {"kernel": _np(sd[_key(prefix, "weight")]).T}
+    if _key(prefix, "bias") in sd:
+        out["bias"] = _np(sd[_key(prefix, "bias")])
+    return out
+
+
+def layer_norm(sd, prefix):
+    out = {}
+    if _key(prefix, "weight") in sd:
+        out["scale"] = _np(sd[_key(prefix, "weight")])
+    if _key(prefix, "bias") in sd:
+        out["bias"] = _np(sd[_key(prefix, "bias")])
+    return out
+
+
+def raw(sd, key):
+    return _np(sd[key])
+
+
+def dino_vit(sd, prefix: str, depth: int):
+    """Map a timm/DINOv2 ViT state_dict subtree at ``prefix`` to the flax
+    tree of nunif_tpu_torch.iw3.depth.dinov2.DinoVisionTransformer."""
+    pre = {
+        "cls_token": raw(sd, _key(prefix, "cls_token")),
+        "pos_embed": raw(sd, _key(prefix, "pos_embed")),
+        "patch_embed": conv2d(sd, _key(prefix, "patch_embed.proj")),
+        "norm": layer_norm(sd, _key(prefix, "norm")),
+    }
+    for i in range(depth):
+        b = _key(prefix, f"blocks.{i}")
+        pre[f"blocks_{i}"] = {
+            "norm1": layer_norm(sd, b + ".norm1"),
+            "attn": {
+                "qkv": linear(sd, b + ".attn.qkv"),
+                "proj": linear(sd, b + ".attn.proj"),
+            },
+            "ls1": {"gamma": raw(sd, b + ".ls1.gamma")},
+            "norm2": layer_norm(sd, b + ".norm2"),
+            "mlp_fc1": linear(sd, b + ".mlp.fc1"),
+            "mlp_fc2": linear(sd, b + ".mlp.fc2"),
+            "ls2": {"gamma": raw(sd, b + ".ls2.gamma")},
+        }
+    return pre
+
+
+def convert_depth_anything(sd, encoder: str):
+    """Depth-Anything v1 / v2 (DINOv2 trunk + DPT head) -> the tree of
+    ``iw3.depth.depth_anything.DepthAnything``."""
+    from ..iw3.depth.dinov2 import VIT_CONFIGS
+    head = _dpt_scratch(sd, "depth_head")
+    for i in range(4):
+        head[f"projects_{i}"] = conv2d(sd, f"depth_head.projects.{i}")
+    head["resize_0"] = conv_transpose2d(sd, "depth_head.resize_layers.0")
+    head["resize_1"] = conv_transpose2d(sd, "depth_head.resize_layers.1")
+    head["resize_3"] = conv2d(sd, "depth_head.resize_layers.3")
+    return {"pretrained": dino_vit(sd, "pretrained", VIT_CONFIGS[encoder]["depth"]),
+            "depth_head": head}
+
+
+def _dpt_scratch(sd, prefix="depth_head"):
+    """DPT scratch (layer_rn + refinenets + output convs) shared by
+    DA v1/v2 and VDA."""
+    head = {}
+    for i in range(1, 5):
+        head[f"layer{i}_rn"] = conv2d(sd, f"{prefix}.scratch.layer{i}_rn")
+        rf = f"{prefix}.scratch.refinenet{i}"
+        block = {
+            "resConfUnit2": {
+                "conv1": conv2d(sd, rf + ".resConfUnit2.conv1"),
+                "conv2": conv2d(sd, rf + ".resConfUnit2.conv2"),
+            },
+            "out_conv": conv2d(sd, rf + ".out_conv"),
+        }
+        if i != 4:
+            block["resConfUnit1"] = {
+                "conv1": conv2d(sd, rf + ".resConfUnit1.conv1"),
+                "conv2": conv2d(sd, rf + ".resConfUnit1.conv2"),
+            }
+        head[f"refinenet{i}"] = block
+    head["output_conv1"] = conv2d(sd, f"{prefix}.scratch.output_conv1")
+    head["output_conv2_0"] = conv2d(sd, f"{prefix}.scratch.output_conv2.0")
+    head["output_conv2_2"] = conv2d(sd, f"{prefix}.scratch.output_conv2.2")
+    return head
+
+
+def convert_midas_core(sd, backbone: str = "beit_l_384", prefix: str = ""):
+    """Map a MiDaS DPT-BEiT torch state_dict (the released MiDaS v3.1
+    layout: pretrained.model.* / pretrained.act_postprocess{1-4}.* /
+    scratch.*) to the flax tree of nunif_tpu_torch.iw3.depth.midas.MidasCore.
+
+    ``prefix``: e.g. "core.core." for ZoeDepth checkpoints that nest the
+    MiDaS core."""
+    from ..iw3.depth.midas import BEIT_CONFIGS
+    cfg = BEIT_CONFIGS[backbone]
+    p = prefix + "pretrained."
+    m = p + "model."
+    pre = {"cls_token": raw(sd, m + "cls_token"),
+           "patch_embed": conv2d(sd, m + "patch_embed.proj")}
+    for i in range(cfg["depth"]):
+        b = f"{m}blocks.{i}"
+        pre[f"blocks_{i}"] = {
+            "norm1": layer_norm(sd, b + ".norm1"),
+            "attn": {
+                "qkv_kernel": _np(sd[b + ".attn.qkv.weight"]).T,
+                "q_bias": raw(sd, b + ".attn.q_bias"),
+                "v_bias": raw(sd, b + ".attn.v_bias"),
+                "relative_position_bias_table": raw(
+                    sd, b + ".attn.relative_position_bias_table"),
+                "proj": linear(sd, b + ".attn.proj"),
+            },
+            "gamma_1": raw(sd, b + ".gamma_1"),
+            "gamma_2": raw(sd, b + ".gamma_2"),
+            "norm2": layer_norm(sd, b + ".norm2"),
+            "mlp_fc1": linear(sd, b + ".mlp.fc1"),
+            "mlp_fc2": linear(sd, b + ".mlp.fc2"),
+        }
+    out = {"pretrained": pre}
+    for i in range(4):
+        ap = f"{p}act_postprocess{i + 1}"
+        out[f"readout_{i}"] = linear(sd, ap + ".0.project.0")
+        out[f"projects_{i}"] = conv2d(sd, ap + ".3")
+    out["resize_0"] = conv_transpose2d(sd, p + "act_postprocess1.4")
+    out["resize_1"] = conv_transpose2d(sd, p + "act_postprocess2.4")
+    out["resize_3"] = conv2d(sd, p + "act_postprocess4.4")
+    s = prefix + "scratch."
+    for i in range(1, 5):
+        out[f"layer{i}_rn"] = conv2d(sd, f"{s}layer{i}_rn")
+        rf = f"{s}refinenet{i}"
+        block = {
+            "resConfUnit2": {
+                "conv1": conv2d(sd, rf + ".resConfUnit2.conv1"),
+                "conv2": conv2d(sd, rf + ".resConfUnit2.conv2"),
+            },
+            "out_conv": conv2d(sd, rf + ".out_conv"),
+        }
+        if i != 4:  # refinenet4's resConfUnit1 is dead weight
+            block["resConfUnit1"] = {
+                "conv1": conv2d(sd, rf + ".resConfUnit1.conv1"),
+                "conv2": conv2d(sd, rf + ".resConfUnit1.conv2"),
+            }
+        out[f"refinenet{i}"] = block
+    out["output_conv1"] = conv2d(sd, s + "output_conv.0")
+    out["output_conv2_0"] = conv2d(sd, s + "output_conv.2")
+    out["output_conv2_2"] = conv2d(sd, s + "output_conv.4")
+    return out
+
+
+def _zoe_net2(sd, prefix):
+    """ZoeDepth _net Sequential (conv,act,conv[,act]) -> conv1/conv2."""
+    return {"conv1": conv2d(sd, prefix + "._net.0"),
+            "conv2": conv2d(sd, prefix + "._net.2")}
+
+
+def convert_zoedepth_head(sd, prefix: str = ""):
+    """ZoeDepth metric-bins head (released single-domain layout) ->
+    nunif_tpu_torch.iw3.depth.zoedepth.MetricBinsHead."""
+    p = prefix
+    out = {
+        "conv2": conv2d(sd, p + "conv2"),
+        "seed_bin_regressor": _zoe_net2(sd, p + "seed_bin_regressor"),
+        "seed_projector": _zoe_net2(sd, p + "seed_projector"),
+        "conditional_log_binomial": {
+            "mlp_conv1": conv2d(sd, p + "conditional_log_binomial.mlp.0"),
+            "mlp_conv2": conv2d(sd, p + "conditional_log_binomial.mlp.2"),
+        },
+    }
+    for i in range(4):
+        out[f"projectors_{i}"] = _zoe_net2(sd, f"{p}projectors.{i}")
+        out[f"attractors_{i}"] = _zoe_net2(sd, f"{p}attractors.{i}")
+    return out
+
+
+def convert_zoedepth(sd, backbone: str = "beit_l_384"):
+    """Full ZoeDepth (single-domain, e.g. ZoeD_N): MiDaS core nested at
+    core.core.* + bins head at the root."""
+    return {"core": convert_midas_core(sd, backbone, prefix="core.core."),
+            "bin_head": convert_zoedepth_head(sd)}
+
+
+def convert_da3mono(sd, encoder: str = "vitl"):
+    """DA3-mono (da3mono-large.safetensors via hub
+    nagadomi/Depth-Anything-3_iw3): DINOv2 trunk + DPT head with a
+    2-channel (depth+sky) output conv — the DA v1/v2 layout with a wider
+    final conv.  Normalizes common wrapper prefixes first."""
+    sd = dict(sd)
+    for wrap in ("model.", "module."):
+        if any(k.startswith(wrap) for k in sd) and \
+                not any(k.startswith("pretrained.") for k in sd):
+            sd = {k[len(wrap):] if k.startswith(wrap) else k: v
+                  for k, v in sd.items()}
+    alias = {"backbone.": "pretrained.", "encoder.": "pretrained.",
+             "head.": "depth_head."}
+    if not any(k.startswith("pretrained.") for k in sd):
+        sd = {next((new + k[len(old):] for old, new in alias.items()
+                    if k.startswith(old)), k): v for k, v in sd.items()}
+    return convert_depth_anything(sd, encoder)
+
+
+def convert_depth_pro(sd, encoder: str = "vitl"):
+    """Map the Apple DepthPro checkpoint (depth_pro.pt via hub
+    nagadomi/ml-depth-pro_iw3) to nunif_tpu_torch.iw3.depth.depth_pro.DepthPro.
+
+    Layout: encoder.{patch,image}_encoder + fov.encoder.0 are timm DINOv2
+    ViTs; encoder.upsample* project+upsample Sequentials; decoder.convs /
+    decoder.fusions (FeatureFusionBlock2d with ResidualBlock pairs);
+    head.{0,1,2,4}; fov.{encoder.1,downsample.0,head.{0,2,4}}."""
+    from ..iw3.depth.dinov2 import VIT_CONFIGS
+    depth = VIT_CONFIGS[encoder]["depth"]
+    sd = {k[6:] if k.startswith("model.") else k: v for k, v in sd.items()}
+
+    def up_block(prefix, n_up):
+        out = {"proj": conv2d(sd, prefix + ".0")}
+        for i in range(n_up):
+            out[f"up{i}"] = conv_transpose2d(sd, f"{prefix}.{i + 1}")
+        return out
+
+    def res_block(prefix):
+        return {"conv1": conv2d(sd, prefix + ".residual.1"),
+                "conv2": conv2d(sd, prefix + ".residual.3")}
+
+    def fusion(i):
+        out = {"resnet2": res_block(f"decoder.fusions.{i}.resnet2"),
+               "out_conv": conv2d(sd, f"decoder.fusions.{i}.out_conv")}
+        if i != 4:
+            # fusions[4] (global) is called with a single input; its
+            # resnet1 params are dead weights never instantiated in flax
+            out["resnet1"] = res_block(f"decoder.fusions.{i}.resnet1")
+        if i != 0:
+            out["deconv"] = conv_transpose2d(sd, f"decoder.fusions.{i}.deconv")
+        return out
+
+    params = {
+        "patch_encoder": dino_vit(sd, "encoder.patch_encoder", depth),
+        "image_encoder": dino_vit(sd, "encoder.image_encoder", depth),
+        "upsample_latent0": up_block("encoder.upsample_latent0", 3),
+        "upsample_latent1": up_block("encoder.upsample_latent1", 2),
+        "upsample0": up_block("encoder.upsample0", 1),
+        "upsample1": up_block("encoder.upsample1", 1),
+        "upsample2": up_block("encoder.upsample2", 1),
+        "upsample_lowres": conv_transpose2d(sd, "encoder.upsample_lowres"),
+        "fuse_lowres": conv2d(sd, "encoder.fuse_lowres"),
+        "head_conv0": conv2d(sd, "head.0"),
+        "head_up1": conv_transpose2d(sd, "head.1"),
+        "head_conv2": conv2d(sd, "head.2"),
+        "head_conv4": conv2d(sd, "head.4"),
+    }
+    for i in range(1, 5):
+        params[f"conv{i}"] = conv2d(sd, f"decoder.convs.{i}")
+    for i in range(5):
+        params[f"fusion{i}"] = fusion(i)
+    if "fov.encoder.1.weight" in sd:
+        params["fov_encoder"] = dino_vit(sd, "fov.encoder.0", depth)
+        params["fov_proj"] = linear(sd, "fov.encoder.1")
+        params["fov_downsample"] = conv2d(sd, "fov.downsample.0")
+        params["fov_head0"] = conv2d(sd, "fov.head.0")
+        params["fov_head2"] = conv2d(sd, "fov.head.2")
+        params["fov_head4"] = conv2d(sd, "fov.head.4")
+    return params
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Nested dict -> {"a/b/c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten(v, key))
+        else:
+            out[key] = v
+    return out

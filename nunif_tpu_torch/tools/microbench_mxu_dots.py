@@ -7,9 +7,9 @@ times on operands that stay on the chip, with a data dependency, over
 plain twin and, in bf16, the same REPS loop of torch.bmm pairs.
 
 With ``--chunk128`` it runs instead, once, the configuration that gave
-NaNs (bf16 at C = 128 with P in chunks of 128, a plan only this switch
-sets) against the twin and prints its NaN count and error: the target of
-a ``compute-sanitizer`` run.
+NaNs until q's fragments were reloaded a chunk (bf16 at C = 128 with P in
+chunks of 128, a plan only this switch sets) against the twin and prints
+its NaN count and error.
 
 Usage: python -m nunif_tpu_torch.tools.microbench_mxu_dots [index ...]
        python -m nunif_tpu_torch.tools.microbench_mxu_dots --chunk128

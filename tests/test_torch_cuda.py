@@ -277,8 +277,9 @@ def _flash_close(got, want):
 
 # the 128-row query tiles and 128-key tiles: edges at 127 / 128 / 129 and
 # 255 / 257, N != M with both ragged, and ViT-L's 16 heads at the path's
-# length
+# length, at DepthPro's 35 tiles of 577 tokens and at ZoeD_Any_N's 1401
 @pytest.mark.parametrize("b,heads,n,m,d", [
+    (35, 16, 577, 577, 64), (8, 16, 1401, 1401, 64),
     (2, 3, 1, 1, 64), (1, 2, 37, 37, 64), (2, 2, 63, 63, 64),
     (1, 1, 64, 64, 64), (2, 3, 65, 65, 64), (1, 2, 197, 197, 64),
     (1, 2, 100, 37, 64), (2, 6, 1373, 1373, 64),
@@ -927,6 +928,34 @@ def test_window_dots_repeat_checks_every_window(cuda, dtype, n, c, p):
     bad_fill = probes.window_dots_repeat(ins[0], khat, ins[2], check=bad)
     assert _t4_close(bad_fill, want_fill, dtype)  # the fill cannot see it
     assert not _t4_close(bad, want, dtype)
+
+
+@pytest.mark.parametrize("reps", [1, 64])
+def test_window_dots_chunk128_hook_matches_twin(cuda, reps):
+    """T4's bf16 plan at C = 128 with P in chunks of 128 (the test hook;
+    the path runs chunks of 64): every window's o of the last repetition
+    and the fill equal the twin's (rtol 1e-3), finite.  It gave NaN in
+    every window until q's fragments were reloaded a chunk."""
+    from nunif_tpu_torch.ops import _build, probes
+    rng = _rng(18)
+    ins = [_t(rng.uniform(0, 1, s), cuda, torch.bfloat16)
+           for s in ((32, 36, 128), (32, 128, 256), (32, 256, 128))]
+    lib = _build.library()
+    saved = probes.REPS
+    probes.REPS = reps
+    lib.nunif_window_dots_force_chunk128(1)
+    try:
+        assert probes.window_dots_plan(torch.bfloat16, 36, 128, 256).pc == 128
+        got = torch.empty((32, 36, 128), dtype=torch.float32, device=cuda)
+        fill = probes.window_dots_repeat(*ins, check=got)
+        torch.cuda.synchronize()
+        want = torch.empty_like(got)
+        want_fill = probes.window_dots_repeat_plain(*ins, want)
+    finally:
+        lib.nunif_window_dots_force_chunk128(0)
+        probes.REPS = saved
+    assert bool(got.isfinite().all()) and _t4_close(got, want, torch.bfloat16)
+    assert _t4_close(fill, want_fill, torch.bfloat16)
 
 
 def test_probe_plans_fit_shared_memory(cuda):

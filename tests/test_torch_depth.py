@@ -225,13 +225,15 @@ def test_checkpoint_round_trip_both_packages(pair, tmp_path):
 
 
 def test_unported_depth_inputs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_depth_model("DepthPro", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_depth_model("ZoeD_N", device="cpu")
-    dm = create_depth_model("Any_V2_S", device="cpu")
-    with pytest.raises(NotImplementedError, match=r"\.pth"):
-        dm.load(checkpoint="depth_anything_v2_vits.pth")
+    """Every depth family is ported (tests/test_torch_depth_families.py);
+    what is left raises: a type no package has (MiDaS is ZoeDepth's core,
+    not a type), and a raw checkpoint for ZoeDepth, which reads .nztm only
+    in both packages."""
+    with pytest.raises(ValueError, match="not supported"):
+        create_depth_model("MiDaS", device="cpu")
+    for name in ("ZoeD_N", "ZoeD_NK"):
+        with pytest.raises(ValueError, match=r"\.nztm"):
+            create_depth_model(name, device="cpu").load(checkpoint="zoed.pth")
 
 
 def test_seeded_init_is_flax_like_and_reproducible():

@@ -189,3 +189,63 @@ def two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+# the depth families' tests (tests/test_torch_depth_{families,wrappers,convert}.py)
+BEIT_T = dict(embed_dim=64, depth=2, num_heads=4, pretrained_grid=4,
+              hooks=(0, 1, 1, 1), neck_channels=(16, 32, 64, 64))
+DPT_T = dict(features=16, out_channels=(8, 16, 32, 64))
+
+
+def add_depth_tables(mp):
+    """Both packages' tables with the tests-only ``vitt`` encoder (narrow
+    DA / DA3 heads), ``vitt64`` (``vitt`` at one head of 64, the head dim of
+    the real trunks, where q's scale 1/8 is exact in bf16: at 32 the two
+    packages' twins scale bf16 q differently) and a BEiT ``beit_t`` (2
+    blocks, 64 wide, 4 heads, pretrained grid 4), undone by
+    ``mp.undo()``."""
+    import nunif_tpu.iw3.depth.da3 as jda3
+    import nunif_tpu.iw3.depth.dinov2 as jdino
+    import nunif_tpu.iw3.depth.midas as jmidas
+    import nunif_tpu_torch.iw3.depth.da3 as tda3
+    import nunif_tpu_torch.iw3.depth.depth_anything as tda
+    import nunif_tpu_torch.iw3.depth.dinov2 as tdino
+    import nunif_tpu_torch.iw3.depth.midas as tmidas
+    for mod in (jdino, tdino):
+        mp.setitem(mod.VIT_CONFIGS, "vitt64", dict(embed_dim=64, depth=2, num_heads=1))
+        for name in ("vitt", "vitt64"):
+            mp.setitem(mod.INTERMEDIATE_LAYER_IDX, name, [0, 1, 1, 1])
+    for mod in (jda3, tda3, j_depth_anything, tda):
+        for name in ("vitt", "vitt64"):
+            mp.setitem(mod._DPT_CONFIGS, name, DPT_T)
+    for mod in (jmidas, tmidas):
+        mp.setitem(mod.BEIT_CONFIGS, "beit_t", BEIT_T)
+
+
+def seeded(model, fills=None, seed=0):
+    """(model with ``seeded_weights_``, its flax-layout arrays, JAX params)."""
+    from nunif_tpu_torch.iw3.depth.base import seeded_weights_
+    from nunif_tpu_torch.models import to_flax
+    seeded_weights_(model, torch.Generator().manual_seed(seed), fills=fills)
+    model.eval().requires_grad_(False)
+    flat = to_flax(model)
+    return model, flat, jparams(flat)
+
+
+def rms(a, b):
+    return float(np.sqrt(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)))
+
+
+def hold_bf16(got16, want32, jax16, slack=1.0, stat="rms"):
+    """The port's bf16 error against JAX's fp32 output within ``slack``
+    times JAX's own bf16 error: RMS, or with ``stat="mae"`` the mean
+    absolute error (for maps whose RMS error is ruled by a few pixels) and
+    the largest error within 2x JAX's."""
+    if stat == "mae":
+        got16, want32, jax16 = (np.asarray(a, np.float64) for a in (got16, want32, jax16))
+        err, jax_err = np.abs(got16 - want32).mean(), np.abs(jax16 - want32).mean()
+        worst, jax_worst = np.abs(got16 - want32).max(), np.abs(jax16 - want32).max()
+        assert worst <= 2 * jax_worst, (worst, jax_worst)
+    else:
+        err, jax_err = rms(got16, want32), rms(jax16, want32)
+    assert err <= slack * jax_err, (err, jax_err)
