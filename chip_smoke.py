@@ -77,6 +77,21 @@ written by the port:
   with ``--depth-model ZoeD_N`` and ``DepthPro``; K7 is also held and
   timed at DepthPro's (35, 16, 577, 64) and ZoeD_Any_N's (8, 16, 1401,
   64);
+- iw3's extras ("iw3 extras"): VR180's bicubic sampler on the card
+  against the CPU; 8 structured 1080p frames with 140-row black bars,
+  which ``AutoCropDetector`` must find exactly and ``Iw3FrameProcessor``
+  cuts off on the host, through seeded DepthAA (``iw3.depth_aa``) and the
+  SOD convergence estimator (``iw3.sod_v1``, EMA on) under half-SBS,
+  anaglyph dubois, VR180, half-RGBD and the debug depth, then 48 frames
+  through an EMA lookahead of 30 with the estimator: exact launches (K7
+  12 a batch at the cropped frame's (8, 6, 1877, 64), K3 1, 0 under the
+  debug depth; the lagged run K7 72, K3 4), K7 held at the normalised
+  depth and at the convergence it yields, K3 alone on the frame, the
+  time, peak memory, the saliency mask's share, the convergences, a
+  split (depth, depth with DepthAA, the estimator) and a profile of the
+  half-SBS batch; then the CLI: ``--export`` and its ``.yml`` re-import
+  against a direct render, ``--anaglyph dubois --depth-aa`` and
+  ``--vr180 --convergence-mode sod_v1``;
 - waifu2x turbo_2x, the bundled zoo (``models/waifu2x/turbo``, trained
   weights, no hand-written kernel: cuDNN convs): loads all four
   checkpoints through ``Waifu2x``; holds an untrained turbo_2x and
@@ -1103,6 +1118,384 @@ def depth_families_phase(torch, dev, model_dir, k3, k7):
     print(f"iw3 depth families: phase wall time {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return rows
+
+
+# iw3's extras ("iw3 extras"): 8 structured 1080p frames whose picture is
+# 800 rows between black bars of EXTRAS_BARS rows; AutoCropDetector finds
+# the bars and the processor cuts them off on the host.  Each format runs
+# with seeded DepthAA and the SOD convergence estimator (EMA on); K7 12 a
+# batch (at the cropped frame's token count), K3 1 (0 under the debug
+# depth, which does not warp).  The lagged case runs 48 frames through an
+# EMA lookahead of 30 as the temporal phase's case (c): frames out a call
+# [0, 0, 0, 3, 8, 8, 29], K7 72, K3 4, the estimator on every frame out.
+EXTRAS_BARS = 140
+EXTRAS_FORMATS = {"half_sbs": dict(half_sbs=True), "anaglyph_dubois": dict(anaglyph="dubois"),
+                  "vr180": dict(vr180=True), "half_rgbd": dict(half_rgbd=True),
+                  "debug_depth": dict(half_sbs=True)}
+EXTRAS_LAGGED = dict(frames=48, ema=(0.9, 30), counts=[0, 0, 0, 3, 8, 8, 29],
+                     launches={"sdpa": 72, "warp_x_bounded": 4})
+# K7's rounding moves the normalised depth (~48 dB against its twin) and
+# the estimator's quantiles with it; the convergence it yields is held to
+# this (depth units; the estimator's output is a depth position)
+EXTRAS_CONVERGENCE_TOL = 0.02
+
+
+class RecordingEstimator:
+    """A ConvergenceEstimator that keeps every convergence it returns."""
+
+    def __init__(self, est):
+        self.est, self.out = est, []
+
+    def reset(self):
+        self.est.reset()
+        self.out = []
+
+    def __call__(self, rgb, depth, reset_pts=None):
+        self.out.append(self.est(rgb, depth, reset_pts=reset_pts))
+        return self.out[-1]
+
+    def values(self):
+        import torch
+        return torch.cat(self.out) if self.out else None
+
+
+def letterbox(torch, content):
+    """content (n, h, w, 3) uint8 on the device -> (n, h + 2 EXTRAS_BARS,
+    w, 3) uint8 on the host, black bars of EXTRAS_BARS rows above and
+    below."""
+    n, h, w, c = content.shape
+    out = torch.zeros((n, h + 2 * EXTRAS_BARS, w, c), dtype=torch.uint8)
+    out[:, EXTRAS_BARS:EXTRAS_BARS + h] = content.cpu()
+    return out.numpy()
+
+
+def extras_models(torch, dev, model_dir, calibration):
+    """Seeded DepthAA (shaped: it changes the depth) and SODV1 (its
+    saliency median calibrated to 0.5 on ``calibration``) written to .nztm
+    and loaded back through the port's loader."""
+    from nunif_tpu_torch.iw3.models import depth_aa, sod_v1
+    from nunif_tpu_torch.models import from_flax, load_model, save_model
+    aa = depth_aa.DepthAA()
+    from_flax(aa, depth_aa.shaped_flax_params(aa, 7))
+    save_model(aa, os.path.join(model_dir, "depth_aa.nztm"))
+    sod = sod_v1.SODV1().to(dev).eval()
+    sod_v1.shaped_flax_params(sod, 8, calibration=calibration)
+    save_model(sod, os.path.join(model_dir, "sod_v1.nztm"))
+    return (load_model(os.path.join(model_dir, "depth_aa.nztm"), device=dev)[0],
+            load_model(os.path.join(model_dir, "sod_v1.nztm"), device=dev)[0])
+
+
+def extras_run(torch, proc, batches):
+    """Every batch and the flush through proc: (frames each call returned,
+    the outputs)."""
+    counts, outs = [], []
+    for y in [proc(b) for b in batches] + [proc.flush()]:
+        counts.append(0 if y is None else int(y.shape[0]))
+        if y is not None:
+            outs.append(y)
+    torch.cuda.synchronize()
+    return counts, torch.cat(outs)
+
+
+def iw3_extras_phase(torch, dev, model_dir, k3, k7, smi):
+    """The extras at full width: letterbox crop, DepthAA, the SOD
+    convergence estimator and the EXTRAS_FORMATS outputs (and the debug
+    depth), then the lagged case, through Iw3FrameProcessor on host uint8
+    frames; exact launches, outputs finite in [0, 1] of the expected shape,
+    K7 held at the normalised depth (>= 45 dB) and at the convergence it
+    yields (EXTRAS_CONVERGENCE_TOL), K3 alone on the frame (>= 45 dB), the
+    time (median of 3 after a warm batch), peak memory, the saliency mask's
+    share and the convergences; VR180's bicubic grid_sample on the card
+    against the CPU; then the CLI: --export and its re-import against a
+    direct render, --anaglyph dubois --depth-aa, --vr180 --convergence-mode
+    sod_v1."""
+    from nunif_tpu_torch.iw3.composition import StereoFormat
+    from nunif_tpu_torch.iw3.convergence_estimator import ConvergenceEstimator
+    from nunif_tpu_torch.iw3.depth import create_depth_model
+    from nunif_tpu_torch.iw3.depth_scaler import frame_stats, minmax_normalize
+    from nunif_tpu_torch.iw3.equirectangular import equirectangular_projection
+    from nunif_tpu_torch.iw3.pipeline import StereoConfig
+    from nunif_tpu_torch.iw3.video import Iw3FrameProcessor
+    from nunif_tpu_torch.models import load_model
+    from nunif_tpu_torch.modules.resize import resize
+    from nunif_tpu_torch.utils.autocrop import AutoCropDetector
+    t_phase = time.perf_counter()
+    to_u8 = lambda t: (t.clamp(0, 1) * 255 + 0.5).to(torch.uint8)  # noqa: E731
+    # VR180's sampler: F.grid_sample's bicubic on the card against the CPU,
+    # the tan grid's edges far outside the image included
+    eye = torch.rand((2, 90, 160, 3), generator=torch.Generator().manual_seed(9))
+    vr_err = float((equirectangular_projection(eye.to(dev)).cpu()
+                    - equirectangular_projection(eye)).abs().max())
+    print(f"iw3 extras: VR180 projection on the card vs the CPU, max abs {vr_err:.3g}",
+          flush=True)
+    if vr_err > 1e-4:
+        fail(f"iw3 extras: VR180 projection on the card differs from the CPU by {vr_err}")
+    dm = create_depth_model("Any_V2_S", device=dev).load(
+        checkpoint=os.path.join(model_dir, "depth_any_v2_s.nztm"))
+    flow = load_model(os.path.join(model_dir, "row_flow_v3.nztm"), device=dev)[0]
+    h, w = IW3_HW[0] - 2 * EXTRAS_BARS, IW3_HW[1]  # the picture, 800 x 1920
+    vr = max(h, w) * 3 // 2  # a VR180 eye: 2880 x 2880
+    content = iw3_frames(torch, dev, IW3_BATCH, h, w, seed=41)
+    frames = letterbox(torch, content)
+    det = AutoCropDetector(mode="black")
+    det.update(frames.astype(np.float32) / 255)
+    crop = det.get_crop()
+    want_crop = (slice(EXTRAS_BARS, IW3_HW[0] - EXTRAS_BARS), slice(None))
+    print(f"iw3 extras: AutoCropDetector crop {crop}", flush=True)
+    if crop != want_crop:
+        fail(f"iw3 extras: AutoCropDetector found {crop}, want {want_crop}")
+    x = content.float() * (1.0 / 255.0)
+
+    def norm_depth():
+        with torch.no_grad():
+            d = dm.infer(x, edge_dilation=2)
+        st = frame_stats(d)
+        return minmax_normalize(d, st[:, 0].reshape(-1, 1, 1, 1), st[:, 1].reshape(-1, 1, 1, 1))
+    def timed(fn):
+        """Host milliseconds of a synchronised call, median of 3 after a
+        warm one."""
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs)
+    plain_depth = norm_depth()
+    calibration = torch.cat([resize(x, 192, 192, mode="bilinear", antialias=False),
+                             resize(plain_depth, 192, 192, mode="bilinear",
+                                    antialias=False)], -1)
+    aa, sod = extras_models(torch, dev, model_dir, calibration)
+    split = {"depth_ms": timed(norm_depth)}
+    dm.set_depth_aa(aa)
+    split["depth_with_depth_aa_ms"] = timed(norm_depth)
+    sal = ConvergenceEstimator(IW3_CONVERGENCE, sod)
+    split["estimator_ms"] = timed(lambda: sal(calibration[..., :3], calibration[..., 3:]))
+    print(f"iw3 extras split (8 cropped frames, host ms, median of 3): {split}; {smi}",
+          flush=True)
+    k7.sdpa.launches = 0
+    depth = norm_depth()
+    tokens = (depth.shape[1] // 14) * (depth.shape[2] // 14) + 1
+    aa_change = float((depth - plain_depth).abs().mean())
+    with twins((k7, "sdpa")):
+        depth_twin = norm_depth()
+    depth_psnr = uint8_psnr(to_u8(depth), to_u8(depth_twin))
+    print(f"iw3 extras: cropped frames {tuple(x.shape)}, K7 at ({IW3_BATCH}, 6, {tokens}, "
+          f"64); normalised depth with DepthAA {tuple(depth.shape)}, std "
+          f"{float(depth.std()):.4f}, DepthAA's mean change {aa_change:.4f}; vs K7's twin "
+          f"PSNR {depth_psnr:.2f} dB", flush=True)
+    if depth_psnr < FRAME_PSNR_MIN or float(depth.std()) <= 0.05 or aa_change < 1e-3:
+        fail(f"iw3 extras: depth vs K7's twin {depth_psnr:.2f} dB, std "
+             f"{float(depth.std())}, DepthAA change {aa_change}")
+    del plain_depth, depth, depth_twin, calibration
+    rows = {}
+    for name, fmt in EXTRAS_FORMATS.items():
+        debug = name == "debug_depth"
+        cfg = StereoConfig(method="row_flow_v3", divergence=IW3_DIVERGENCE,
+                           convergence=IW3_CONVERGENCE, format=StereoFormat(**fmt))
+        est = RecordingEstimator(ConvergenceEstimator(IW3_CONVERGENCE, sod, enable_ema=True))
+        proc = Iw3FrameProcessor(cfg, dm, flow, edge_dilation=2, crop=crop,
+                                 debug_depth=debug, convergence_estimator=est)
+        what = f"iw3 extras ({name})"
+        k3.warp_x_bounded.launches = k7.sdpa.launches = 0
+        out = proc(frames)
+        torch.cuda.synchronize()
+        launches = {"sdpa": k7.sdpa.launches, "warp_x_bounded": k3.warp_x_bounded.launches}
+        want = {"sdpa": 12, "warp_x_bounded": 0 if debug else 1}
+        shape = (IW3_BATCH,) + ((vr, 2 * vr) if name == "vr180" else (h, w)) + (3,)
+        if launches != want:
+            fail(f"{what}: launches {launches}, want {want}")
+        if tuple(out.shape) != shape:
+            fail(f"{what}: output shape {tuple(out.shape)}, want {shape}")
+        if not (bool(out.isfinite().all()) and float(out.min()) >= 0.0
+                and float(out.max()) <= 1.0):
+            fail(f"{what}: output not finite in [0, 1]")
+        conv = None if debug else est.values()
+        share = None if debug else float(est.est.mask_share)
+        q = to_u8(out)
+        del out
+        est.reset()
+        with twins((k3, "warp_x_bounded")):
+            psnr_k3 = uint8_psnr(q, to_u8(proc(frames)))
+        est.reset()
+        with twins((k7, "sdpa")):
+            q_k7 = to_u8(proc(frames))
+        conv_err = None if debug else float((est.values() - conv).abs().max())
+        est.reset()
+        with twins((k3, "warp_x_bounded"), (k7, "sdpa")):
+            psnr_twins = uint8_psnr(q, to_u8(proc(frames)))
+        psnr_k7 = uint8_psnr(q, q_k7)
+        del q_k7
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batch_ms = []
+        for _ in range(3):
+            est.reset()
+            t0 = time.perf_counter()
+            proc(frames)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(batch_ms)
+        device_ms = None
+        if name == "half_sbs":
+            print(f"{what} profile:", flush=True)
+            device_ms = profile_frame(torch, proc, frames, top=10,
+                                      share_of=("K7 sdpa", "flash"))
+        rows[name] = dict(ms=med, device_ms=device_ms, runs_ms=batch_ms, fps=1000 * IW3_BATCH / med,
+                          peak_gib=peak, launches=launches, shape=list(shape),
+                          psnr_vs_k3_twin=psnr_k3, psnr_vs_k7_twin=psnr_k7,
+                          psnr_vs_twins=psnr_twins, mask_share=share,
+                          convergence=None if conv is None else conv.tolist(),
+                          convergence_vs_k7_twin=conv_err)
+        print(f"{what}, 8 x 1080p letterboxed -> {shape[1:3]}: median {med:.1f} ms "
+              f"({1000 * IW3_BATCH / med:.1f} fps; runs {[round(v, 1) for v in batch_ms]}); "
+              f"peak memory {peak:.2f} GiB; launches {launches}; vs K3's twin alone "
+              f"{psnr_k3:.2f} dB, vs K7's twin {psnr_k7:.2f} dB, vs both {psnr_twins:.2f} dB"
+              + ("" if debug else
+                 f"; saliency mask {share:.4f} of the pixels; convergence "
+                 f"{[round(v, 4) for v in conv.tolist()]}, vs K7's twin max abs "
+                 f"{conv_err:.4g}") + f"; {smi}", flush=True)
+        if psnr_k3 < FRAME_PSNR_MIN:
+            fail(f"{what}: PSNR vs K3's twin {psnr_k3:.2f} dB < {FRAME_PSNR_MIN}")
+        if debug and psnr_k7 < FRAME_PSNR_MIN:
+            fail(f"{what}: PSNR vs K7's twin {psnr_k7:.2f} dB < {FRAME_PSNR_MIN}")
+        if not debug and (conv_err > EXTRAS_CONVERGENCE_TOL or not 0.0 < share < 1.0):
+            fail(f"{what}: convergence vs K7's twin {conv_err}, mask share {share}")
+        del proc, est
+        torch.cuda.empty_cache()
+    rows["lagged"] = extras_lagged(torch, dev, dm, flow, sod, crop, k3, k7, smi)
+    dm.set_depth_aa(None)
+    dm.disable_ema()
+    rows["cli"] = extras_cli(torch, dev, frames[0], model_dir, smi)
+    rows["split"] = split
+    print(f"iw3 extras: phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def extras_lagged(torch, dev, dm, flow, sod, crop, k3, k7, smi):
+    """EXTRAS_LAGGED: 48 letterboxed frames in batches of 8 and a flush
+    through the EMA lookahead with DepthAA and the estimator."""
+    from nunif_tpu_torch.iw3.composition import StereoFormat
+    from nunif_tpu_torch.iw3.convergence_estimator import ConvergenceEstimator
+    from nunif_tpu_torch.iw3.pipeline import StereoConfig
+    from nunif_tpu_torch.iw3.video import Iw3FrameProcessor
+    n = EXTRAS_LAGGED["frames"]
+    frames = letterbox(torch, iw3_frames(torch, dev, n, IW3_HW[0] - 2 * EXTRAS_BARS,
+                                         IW3_HW[1], seed=43))
+    batches = [frames[i:i + IW3_BATCH] for i in range(0, n, IW3_BATCH)]
+    cfg = StereoConfig(method="row_flow_v3", divergence=IW3_DIVERGENCE,
+                       convergence=IW3_CONVERGENCE, format=StereoFormat(half_sbs=True))
+    est = RecordingEstimator(ConvergenceEstimator(IW3_CONVERGENCE, sod, enable_ema=True))
+    what = "iw3 extras (lagged: EMA lookahead 30 + the estimator)"
+    to_u8 = lambda t: (t.clamp(0, 1) * 255 + 0.5).to(torch.uint8)  # noqa: E731
+
+    def run():
+        decay, buffer = EXTRAS_LAGGED["ema"]
+        dm.reset()
+        dm.enable_ema(decay, buffer_size=buffer)
+        est.reset()
+        proc = Iw3FrameProcessor(cfg, dm, flow, edge_dilation=2, crop=crop,
+                                 convergence_estimator=est)
+        return extras_run(torch, proc, batches)
+    k3.warp_x_bounded.launches = k7.sdpa.launches = 0
+    counts, out = run()
+    launches = {"sdpa": k7.sdpa.launches, "warp_x_bounded": k3.warp_x_bounded.launches}
+    conv = est.values()
+    share = float(est.est.mask_share)
+    if counts != EXTRAS_LAGGED["counts"] or launches != EXTRAS_LAGGED["launches"]:
+        fail(f"{what}: frames a call {counts}, launches {launches}; want "
+             f"{EXTRAS_LAGGED['counts']}, {EXTRAS_LAGGED['launches']}")
+    if conv is None or conv.shape[0] != n:
+        fail(f"{what}: the estimator saw {0 if conv is None else conv.shape[0]} frames of {n}")
+    if not (bool(out.isfinite().all()) and float(out.min()) >= 0.0 and float(out.max()) <= 1.0):
+        fail(f"{what}: output not finite in [0, 1]")
+    q = to_u8(out)
+    del out
+    with twins((k3, "warp_x_bounded")):
+        psnr_k3 = uint8_psnr(q, to_u8(run()[1]))
+    with twins((k7, "sdpa")):
+        q_k7 = to_u8(run()[1])
+    conv_err = float((est.values() - conv).abs().max())
+    psnr_k7 = uint8_psnr(q, q_k7)
+    del q_k7
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(run_ms)
+    dm.reset()
+    dm.disable_ema()
+    print(f"{what}, {n} x 1080p: frames a call {counts}; median {med:.1f} ms a run "
+          f"({1000 * n / med:.1f} fps; runs {[round(v, 1) for v in run_ms]}); peak memory "
+          f"{peak:.2f} GiB; launches {launches}; vs K3's twin alone {psnr_k3:.2f} dB, vs "
+          f"K7's twin {psnr_k7:.2f} dB; saliency mask {share:.4f} (last call); convergence "
+          f"min {float(conv.min()):.4f} max {float(conv.max()):.4f}, vs K7's twin max abs "
+          f"{conv_err:.4g}; {smi}", flush=True)
+    if psnr_k3 < FRAME_PSNR_MIN or conv_err > EXTRAS_CONVERGENCE_TOL:
+        fail(f"{what}: PSNR vs K3's twin {psnr_k3:.2f} dB, convergence vs K7's twin {conv_err}")
+    return dict(ms=med, runs_ms=run_ms, fps=1000 * n / med, peak_gib=peak,
+                launches=launches, counts=counts, psnr_vs_k3_twin=psnr_k3,
+                psnr_vs_k7_twin=psnr_k7, mask_share=share,
+                convergence_range=[float(conv.min()), float(conv.max())],
+                convergence_vs_k7_twin=conv_err)
+
+
+def extras_cli(torch, dev, frame, model_dir, smi):
+    """The iw3 CLI on a letterboxed 1080p PNG: --export, its re-import
+    against a direct render (>= 45 dB), --anaglyph dubois --depth-aa and
+    --vr180 --convergence-mode sod_v1, each exiting 0 at the expected
+    size."""
+    from PIL import Image
+    from nunif_tpu_torch.iw3 import cli
+    path = lambda f: os.path.join(model_dir, f)  # noqa: E731
+    src = path("extras_in.png")
+    Image.fromarray(frame).save(src)
+    nets = ["--device", dev.type, "--depth-checkpoint", path("depth_any_v2_s.nztm"),
+            "--stereo-checkpoint", path("row_flow_v3.nztm")]
+    runs = {"direct": ["-i", src, "-o", path("extras_direct.png"), "--half-sbs"],
+            "export": ["-i", src, "-o", path("extras_export"), "--export"],
+            "import": ["-i", os.path.join(path("extras_export"), "iw3_export.yml"),
+                       "-o", path("extras_import"), "--half-sbs"],
+            "anaglyph_depth_aa": ["-i", src, "-o", path("extras_anaglyph.png"),
+                                  "--anaglyph", "dubois", "--depth-aa",
+                                  "--depth-aa-checkpoint", path("depth_aa.nztm")],
+            "vr180_sod": ["-i", src, "-o", path("extras_vr180.png"), "--vr180",
+                          "--convergence-mode", "sod_v1", "--sod-checkpoint",
+                          path("sod_v1.nztm")]}
+    fh, fw = frame.shape[:2]
+    vr = max(fh, fw) * 3 // 2
+    sizes = {"direct": (fw, fh), "import": (fw, fh), "anaglyph_depth_aa": (fw, fh),
+             "vr180_sod": (2 * vr, vr)}
+    outs = {"direct": path("extras_direct.png"),
+            "import": os.path.join(path("extras_import"), "extras_in.png"),
+            "anaglyph_depth_aa": path("extras_anaglyph.png"),
+            "vr180_sod": path("extras_vr180.png")}
+    seconds = {}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        rc = cli.main(argv + nets)
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"iw3 extras CLI {name}: rc {rc}")
+        if name in outs:
+            with Image.open(outs[name]) as im:
+                if im.size != sizes[name]:
+                    fail(f"iw3 extras CLI {name}: output size {im.size}, want {sizes[name]}")
+        torch.cuda.empty_cache()
+    with Image.open(outs["direct"]) as a, Image.open(outs["import"]) as b:
+        psnr = uint8_psnr(torch.from_numpy(np.array(a)), torch.from_numpy(np.array(b)))
+    print(f"iw3 extras CLI: export -> import vs the direct render {psnr:.2f} dB; seconds "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }; {smi}", flush=True)
+    if psnr < FRAME_PSNR_MIN:
+        fail(f"iw3 extras CLI: export -> import vs the direct render {psnr:.2f} dB")
+    return dict(export_import_psnr=psnr, seconds=seconds)
 
 
 # waifu2x turbo: the bundled zoo's slots (all turbo_2x, dim 128, 8 blocks)
@@ -2775,7 +3168,13 @@ def main() -> int:
     families = depth_families_phase(torch, dev, model_dir, k3, k7)
     print(f"iw3 depth families: {smi}; " + json.dumps(families), flush=True)
 
-    # 14d. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
+    # 14d. iw3's extras: crop, DepthAA, the estimator, anaglyph / VR180 /
+    #      half-RGBD / debug depth, the lagged case, the CLI
+    phase("iw3 extras")
+    extras = iw3_extras_phase(torch, dev, model_dir, k3, k7, smi)
+    print(f"iw3 extras: {smi}; " + json.dumps(extras), flush=True)
+
+    # 14e. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
     phase("waifu2x turbo")
     turbo_phase(torch, dev, smi, model_dir)
     tmp.cleanup()
@@ -2911,6 +3310,9 @@ def main() -> int:
          # each "iw3 temporal" case's whole run (flush included)
          "temporal_launches": {c: iw3_temporal[c]["launches"]["warp_x_bounded"]
                                for c in TEMPORAL_CASES},
+         # each "iw3 extras" format's batch, and the lagged case's run
+         "extras_launches": {c: r["launches"]["warp_x_bounded"]
+                             for c, r in extras.items() if "launches" in r},
          "ms": k3_tm["kernel"], "plain_ms": k3_tm["plain"],
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": k3_tm["library"]},
@@ -2950,6 +3352,10 @@ def main() -> int:
          # (DepthPro / DepthPro_S: one frame), counted alone; one launch at
          # DepthPro's 35 tiles and at ZoeD_Any_N's batch (ViT-L, 16 heads)
          "family_launches": {f: r["launches"]["sdpa"] for f, r in families.items()},
+         # "iw3 extras": each format's batch of cropped frames (800 rows),
+         # and the lagged case's run
+         "extras_launches": {c: r["launches"]["sdpa"]
+                             for c, r in extras.items() if "launches" in r},
          "depth_pro_tiles_per_launch": k7_rows[577, "strided", 35, 16],
          "zoe_any_per_launch": k7_rows[1401, "strided", IW3_BATCH, 16]},
         {"name": "fused_swin_block", "route": "cuda",

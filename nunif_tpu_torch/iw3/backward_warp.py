@@ -224,29 +224,31 @@ def apply_divergence_nn_LR(model, c, depth, divergence, convergence,
                            steps=None, synthetic_view: str = "both",
                            preserve_screen_border: bool = False):
     """row_flow or MLBW (``model.model_name`` "sbs.mlbw") for the
-    requested eyes.  Both eyes with a scalar convergence run as one batch
-    [x, flip(x)]: the right eye is the flip-warp-flip of the left, so model
-    and warp run once at 2B."""
+    requested eyes.  Both eyes run as one batch [x, flip(x)]: the right eye
+    is the flip-warp-flip of the left, so model and warp run once at 2B.  A
+    per-frame (B,) convergence is repeated for the flipped half (the JAX
+    package runs the two eyes one after the other there; the results are
+    the same)."""
     if synthetic_view not in ("both", "right", "left"):
         raise ValueError(synthetic_view)
     if getattr(model, "model_name", "") == "sbs.mlbw":
-        def one(c, depth, div, shift):
+        def one(c, depth, div, shift, convergence=convergence):
             return apply_divergence_nn_delta_weight(
                 model, c, depth, div, convergence, shift=shift,
                 preserve_screen_border=preserve_screen_border)
     else:
-        def one(c, depth, div, shift):
+        def one(c, depth, div, shift, convergence=convergence):
             return apply_divergence_nn_delta(
                 model, c, depth, div, convergence, steps=steps, shift=shift,
                 preserve_screen_border=preserve_screen_border)
-    conv_scalar = not (torch.is_tensor(convergence) and convergence.dim())
-    if synthetic_view == "both" and conv_scalar:
-        B = c.shape[0]
-        z = one(torch.cat([c, c.flip(2)], dim=0),
-                torch.cat([depth, depth.flip(2)], dim=0), divergence, -1)
-        return z[:B], z[B:].flip(2)
     if synthetic_view == "both":
-        return one(c, depth, divergence, -1), one(c, depth, divergence, 1)
+        B = c.shape[0]
+        if torch.is_tensor(convergence) and convergence.dim():
+            convergence = torch.cat([convergence, convergence])
+        z = one(torch.cat([c, c.flip(2)], dim=0),
+                torch.cat([depth, depth.flip(2)], dim=0), divergence, -1,
+                convergence)
+        return z[:B], z[B:].flip(2)
     if synthetic_view == "right":
         return c, one(c, depth, divergence * 2, 1)
     return one(c, depth, divergence * 2, -1), c

@@ -1,7 +1,12 @@
 """Stereo output composition, NHWC (counterpart of
 ``nunif_tpu/iw3/composition.py``): IPD offset, padding, SBS, half-SBS, TB,
-half-TB and cross-eyed assembly, output size caps.  Anaglyph, VR180 and
-RGBD raise ``NotImplementedError``."""
+half-TB, cross-eyed, red-cyan anaglyph, VR180 (equirectangular) and RGBD /
+half-RGBD assembly, output size caps.
+
+RGBD and half-RGBD compose the two synthesised eyes side by side, as the
+JAX package does (no depth reaches this function; ROADMAP queue 3 holds
+the question); they skip the IPD pad, and half-RGBD shares half-SBS's
+downscale."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +17,8 @@ import torch
 from ..core import dtypes
 from ..modules.pad import zero_pad2d
 from ..modules.resize import resize
+from .anaglyph import apply_anaglyph_redcyan
+from .equirectangular import equirectangular_projection
 
 
 @dataclasses.dataclass
@@ -77,17 +84,14 @@ def postprocess_padding(left_eye, right_eye, pad, pad_mode: str):
 
 
 def postprocess_image(left_eye, right_eye, fmt: StereoFormat):
-    """Compose the output frames.  The half-SBS / half-TB downscale runs on
-    both eyes at once in ``dtypes.IMAGE_DTYPE`` (bf16, as in the JAX
-    package)."""
-    if fmt.anaglyph is not None or fmt.vr180 or fmt.rgbd or fmt.half_rgbd:
-        raise NotImplementedError(
-            "anaglyph, VR180 and RGBD outputs are not ported to "
-            "nunif_tpu_torch yet (ROADMAP queue 1)")
+    """Compose the output frames.  The half-SBS / half-RGBD / half-TB
+    downscale runs on both eyes at once in ``dtypes.IMAGE_DTYPE`` (bf16, as
+    in the JAX package); VR180 projects each eye; an anaglyph takes
+    precedence over TB and cross-eyed."""
     H, W = left_eye.shape[1:3]
     ipd_pad = int(abs(fmt.ipd_offset) * 0.01 * max(H, W))
     ipd_pad -= ipd_pad % 2
-    if ipd_pad > 0:
+    if ipd_pad > 0 and not (fmt.rgbd or fmt.half_rgbd):
         pad_o, pad_i = ((ipd_pad * 2, ipd_pad) if fmt.ipd_offset > 0
                         else (ipd_pad, ipd_pad * 2))
         left_eye = zero_pad2d(left_eye, (pad_o, pad_i, 0, 0))
@@ -96,24 +100,28 @@ def postprocess_image(left_eye, right_eye, fmt: StereoFormat):
         left_eye, right_eye = postprocess_padding(
             left_eye, right_eye, pad=fmt.pad, pad_mode=fmt.pad_mode)
 
-    if fmt.half_sbs or fmt.half_tb:
+    if fmt.vr180:
+        left_eye = equirectangular_projection(left_eye)
+        right_eye = equirectangular_projection(right_eye)
+    elif fmt.half_sbs or fmt.half_rgbd or fmt.half_tb:
         h, w = left_eye.shape[1:3]
         B = left_eye.shape[0]
         both = torch.cat([left_eye, right_eye], dim=0).to(dtypes.IMAGE_DTYPE)
-        if fmt.half_sbs:
+        if fmt.half_sbs or fmt.half_rgbd:
             both = resize(both, h, w // 2, mode="bicubic", antialias=True)
         else:
             both = resize(both, h // 2, w, mode="bicubic", antialias=True)
         left_eye = both[:B].to(left_eye.dtype)
         right_eye = both[B:].to(right_eye.dtype)
 
-    if fmt.tb or fmt.half_tb:
-        sbs = torch.cat([left_eye, right_eye], dim=1)
+    if fmt.anaglyph is not None:
+        sbs = apply_anaglyph_redcyan(left_eye, right_eye, fmt.anaglyph)
+    elif fmt.tb or fmt.half_tb:
+        sbs = torch.cat([left_eye, right_eye], dim=1).clamp(0.0, 1.0)
     elif fmt.cross_eyed:
-        sbs = torch.cat([right_eye, left_eye], dim=2)
+        sbs = torch.cat([right_eye, left_eye], dim=2).clamp(0.0, 1.0)
     else:
-        sbs = torch.cat([left_eye, right_eye], dim=2)
-    sbs = sbs.clamp(0.0, 1.0)
+        sbs = torch.cat([left_eye, right_eye], dim=2).clamp(0.0, 1.0)
 
     h, w = sbs.shape[1:3]
     new_w, new_h = w, h

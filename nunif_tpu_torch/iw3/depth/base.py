@@ -1,7 +1,6 @@
 """Depth model base: lifecycle, the EMA min-max normalisation hooks and
-the network loader of every family (counterpart of
-``nunif_tpu/iw3/depth/base.py``; the DepthAA filter and the 16-bit depth
-PNG round trip are not ported yet).
+the network loader of every family, the DepthAA filter and the 16-bit
+depth PNG round trip (counterpart of ``nunif_tpu/iw3/depth/base.py``).
 
 With a lookahead buffer (``buffer_size > 1``) the scaler holds frames back:
 ``minmax_normalize`` returns fewer frames than it was given and
@@ -13,6 +12,7 @@ import logging
 import math
 from abc import ABCMeta, abstractmethod
 
+import numpy as np
 import torch
 
 from ...core.device import resolve_device
@@ -123,6 +123,7 @@ class BaseDepthModel(metaclass=ABCMeta):
         self.dtype = dtype  # the network's compute dtype
         self.scaler = self.create_depth_scaler()
         self.limit_resolution = False
+        self._depth_aa = None
 
     def create_depth_scaler(self):
         return EMAMinMaxScaler(decay=0, buffer_size=1)
@@ -164,6 +165,19 @@ class BaseDepthModel(metaclass=ABCMeta):
     def infer(self, x, **kwargs):
         ...
 
+    # DepthAA post-filter (--depth-aa)
+    def set_depth_aa(self, model):
+        """Filter every depth map this model infers through the
+        ``iw3.depth_aa`` net ``model`` (None turns it off).  Every wrapper
+        with the hook applies it: Depth-Anything, DA3 mono and VDA."""
+        self._depth_aa = model
+
+    def apply_depth_aa(self, depth):
+        if self._depth_aa is None:
+            return depth
+        from ..models.depth_aa import depth_aa_infer
+        return depth_aa_infer(self._depth_aa, depth)
+
     # EMA normalisation hooks
     def enable_ema(self, decay, buffer_size=None):
         self.scaler.reset(decay=decay, buffer_size=buffer_size)
@@ -199,3 +213,57 @@ class BaseDepthModel(metaclass=ABCMeta):
     def flush_minmax_normalize(self, return_minmax=False):
         """The frames the lookahead buffer still holds, normalised."""
         return self.scaler.flush(return_minmax=return_minmax)
+
+    # 16-bit depth PNG round trip
+    @staticmethod
+    def save_normalized_depth(depth, file_path, png_info=None,
+                              min_depth_value=None, max_depth_value=None):
+        """Write depth (H, W) or (H, W, 1) in [0, 1] as a 16-bit gray PNG
+        (truncated to 0..65535), with ``iw3_min_depth_value`` /
+        ``iw3_max_depth_value`` and ``png_info`` as text chunks."""
+        from PIL import Image
+        from PIL.PngImagePlugin import PngInfo
+        png_info = dict(png_info or {})
+        if min_depth_value is not None:
+            png_info["iw3_min_depth_value"] = float(min_depth_value)
+        if max_depth_value is not None:
+            png_info["iw3_max_depth_value"] = float(max_depth_value)
+        if torch.is_tensor(depth):
+            depth = depth.float().cpu().numpy()
+        depth = np.clip(np.asarray(depth, np.float32), 0, 1)
+        if depth.ndim == 3:
+            depth = depth[..., 0]
+        metadata = PngInfo()
+        for k, v in png_info.items():
+            metadata.add_text(k, str(v))
+        Image.fromarray((depth * 0xFFFF).astype(np.uint16)).save(
+            file_path, pnginfo=metadata)
+
+    @staticmethod
+    def load_depth(file_path):
+        """(depth (H, W, 1) fp32 tensor on the CPU, text metadata with
+        ``filename``): 16-bit samples / 65535 (8-bit / 255), mapped back
+        to [min, max] when the PNG holds both values."""
+        from PIL import Image
+        with Image.open(file_path) as im:
+            text = dict(getattr(im, "text", {}) or {})
+            arr = np.asarray(im)
+        min_v = max_v = None
+        try:
+            min_v = float(text["iw3_min_depth_value"])
+            max_v = float(text["iw3_max_depth_value"])
+        except (KeyError, ValueError, TypeError):
+            min_v = max_v = None
+        if arr.dtype == np.uint16:
+            depth = np.clip(arr.astype(np.float32) / 0xFFFF, 0, 1)
+        elif arr.dtype == np.uint8:
+            depth = arr.astype(np.float32) / 255.0
+        else:
+            depth = arr.astype(np.float32)
+        if depth.ndim == 3:
+            depth = depth.mean(axis=-1)
+        depth = depth[..., None]
+        if min_v is not None and max_v is not None:
+            depth = depth * (max_v - min_v) + min_v
+        text["filename"] = file_path
+        return torch.from_numpy(np.ascontiguousarray(depth, np.float32)), text

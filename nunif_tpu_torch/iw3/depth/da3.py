@@ -140,6 +140,9 @@ class DepthAnythingV3MonoModel(BaseDepthModel):
                                              raw_output=self.raw_output))
         if tta:
             out = (out[:B] + out[B:].flip(2)) * 0.5
+        # the net set_depth_aa set (the JAX wrapper reads an attribute
+        # nothing sets: ROADMAP queue 3)
+        out = self.apply_depth_aa(out)
         if edge_dilation_is_enabled(edge_dilation):
             if not self.raw_output:
                 out = dilate_edge(out, edge_dilation)

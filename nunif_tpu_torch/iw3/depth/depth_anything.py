@@ -201,6 +201,7 @@ class DepthAnythingModel(BaseDepthModel):
         out = torch.nan_to_num(self.model(x).float())
         if tta:
             out = (out[:B] + out[B:].flip(2)) * 0.5
+        out = self.apply_depth_aa(out)
         if edge_dilation_is_enabled(edge_dilation):
             if not self.is_metric():
                 out = dilate_edge(out, edge_dilation)

@@ -345,15 +345,18 @@ def vda_preprocess(x, lower_bound, metric_depth, limit_resolution=False):
 
 
 def vda_postprocess(out, edge_dilation, metric_depth, force_disparity=True,
-                    max_dist=None):
+                    max_dist=None, depth_aa_fn=None):
     """Raw net output (B, H, W, 1) -> fp32 depth in the disparity
     convention (metric depth as 1 / (d + 0.1) unless ``force_disparity``
-    is off, then negated as ZoeDepth's)."""
+    is off, then negated as ZoeDepth's); ``depth_aa_fn`` filters it before
+    the metric crop."""
     out = torch.nan_to_num(out.float())
     if max_dist is not None:
         out = out.clamp(max=max_dist)
     if metric_depth and force_disparity:
         out = 1.0 / (out + 0.1)
+    if depth_aa_fn is not None:
+        out = depth_aa_fn(out)
     if metric_depth:
         out = crop2d(out, (METRIC_PADDING,) * 4)
     is_disparity = (not metric_depth) or force_disparity
@@ -425,9 +428,12 @@ class _VDACommon(BaseDepthModel):
                               limit_resolution=self.limit_resolution)
 
     def _postprocess(self, out, edge_dilation):
+        # the net set_depth_aa set (the JAX wrappers read an attribute
+        # nothing sets: ROADMAP queue 3)
         return vda_postprocess(out, edge_dilation=edge_dilation,
                                metric_depth=self.metric_depth,
-                               force_disparity=self.force_disparity)
+                               force_disparity=self.force_disparity,
+                               depth_aa_fn=self.apply_depth_aa)
 
 
 class VideoDepthAnythingModel(_VDACommon):

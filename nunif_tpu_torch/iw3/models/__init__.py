@@ -5,3 +5,5 @@ from .mlbw import MLBW  # noqa: F401  (sbs.mlbw and sbs.mlbw_l2 ... mask_mlbw_l2
 from .row_flow_v2 import RowFlowV2  # noqa: F401  (sbs.row_flow_v2)
 from .row_flow_v3 import RowFlowV3  # noqa: F401  (sbs.row_flow_v3)
 from .light_video_inpaint_v1 import LightVideoInpaintV1  # noqa: F401  (inpaint.light_video_inpaint_v1*)
+from .depth_aa import DepthAA  # noqa: F401  (iw3.depth_aa)
+from .sod_v1 import SODV1  # noqa: F401  (iw3.sod_v1, and aux.u2netp)

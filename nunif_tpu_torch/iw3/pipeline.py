@@ -22,6 +22,7 @@ from .composition import StereoFormat, postprocess_image
 from .forward_warp import apply_divergence_forward_warp
 from .mapper import get_mapper, resolve_mapper_name
 
+SOD_INPUT_SIZE = 192  # the convergence estimator's frames and depth
 INPAINT_METHODS = ("forward_inpaint", "mlbw_l2_inpaint", "mlbw_l2_inpaint_video")
 
 
@@ -124,10 +125,40 @@ def resize_depth_for(depth, im, cfg: StereoConfig):
 
 
 @torch.no_grad()
+def stereo_from_depth(x, depth, cfg: StereoConfig, side_model=None,
+                      metric_depth: bool = False, convergence=None):
+    """Frames x (B, H, W, 3) and their normalised depth (B, h, w, 1) -> the
+    composed frames; a clip side model (``mlbw_l2_inpaint_video``) is
+    flushed, so every frame comes out."""
+    depth = resize_depth_for(depth, x, cfg)
+    left, right = apply_divergence(depth, x, cfg, side_model,
+                                   metric_depth=metric_depth,
+                                   convergence=convergence)
+    if cfg.method == "mlbw_l2_inpaint_video":
+        # a clip model: the frames it still queues come out of its flush
+        rest = side_model.flush(inner_dilation=cfg.mask_inner_dilation,
+                                outer_dilation=cfg.mask_outer_dilation)
+        left, right = (a if b is None else b if a is None else torch.cat([a, b])
+                       for a, b in zip((left, right), rest))
+    return postprocess_image(left, right, cfg.format)
+
+
+def debug_depth_image(depth, x):
+    """The normalised depth resized to the frames (bilinear, no
+    antialias) and spread to three channels."""
+    return resize(depth, x.shape[1], x.shape[2], mode="bilinear",
+                  antialias=False).clamp(0, 1).expand(-1, -1, -1, 3)
+
+
+@torch.no_grad()
 def process_image(x, cfg: StereoConfig, depth_model, side_model=None,
-                  tta=False, edge_dilation=0, return_depth=False):
+                  tta=False, edge_dilation=0, return_depth=False,
+                  debug_depth=False, convergence_estimator=None):
     """x (B, H, W, 3) or (H, W, 3) in [0, 1] on the depth model's device ->
-    the composed frame(s)."""
+    the composed frame(s).  ``debug_depth``: the normalised depth
+    (``debug_depth_image``) instead; ``convergence_estimator``: each
+    frame's convergence from the frame and its depth at 192 x 192 (as
+    ``video.Iw3FrameProcessor``)."""
     batch = x.dim() == 4
     if not batch:
         x = x[None]
@@ -136,16 +167,22 @@ def process_image(x, cfg: StereoConfig, depth_model, side_model=None,
     normalized = depth_model.minmax_normalize(depth)
     if not normalized:
         raise ValueError("the depth scaler must have buffer_size 1 for images")
-    depth = resize_depth_for(torch.stack(normalized, dim=0), x, cfg)
-    left, right = apply_divergence(depth, x, cfg, side_model,
-                                   metric_depth=depth_model.is_metric())
-    if cfg.method == "mlbw_l2_inpaint_video":
-        # a clip model: the frames it still queues come out of its flush
-        rest = side_model.flush(inner_dilation=cfg.mask_inner_dilation,
-                                outer_dilation=cfg.mask_outer_dilation)
-        left, right = (a if b is None else b if a is None else torch.cat([a, b])
-                       for a, b in zip((left, right), rest))
-    out = postprocess_image(left, right, cfg.format)
+    depth = torch.stack(normalized, dim=0)
+    if debug_depth:
+        out = debug_depth_image(depth, x)
+    else:
+        convergence = None
+        if convergence_estimator is not None:
+            convergence = convergence_estimator(
+                resize(x, SOD_INPUT_SIZE, SOD_INPUT_SIZE, mode="bilinear",
+                       antialias=False),
+                resize(depth, SOD_INPUT_SIZE, SOD_INPUT_SIZE, mode="bilinear",
+                       antialias=False))
+        out = stereo_from_depth(x, depth, cfg, side_model,
+                                metric_depth=depth_model.is_metric(),
+                                convergence=convergence)
     if not batch:
         out = out[0]
-    return (out, depth) if return_depth else out
+    if return_depth:
+        return out, resize_depth_for(depth, x, cfg)
+    return out

@@ -21,18 +21,29 @@ lagged path above, which also serves the stateful streaming VDA
 (``stateful_inference``).  ``scene_boundaries`` (frame indexes where a
 shot begins) resets the EMA after the frame before each cut, and, unlike
 the JAX processor, the depth model's temporal state too (the windowed
-VDA's window, the streaming VDA's caches).  Crop, device meshes and the
-convergence estimator raise ``NotImplementedError``; decoding and encoding
-video (``process_video_full``) is not ported yet.
+VDA's window, the streaming VDA's caches).
+
+Options: ``crop`` (slice_tb, slice_lr), e.g. ``utils.autocrop.
+AutoCropDetector``'s, cuts the letterbox off before the frames leave the
+host; ``debug_depth`` outputs the normalised depth, resized to the frame
+and spread to three channels, in place of the stereo frame (no warp runs);
+``convergence_estimator`` (a ``ConvergenceEstimator``) gives each frame its
+convergence from the frame and its normalised depth, both resized to 192.
+Unlike the JAX processor, which drops the estimator on the lagged path,
+the estimator runs on whatever frames come out, with their own reset
+flags.  Device meshes (``mesh``) raise ``NotImplementedError``; decoding
+and encoding video (``process_video_full``) is not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..modules.resize import resize
 from .composition import postprocess_image
 from .depth_scaler import frame_stats
-from .pipeline import StereoConfig, apply_divergence, preprocess_image, resize_depth_for
+from .pipeline import (SOD_INPUT_SIZE, StereoConfig, apply_divergence,
+                       debug_depth_image, preprocess_image, resize_depth_for)
 
 
 class Iw3FrameProcessor:
@@ -41,14 +52,11 @@ class Iw3FrameProcessor:
 
     def __init__(self, cfg: StereoConfig, depth_model, side_model=None,
                  tta=False, edge_dilation=0, scene_boundaries=None, crop=None,
-                 mesh=None, convergence_estimator=None):
-        unported = {"crop": crop, "mesh": mesh,
-                    "convergence_estimator": convergence_estimator}
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"Iw3FrameProcessor({name}=...) is not ported to "
-                    "nunif_tpu_torch yet (ROADMAP queue 1)")
+                 mesh=None, debug_depth=False, convergence_estimator=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Iw3FrameProcessor(mesh=...): device meshes are not ported "
+                "to nunif_tpu_torch yet (ROADMAP queue 1 item 13)")
         self.cfg = cfg
         self.depth_model = depth_model
         self.side_model = side_model
@@ -56,9 +64,13 @@ class Iw3FrameProcessor:
         self.edge_dilation = edge_dilation
         self.scene_boundaries = (frozenset(int(b) for b in scene_boundaries)
                                  if scene_boundaries else frozenset())
+        self.crop = crop
+        self.debug_depth = debug_depth
+        self.convergence_estimator = convergence_estimator
         self.device = depth_model.device
         self._frame_idx = 0
         self._rgb_queue = []  # preprocessed frames waiting for their depth
+        self._flag_queue = []  # and their reset flags
 
     def _reset_flags(self, n: int):
         """flags[i]: frame i is the last of its shot (frame i + 1 is a
@@ -67,12 +79,23 @@ class Iw3FrameProcessor:
         self._frame_idx += n
         return [start + i + 1 in self.scene_boundaries for i in range(n)]
 
-    def _stereo(self, depth, im):
-        """Normalised depth (n, h, w, 1) and frames -> composed frames, or
-        None while the side model queues them."""
+    def _stereo(self, depth, im, flags):
+        """Normalised depth (n, h, w, 1), frames and their reset flags ->
+        composed frames (or the debug depth), or None while the side model
+        queues them."""
+        if self.debug_depth:
+            return debug_depth_image(depth, im)
+        convergence = None
+        if self.convergence_estimator is not None:
+            size = SOD_INPUT_SIZE
+            convergence = self.convergence_estimator(
+                resize(im, size, size, mode="bilinear", antialias=False),
+                resize(depth, size, size, mode="bilinear", antialias=False),
+                reset_pts=list(flags))
         depth = resize_depth_for(depth, im, self.cfg)
         left, right = apply_divergence(depth, im, self.cfg, self.side_model,
-                                       metric_depth=self.depth_model.is_metric())
+                                       metric_depth=self.depth_model.is_metric(),
+                                       convergence=convergence)
         if left is None:
             return None
         return postprocess_image(left, right, self.cfg.format)
@@ -95,6 +118,8 @@ class Iw3FrameProcessor:
 
     @torch.no_grad()
     def __call__(self, batch_u8):
+        if self.crop is not None:  # on the host, before the upload
+            batch_u8 = batch_u8[:, self.crop[0], self.crop[1]]
         if not torch.is_tensor(batch_u8):
             batch_u8 = torch.from_numpy(np.ascontiguousarray(batch_u8))
         start = self._frame_idx
@@ -118,8 +143,9 @@ class Iw3FrameProcessor:
                 mins, maxs = c[:, 0], c[:, 1]
             d = scaler.normalize(depth, mins.reshape(-1, 1, 1, 1),
                                  maxs.reshape(-1, 1, 1, 1))
-            return self._stereo(d, x)
+            return self._stereo(d, x, flags)
         self._rgb_queue.extend(x)
+        self._flag_queue.extend(flags)
         if hasattr(dm, "infer_with_normalize"):
             # windowed temporal models (VDA): output lags by the window
             normalized = dm.infer_with_normalize(
@@ -137,7 +163,8 @@ class Iw3FrameProcessor:
             return None
         n = len(normalized)
         rgbs, self._rgb_queue = self._rgb_queue[:n], self._rgb_queue[n:]
-        return self._stereo(torch.stack(normalized), torch.stack(rgbs))
+        flags, self._flag_queue = self._flag_queue[:n], self._flag_queue[n:]
+        return self._stereo(torch.stack(normalized), torch.stack(rgbs), flags)
 
     @torch.no_grad()
     def flush(self):
@@ -149,7 +176,7 @@ class Iw3FrameProcessor:
         else:
             normalized = dm.flush_minmax_normalize()
         outs = [self._emit(normalized)]
-        self._rgb_queue = []
+        self._rgb_queue, self._flag_queue = [], []
         side_flush = getattr(self.side_model, "flush", None)
         if side_flush is not None:
             left, right = side_flush(inner_dilation=self.cfg.mask_inner_dilation,

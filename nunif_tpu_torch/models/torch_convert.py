@@ -1,6 +1,7 @@
 """Upstream PyTorch state dicts -> the flax-named parameter tree that
-``models.flax_params`` loads (the port's own copy of the depth converters
-of ``nunif_tpu/models/torch_convert.py``, which it does not import).
+``models.flax_params`` loads (the port's own copy of the depth, DepthAA
+and U2NETP converters of ``nunif_tpu/models/torch_convert.py``, which it
+does not import).
 
 Works on numpy arrays or anything with ``.numpy()``.  Layout rules:
   Conv2d           (O, I, kh, kw) -> HWIO (kh, kw, I, O)
@@ -300,6 +301,63 @@ def convert_depth_pro(sd, encoder: str = "vitl"):
         params["fov_head2"] = conv2d(sd, "fov.head.2")
         params["fov_head4"] = conv2d(sd, "fov.head.4")
     return params
+
+
+def conv_bn_fused(sd, conv_prefix, bn_prefix, eps: float = 1e-5):
+    """A conv followed by an eval-mode BatchNorm, folded into one conv
+    (HWIO kernel)."""
+    w = _np(sd[conv_prefix + ".weight"])
+    b = _np(sd[conv_prefix + ".bias"]) if conv_prefix + ".bias" in sd \
+        else np.zeros(w.shape[0], np.float32)
+    gamma, beta = _np(sd[bn_prefix + ".weight"]), _np(sd[bn_prefix + ".bias"])
+    mean, var = _np(sd[bn_prefix + ".running_mean"]), _np(sd[bn_prefix + ".running_var"])
+    scale = gamma / np.sqrt(var + eps)
+    return {"kernel": (w * scale[:, None, None, None]).transpose(2, 3, 1, 0).astype(np.float32),
+            "bias": ((b - mean) * scale + beta).astype(np.float32)}
+
+
+def _rebnconv(sd, prefix):
+    return conv_bn_fused(sd, prefix + ".conv_s1", prefix + ".bn_s1")
+
+
+def _rsu(sd, prefix, height, flat=False):
+    """An RSU block of ``height`` (``flat``: RSU4F, rebnconv1-4 and
+    3d-1d)."""
+    down = range(1, 5) if flat else range(1, height + 1)
+    up = range(3, 0, -1) if flat else range(height - 1, 0, -1)
+    out = {"rebnconvin": _rebnconv(sd, prefix + ".rebnconvin")}
+    out.update({f"rebnconv{i}": _rebnconv(sd, f"{prefix}.rebnconv{i}") for i in down})
+    out.update({f"rebnconv{i}d": _rebnconv(sd, f"{prefix}.rebnconv{i}d") for i in up})
+    return out
+
+
+def convert_u2netp(sd, prefix: str = ""):
+    """U2-Net-p (BatchNorm folded into each conv); ``prefix`` "u2netp."
+    for an ``iw3.sod_v1`` checkpoint, which nests the net there."""
+    heights = {"stage1": 7, "stage2": 6, "stage3": 5, "stage4": 4,
+               "stage4d": 4, "stage3d": 5, "stage2d": 6, "stage1d": 7}
+    out = {name: _rsu(sd, prefix + name, h) for name, h in heights.items()}
+    out.update({name: _rsu(sd, prefix + name, 4, flat=True)
+                for name in ("stage5", "stage6", "stage5d")})
+    out.update({f"side{i}": conv2d(sd, prefix + f"side{i}") for i in range(1, 7)})
+    out["outconv"] = conv2d(sd, prefix + "outconv")
+    return out
+
+
+def _wa_block(sd, prefix):
+    """iw3's WABlock (row_flow_v3, MLBW, DepthAA)."""
+    return {"mha": {"qkv_proj": linear(sd, prefix + ".mha.mha.qkv_proj"),
+                    "head_proj": linear(sd, prefix + ".mha.mha.head_proj")},
+            "bias": {"to_bias_0": linear(sd, prefix + ".bias.to_bias.0"),
+                     "to_bias_2": linear(sd, prefix + ".bias.to_bias.2")},
+            "conv_mlp_0": conv2d(sd, prefix + ".conv_mlp.0"),
+            "conv_mlp_3": conv2d(sd, prefix + ".conv_mlp.3")}
+
+
+def convert_depth_aa(sd):
+    return {"proj_in": conv2d(sd, "proj_in"),
+            **{f"blocks_{i}": _wa_block(sd, f"blocks.{i}") for i in range(3)},
+            "proj_out": conv2d(sd, "proj_out")}
 
 
 def flatten(tree, prefix: str = "") -> dict:

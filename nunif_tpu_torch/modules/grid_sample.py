@@ -1,5 +1,12 @@
-"""Horizontal stereo warps on NHWC tensors (counterpart of
-``nunif_tpu/modules/grid_sample.py``, ``warp_x`` and ``warp_x_bounded``).
+"""Grid sampling and the horizontal stereo warps on NHWC tensors
+(counterpart of ``nunif_tpu/modules/grid_sample.py``: ``grid_sample``,
+``warp_x`` and ``warp_x_bounded``).
+
+``grid_sample`` is torch's ``F.grid_sample`` on an NCHW view: the JAX
+function follows torch's convention (bicubic a = -0.75, out-of-range taps
+by padding mode), and no Pallas kernel computes it.  Reflection with
+``align_corners=False`` raises: there the JAX function reflects around
+[0, size - 1] and torch around [-0.5, size - 0.5].
 
 K3: ``warp_x_bounded`` replaces ``_warp_x_bounded_pallas``.  The Hopper
 kernel is ``csrc/warp_x.cu``; its header notes what bounds it on the H100
@@ -17,9 +24,24 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..core import dtypes
 from ..ops import _build
+
+
+def grid_sample(x, grid, mode: str = "bilinear", padding_mode: str = "border",
+                align_corners: bool = True):
+    """Sample x (B, H, W, C) at grid (B, Ho, Wo, 2), [-1, 1] coordinates,
+    grid[..., 0] the width axis: (B, Ho, Wo, C), fp32 arithmetic, x's
+    dtype.  mode nearest / bilinear / bicubic; padding zeros / border /
+    reflection."""
+    if padding_mode == "reflection" and not align_corners:
+        raise NotImplementedError(
+            "grid_sample: reflection with align_corners=False")
+    y = F.grid_sample(x.float().permute(0, 3, 1, 2), grid.float(), mode=mode,
+                      padding_mode=padding_mode, align_corners=align_corners)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def warp_x(x, delta_px, padding_mode: str = "border"):

@@ -268,7 +268,8 @@ def test_mlbw_warp_matches_jax(name, view):
 
 
 def test_mlbw_warp_per_frame_convergence_matches_jax():
-    """Per-frame convergence: the eyes run as two calls."""
+    """Per-frame convergence: the port runs both eyes as one [x, flip(x)]
+    batch with the convergence repeated, JAX as two calls; the same eyes."""
     model, params = shaped("sbs.mlbw_l2")
     rng = np.random.default_rng(32)
     c = rng.random((2, 24, 80, 3), dtype=np.float32)
