@@ -118,7 +118,27 @@ written by the port:
   on a line of its own; then T2 (the piecewise Swin block, ten variants with
   W8A8 int8 dense layers and int8 scores) at both of its tool's shapes
   against its twin, with controls (zero bias table, per-window attention)
-  that must fail, and its tool's run.
+  that must fail, and its tool's run;
+- video ("video"): the engine (``nunif_tpu_torch.video``) and both CLIs'
+  video paths at 1080p.  What ``ldd`` resolves for
+  ``native/libnunif_video.so`` decides the file I/O: with libav, lossless
+  utvideo files; without it, raw-frame files through this script's
+  ``RawVideoReader`` / ``RawVideoWriter`` (``VideoReader`` /
+  ``VideoWriter``'s interface; the package ships none).  A 48-frame clip
+  written and read back identical; the iw3 CLI at its defaults (Any_V2_S,
+  row_flow_v3, half-SBS, batch 4): exact K7 / K3 launches, the output
+  equal to ``Iw3FrameProcessor`` on the decoded frames in memory, >= 45 dB
+  a frame against the twins, fps and the engine's stage times (decode
+  wait, callback issue, device wait, encode); ``--scene-detect
+  --autocrop`` on a clip with a cut and 140-row bars against the detector
+  and the pre-pass; BASELINE config 5 chained through the CLIs (stlizer on
+  a shaky clip from ``stlizer.gen_test_video`` with seeded SuperPoint,
+  then streaming VDA-S + ``mlbw_l2_inpaint_video``; ``--border
+  outpaint`` once), fps a stage and peak memory; waifu2x turbo_2x at the
+  CLI's defaults and swin_unet_2x (K1 14, K2 1 a frame); K3 in
+  SuperPoint's two-pass warp on (8, 1080, 1920, 3) fp32 against its twin
+  and the gather, timed beside its bytes bound and ``F.grid_sample``;
+  ``find_transform`` on the card; the HDR tone map against the CPU.
 
 Every kernel is timed with CUDA events in turns (plain, kernel, library,
 library, kernel, plain) beside its twin and, where one PyTorch call computes
@@ -141,6 +161,7 @@ this file, it exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -2528,6 +2549,525 @@ def t2_phase(torch, probes, dev):
     return runs, launches
 
 
+# ---------------------------------------------------------------------------
+# "video": the engine, both CLIs' video paths, scene detection, the autocrop
+# pre-pass, stlizer and BASELINE config 5, the two-pass warp on K3, HDR
+
+VIDEO_FRAMES, VIDEO_FPS = 48, 30
+VIDEO_BATCH = 4  # the CLIs' --video-batch
+VIDEO_CUT = 24  # the scene-detection clip's cut
+# iw3 CLI at its defaults over VIDEO_FRAMES frames: 12 batches of 4, K7 12
+# a batch (Any_V2_S), K3 1 (row_flow_v3's eyes as one batch)
+VIDEO_IW3_LAUNCHES = {"sdpa": 12 * VIDEO_FRAMES // VIDEO_BATCH,
+                      "warp_x_bounded": VIDEO_FRAMES // VIDEO_BATCH}
+W2X_TURBO_FRAMES, W2X_SWIN_FRAMES = 16, 8
+SWIN_TILE = "1120x1936"  # one tile a 1080p frame, as the "frame" phase
+# the two-pass warp's transform (|shift| ~40 px, 1.5 degrees); it and the
+# HDR tone map run on batches of 8 frames
+TWO_PASS_SHIFT, TWO_PASS_ANGLE = (36.0, -18.0), 1.5
+TWO_PASS_GATHER_ATOL = 8e-3  # bf16 taps and a bilinear of a bilinear, smooth x
+LIBAV = ("libavformat", "libavcodec", "libavutil", "libswscale")
+# the lossless settings of the round trip where libav exists
+LOSSLESS_ARGS = ["--video-codec", "utvideo", "--pix-fmt", "gbrp"]
+
+
+class RawVideoReader:
+    """A raw-frame file with ``backend.VideoReader``'s interface: a JSON
+    header line (width, height, fps, dtype) and the frames, pts i / fps.
+    The video phase reads and writes through it where libav is absent."""
+
+    def __init__(self, path, rgb48=False, apply_rotation=True):
+        self._f = open(path, "rb")
+        head = json.loads(self._f.readline())
+        self.width, self.height, self.fps = head["width"], head["height"], head["fps"]
+        self._dtype = np.dtype(head["dtype"])
+        if (self._dtype == np.uint16) != bool(rgb48):
+            raise IOError(f"{path}: {self._dtype} frames, rgb48={rgb48}")
+        self.rgb48 = rgb48
+        self._start = self._f.tell()
+        self._size = self.height * self.width * 3 * self._dtype.itemsize
+        self.nb_frames = (os.path.getsize(path) - self._start) // self._size
+        self.duration = self.nb_frames / self.fps
+        self.rotation = 0
+        self.color_trc = self.color_primaries = self.colorspace = 2  # unspecified
+        self.color_range = 0
+        self.master_max_luminance = self.master_min_luminance = 0.0
+        self.max_cll = 0
+        self._i = 0
+
+    is_hdr = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        buf = self._f.read(self._size)
+        if len(buf) < self._size:
+            raise StopIteration
+        frame = np.frombuffer(buf, self._dtype).reshape(self.height, self.width, 3)
+        self._i += 1
+        return frame.copy(), (self._i - 1) / self.fps
+
+    def seek(self, seconds):
+        self._i = int(seconds * self.fps)
+        self._f.seek(self._start + self._i * self._size)
+
+    def close(self):
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+        return False
+
+
+class RawVideoWriter:
+    """``backend.VideoWriter``'s interface over a raw-frame file (codec
+    settings ignored)."""
+
+    def __init__(self, path, width, height, fps_num, fps_den=1, codec="",
+                 pix_fmt="", preset="", crf=0, rgb48=False, audio_source=None,
+                 extra_opts=""):
+        self.width, self.height = width, height
+        self._dtype = np.uint16 if rgb48 else np.uint8
+        self._f = open(path, "wb")
+        self._f.write((json.dumps({"width": width, "height": height,
+                                   "fps": fps_num / fps_den,
+                                   "dtype": np.dtype(self._dtype).name}) + "\n").encode())
+
+    def write(self, frame):
+        if frame.shape != (self.height, self.width, 3) or frame.dtype != self._dtype:
+            raise ValueError(f"frame {frame.shape} {frame.dtype}")
+        self._f.write(np.ascontiguousarray(frame).tobytes())
+
+    def close(self):
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+        return False
+
+
+class raw_video:
+    """Within the block the port's video backend reads and writes raw-frame
+    files (``RawVideoReader`` / ``RawVideoWriter``)."""
+
+    def __enter__(self):
+        from nunif_tpu_torch.video import backend
+        self.saved = {k: getattr(backend, k) for k in ("VideoReader", "VideoWriter")}
+        backend.VideoReader, backend.VideoWriter = RawVideoReader, RawVideoWriter
+
+    def __exit__(self, *exc):
+        from nunif_tpu_torch.video import backend
+        for k, v in self.saved.items():
+            setattr(backend, k, v)
+
+
+class engine_runs:
+    """Within the block, the stage times of every ``engine.process_video``
+    run (decode wait, callback issue, device wait, encode, wall) are
+    appended to ``runs``."""
+
+    def __enter__(self):
+        from nunif_tpu_torch.video import engine
+        self.runs, self.saved = [], engine.process_video
+
+        def recorded(*a, **k):
+            stats = self.saved(*a, **k)
+            self.runs.append(stats)
+            return stats
+        engine.process_video = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from nunif_tpu_torch.video import engine
+        engine.process_video = self.saved
+
+
+def video_io_check():
+    """(libav present, the printed finding): the decision comes from what
+    ``ldd`` resolves for the native library, not from an exception."""
+    from nunif_tpu_torch.video import backend
+    lines = sh(["ldd", backend.LIB_PATH]).splitlines()
+    av = [ln.strip() for ln in lines if ln.strip().startswith(LIBAV)]
+    print("video I/O: ldd native/libnunif_video.so: " + "; ".join(av), flush=True)
+    missing = [ln.split()[0] for ln in av if "not found" in ln]
+    if missing or len(av) < len(LIBAV):
+        return False, (f"video I/O: libav absent ({', '.join(missing)}), file round "
+                       f"trip held on the CPU lane")
+    codecs = {c: backend.encoder_available(c) for c in ("libx264", "libx265", "utvideo")}
+    return True, (f"video I/O: {backend.version()}; encoders {json.dumps(codecs)}")
+
+
+def video_stats(runs, frames):
+    """fps over the whole run and the wall time by stage (the first
+    callback's time also alone), summed over the engine runs."""
+    total = {k: sum(r[k] for r in runs) for k in
+             ("decode_s", "callback_s", "first_callback_s", "device_wait_s",
+              "encode_s", "wall_s")}
+    return {"fps": frames / total["wall_s"], **{k: round(v, 4) for k, v in total.items()}}
+
+
+def read_video(path, rgb48=False):
+    from nunif_tpu_torch.video import backend
+    with backend.VideoReader(path, rgb48=rgb48) as r:
+        return np.stack([f for f, _ in r])
+
+
+def video_models(torch, dev, model_dir):
+    """The iw3 nets of the earlier phases (Any_V2_S, row_flow_v3; seeded
+    VDA-S and LightVideoInpaintV1) written to .nztm in ``model_dir``:
+    (depth model, row_flow_v3) loaded back."""
+    from nunif_tpu_torch.iw3.depth.vda import VideoDepthAnything, shaped_flax_params
+    from nunif_tpu_torch.iw3.models import light_video_inpaint_v1 as lv
+    from nunif_tpu_torch.models import from_flax, save_model
+    vda = VideoDepthAnything(encoder="vits")
+    from_flax(vda, shaped_flax_params(vda, 5))
+    save_model(vda, os.path.join(model_dir, "vda_s.nztm"))
+    net = lv.LightVideoInpaintV1()
+    from_flax(net, lv.shaped_flax_params(net, 6))
+    save_model(net, os.path.join(model_dir, "light_video_inpaint_v1.nztm"))
+    return iw3_models(torch, dev, model_dir)
+
+
+def counted(kernels, fn):
+    """fn() with every kernel count set to 0 just before and read just
+    after: (fn's result, {kernel: launches})."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch_sync()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def torch_sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def video_phase(torch, dev, k3, k7, kernels, smi, hw=(1080, 1920), cli_extra=(),
+                libav=None, resolution=None):
+    """The "video" phase (see the module docstring); k3 / k7 are the
+    kernels' modules (for ``twins``), ``kernels`` the wrappers whose
+    launches it counts ({"sdpa": k7.sdpa, ...}).  A rehearsal on the CPU
+    passes a small ``hw``, ``cli_extra`` (``--device cpu``), a small depth
+    ``resolution`` and ``libav=False``.  Returns the phase's numbers, for
+    its own JSON line and the kernels line."""
+    from nunif_tpu_torch.iw3 import cli as iw3_cli
+    from nunif_tpu_torch.iw3.composition import StereoFormat
+    from nunif_tpu_torch.iw3.pipeline import StereoConfig
+    from nunif_tpu_torch.iw3.scene_boundary_cache import load_cache
+    from nunif_tpu_torch.iw3.video import Iw3FrameProcessor
+    from nunif_tpu_torch.stlizer.__main__ import main as stlizer_main
+    from nunif_tpu_torch.stlizer.gen_test_video import generate_shaky_video
+    from nunif_tpu_torch.utils.autocrop import autocrop_analyze_video
+    from nunif_tpu_torch.utils.shot_boundary import detect_boundaries
+    from nunif_tpu_torch.video import VideoOutputConfig, engine, generate_video
+    from nunif_tpu_torch.waifu2x import cli as w2x_cli
+    t_phase = time.perf_counter()
+    out = {}
+    # 1. video I/O
+    found, line = video_io_check()
+    libav = found if libav is None else libav
+    print(line, flush=True)
+    out["libav"] = libav
+    codec = LOSSLESS_ARGS if libav else []
+    ext = ".mkv"
+    with tempfile.TemporaryDirectory() as d, \
+            (contextlib.nullcontext() if libav else raw_video()):
+        dm, flow = video_models(torch, dev, d)
+        if resolution:
+            from nunif_tpu_torch.iw3.depth import create_depth_model
+            dm = create_depth_model("Any_V2_S", device=dev).load(
+                resolution=resolution, checkpoint=os.path.join(d, "depth_any_v2_s.nztm"))
+            cli_extra = list(cli_extra) + ["--resolution", str(resolution)]
+        config = VideoOutputConfig(codec="utvideo", pix_fmt="gbrp", audio_copy=False)
+        n, (h, w) = VIDEO_FRAMES, hw
+        # 2. the source clip and the engine's round trip
+        src_frames = iw3_frames(torch, dev, n, h, w, seed=61).cpu().numpy()
+        clip = os.path.join(d, "clip" + ext)
+        generate_video(clip, iter(src_frames), w, h, fps=VIDEO_FPS, config=config)
+        if not np.array_equal(read_video(clip), src_frames):
+            fail("video: the clip does not decode to the frames written")
+        print(f"video: {n} frames {h}x{w} at {VIDEO_FPS} fps written and read back "
+              f"identical", flush=True)
+        # 3. the iw3 CLI at its defaults (Any_V2_S, row_flow_v3), half-SBS
+        common = ["--depth-checkpoint", os.path.join(d, "depth_any_v2_s.nztm"),
+                  "--yes"] + codec + list(cli_extra)
+        iw3_out = os.path.join(d, "iw3" + ext)
+        t0 = time.perf_counter()
+        with engine_runs() as er:
+            _r, launches = counted(kernels, lambda: iw3_cli.main(
+                ["-i", clip, "-o", iw3_out, "--half-sbs", "--stereo-checkpoint",
+                 os.path.join(d, "row_flow_v3.nztm")] + common))
+        # fps of the engine's run, and of the whole CLI call (model loads)
+        stats = dict(video_stats(er.runs, n), cli_fps=n / (time.perf_counter() - t0))
+        got = read_video(iw3_out)
+        print(f"video: iw3 CLI {smi}: {json.dumps(stats)}; launches {launches}",
+              flush=True)
+        if got.shape != (n, h, w, 3):
+            fail(f"video: iw3 CLI wrote {got.shape}")
+        if dev.type == "cuda" and {k: launches[k] for k in VIDEO_IW3_LAUNCHES} \
+                != VIDEO_IW3_LAUNCHES:
+            fail(f"video: iw3 CLI launches {launches}, want {VIDEO_IW3_LAUNCHES}")
+        cfg = StereoConfig(method="row_flow_v3", divergence=IW3_DIVERGENCE,
+                           convergence=IW3_CONVERGENCE, format=StereoFormat(half_sbs=True))
+        decoded = read_video(clip)
+
+        def in_memory():
+            dm.disable_ema()
+            proc = Iw3FrameProcessor(cfg, dm, flow, edge_dilation=2)
+            ys = [proc(decoded[i:i + VIDEO_BATCH]) for i in range(0, n, VIDEO_BATCH)]
+            ys.append(proc.flush())
+            return torch.cat([engine.quantize(y, torch.uint8).cpu()
+                              for y in ys if y is not None]).numpy()
+        mem = in_memory()
+        if not np.array_equal(mem, got):
+            fail(f"video: the iw3 CLI's frames differ from the processor's in "
+                 f"memory ({uint8_psnr(torch.from_numpy(mem), torch.from_numpy(got)):.2f} dB)")
+        with twins((k3, "warp_x_bounded"), (k7, "sdpa")):
+            twin = in_memory()
+        psnrs = [uint8_psnr(torch.from_numpy(a), torch.from_numpy(b))
+                 for a, b in zip(got, twin)]
+        moved = float((np.abs(got[:, :, :w // 2].astype(np.int16)
+                              - decoded[:, :, ::2].astype(np.int16)) > 2).mean())
+        print(f"video: iw3 CLI output equals the processor in memory; against the "
+              f"twins min {min(psnrs):.2f} dB a frame; left-eye pixels moved {moved:.3f}",
+              flush=True)
+        if min(psnrs) < FRAME_PSNR_MIN or moved < 0.05:
+            fail(f"video: iw3 CLI against the twins {min(psnrs):.2f} dB, moved {moved}")
+        out["iw3"] = dict(stats, launches=launches,  # inf (identical) as None
+                          min_psnr_vs_twins=min(psnrs) if np.isfinite(min(psnrs)) else None)
+        # --scene-detect --autocrop on a clip with a cut and 140-row bars
+        bars = EXTRAS_BARS * h // 1080
+        scene = iw3_frames(torch, dev, n, h - 2 * bars, w, seed=62)
+        scene[VIDEO_CUT:] = 160 + iw3_frames(torch, dev, n - VIDEO_CUT, h - 2 * bars, w,
+                                             seed=63) // 4
+        cut = np.zeros((n, h, w, 3), np.uint8)
+        cut[:, bars:h - bars] = scene.cpu().numpy()
+        cut_clip = os.path.join(d, "cut" + ext)
+        generate_video(cut_clip, iter(cut), w, h, fps=VIDEO_FPS, config=config)
+        cut_out = os.path.join(d, "cut_out" + ext)
+        with engine_runs() as er:
+            _r, launches = counted(kernels, lambda: iw3_cli.main(
+                ["-i", cut_clip, "-o", cut_out, "--half-sbs", "--scene-detect",
+                 "--autocrop", "--ema-normalize", "--scene-cache-dir", d,
+                 "--stereo-checkpoint", os.path.join(d, "row_flow_v3.nztm")] + common))
+        used = load_cache(cut_clip, 30.0, d)
+        want = detect_boundaries(cut_clip, threshold=0.3, min_frames=10, max_fps=30.0)
+        crop = autocrop_analyze_video(cut_clip)
+        shape = read_video(cut_out).shape
+        print(f"video: --scene-detect --autocrop: boundaries {used} (detector {want}), "
+              f"crop {crop}, output {shape}; {json.dumps(video_stats(er.runs, n))}",
+              flush=True)
+        if used != want or want != [VIDEO_CUT] or crop != (slice(bars, h - bars), slice(None)) \
+                or shape != (n, h - 2 * bars, w, 3):
+            fail("video: scene detection or the autocrop pre-pass disagree")
+        out["scene_autocrop"] = dict(boundaries=used, launches=launches)
+        # 4. BASELINE config 5: stlizer -> streaming VDA + mlbw_l2_inpaint_video
+        image = os.path.join(d, "still.png")
+        from PIL import Image
+        Image.fromarray(iw3_frames(torch, dev, 1, h, w, seed=64)[0].cpu().numpy()).save(image)
+        shaky = os.path.join(d, "shaky" + ext)
+        nshaky, _traj = generate_shaky_video(image, shaky, fps=VIDEO_FPS,
+                                             seconds_per_image=n / VIDEO_FPS,
+                                             device=dev, config=config)
+        stable = os.path.join(d, "stable" + ext)
+        chain_out = os.path.join(d, "config5" + ext)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        stl = ["-i", shaky, "--cache-dir", d, "--device", str(dev)] + codec
+        t0 = time.perf_counter()
+        with engine_runs() as er_st:
+            _r, l_st = counted(kernels, lambda: stlizer_main(stl + ["-o", stable]))
+        t1 = time.perf_counter()
+        with engine_runs() as er_vda:
+            _r, l_vda = counted(kernels, lambda: iw3_cli.main(
+                ["-i", stable, "-o", chain_out, "--half-sbs", "--depth-model",
+                 "VDA_Stream_S", "--method", "mlbw_l2_inpaint_video",
+                 "--depth-checkpoint", os.path.join(d, "vda_s.nztm"),
+                 "--stereo-checkpoint", os.path.join(d, "light_video_inpaint_v1.nztm"),
+                 "--yes"] + codec + list(cli_extra)))
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else None
+        chain = read_video(chain_out)
+        if chain.shape != (nshaky, h, w, 3) or not np.isfinite(chain).all():
+            fail(f"video: config 5 wrote {chain.shape}")
+        t3 = time.perf_counter()
+        with engine_runs() as er_op:
+            counted(kernels, lambda: stlizer_main(stl + ["-o", os.path.join(
+                d, "outpaint" + ext), "--border", "outpaint"]))
+        # each stage's fps over its whole CLI run (models, the stlizer's
+        # analysis pass), beside the engine's own run
+        out["config5"] = {
+            "stlizer": dict(fps=nshaky / (t1 - t0), engine=video_stats(er_st.runs, nshaky),
+                            launches=l_st),
+            "iw3_vda_inpaint": dict(fps=nshaky / (t2 - t1),
+                                    engine=video_stats(er_vda.runs, nshaky), launches=l_vda),
+            "chain_fps": nshaky / (t2 - t0), "peak_gib": peak,
+            "stlizer_outpaint": dict(fps=nshaky / (time.perf_counter() - t3),
+                                     engine=video_stats(er_op.runs, nshaky))}
+        print(f"video: BASELINE config 5 {smi}: " + json.dumps(out["config5"]), flush=True)
+        if dev.type == "cuda" and (l_vda["sdpa"] == 0 or l_vda["warp_x_bounded"] == 0):
+            fail(f"video: config 5 did not run K7 / K3: {l_vda}")
+        # 6. waifu2x: turbo_2x at the CLI's defaults, swin_unet_2x seeded
+        w2x = {}
+        for name, frames, args, expect in (
+                ("turbo_2x", W2X_TURBO_FRAMES, [], {}),
+                ("swin_unet_2x", W2X_SWIN_FRAMES,
+                 ["--method", "scale", "--arch", "waifu2x.swin_unet_2x",
+                  "--tile-size", SWIN_TILE],
+                 {"fused_swin_block_image": 14 * W2X_SWIN_FRAMES,
+                  "stem_conv3x3": W2X_SWIN_FRAMES})):
+            src = os.path.join(d, f"w2x_{name}_in" + ext)
+            generate_video(src, iter(src_frames[:frames]), w, h, fps=VIDEO_FPS, config=config)
+            dst = os.path.join(d, f"w2x_{name}" + ext)
+            with engine_runs() as er:
+                _r, launches = counted(kernels, lambda: w2x_cli.main(
+                    ["-i", src, "-o", dst, "--yes"] + args + codec
+                    + (["--device", str(dev)] if cli_extra else [])))
+            shape = read_video(dst).shape
+            w2x[name] = dict(video_stats(er.runs, frames), launches=launches)
+            print(f"video: waifu2x {name} {smi}: {json.dumps(w2x[name])}", flush=True)
+            if shape != (frames, 2 * h, 2 * w, 3):
+                fail(f"video: waifu2x {name} wrote {shape}")
+            if dev.type == "cuda" and any(launches[k] != v for k, v in expect.items()):
+                fail(f"video: waifu2x {name} launches {launches}, want {expect}")
+        out["waifu2x"] = w2x
+    # 5. K3 in the two-pass warp, and find_transform on the card
+    out["two_pass"] = two_pass_check(torch, dev, k3, (8,) + tuple(hw) + (3,))
+    # 7. HDR
+    out["hdr"] = hdr_check(torch, dev, (8,) + tuple(hw) + (3,))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def video_run_launches(video):
+    """{run: {kernel: launches}} of the "video" phase's CLI runs, for the
+    kernels line."""
+    runs = {run: video[run]["launches"] for run in ("iw3", "scene_autocrop")}
+    runs.update({f"config5 {k}": v["launches"] for k, v in video["config5"].items()
+                 if isinstance(v, dict) and "launches" in v})
+    runs.update({f"waifu2x {k}": v["launches"] for k, v in video["waifu2x"].items()})
+    return runs
+
+
+def two_pass_check(torch, dev, k3, shape):
+    """``apply_transform(padding_mode="border")`` on a smooth fp32 batch:
+    2 K3 launches a call, against the same call with K3's plain twin (K3's
+    fp32 tolerance) and against the gather inside the envelope; the times
+    (CUDA events, in turns, medians) beside the bytes bound and one
+    ``F.grid_sample`` call on the same transform's grid; then
+    ``find_transform`` recovers a known shift and angle."""
+    import torch.nn.functional as F
+    from nunif_tpu_torch.modules.resize import resize
+    from nunif_tpu_torch.utils import superpoint as sp
+    B, H, W, C = shape
+    gen = torch.Generator(device=dev).manual_seed(71)
+    x = resize(torch.rand((B, H // 16, W // 16, C), generator=gen, device=dev),
+               H, W, mode="bilinear", antialias=False).contiguous()
+    shift = torch.tensor([TWO_PASS_SHIFT] * B, device=dev)
+    scale = torch.ones(B, device=dev)
+    angle = torch.full((B,), TWO_PASS_ANGLE, device=dev)
+    center = torch.tensor([[W / 2, H / 2]] * B, device=dev)
+    reach = max(map(abs, TWO_PASS_SHIFT)) + abs(np.sin(np.radians(TWO_PASS_ANGLE))) \
+        * 0.5 * float(np.hypot(H, W))
+    ms = int(-(-int(reach + 1) // 8) * 8)
+    if ms > sp.TWO_PASS_MAX_SHIFT:
+        fail(f"two-pass warp: bound {ms} beyond {sp.TWO_PASS_MAX_SHIFT}")
+
+    def run():
+        return sp.apply_transform(x, shift, scale, angle, center,
+                                  padding_mode="border", max_shift=ms)
+
+    def plain():
+        with twins((k3, "warp_x_bounded")):
+            return run()
+    got, launches = counted({"k3": k3.warp_x_bounded}, run)
+    want = plain()
+    err, _rel = check_close(got, want, (0.0, K3_ATOL), "two-pass warp vs its twin")
+    gather = sp.apply_transform(x, shift, scale, angle, center, padding_mode="border",
+                                max_shift=sp.TWO_PASS_MAX_SHIFT + 1)
+    g_err = float((got - gather)[:, ms:-ms, ms:-ms].abs().max())
+    k3_calls = 2 if dev.type == "cuda" else 0
+    print(f"two-pass warp {tuple(shape)} fp32, max_shift {ms}: K3 launches "
+          f"{launches['k3']} (want {k3_calls}), vs twin {err:.3g}, vs gather "
+          f"(interior) {g_err:.3g}", flush=True)
+    if launches["k3"] != k3_calls:
+        fail(f"two-pass warp launched K3 {launches['k3']} times")
+    if g_err > TWO_PASS_GATHER_ATOL:
+        fail(f"two-pass warp vs the gather {g_err} > {TWO_PASS_GATHER_ATOL}")
+    out = dict(shape=list(shape), max_shift=ms, launches_a_call=launches["k3"],
+               max_abs_err=err, gather_err=g_err)
+    # find_transform on synthetic matches (tests/test_stlizer.py's case)
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(20, 300, size=(1, 64, 2)).astype(np.float32)
+    c = np.full((1, 1, 2), 160.0, np.float32)
+    a = np.radians(3.0)
+    R = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]], np.float32)
+    pts2 = (pts - c) @ R.T + c + np.array([5.0, -3.0], np.float32)
+    sh, _sc, an = sp.find_transform(*(torch.from_numpy(v).to(dev) for v in (pts, pts2, c)),
+                                    torch.ones((1, 64), dtype=torch.bool, device=dev),
+                                    iteration=100, sigma=2.0, disable_scale=True)
+    sh, an = sh.cpu().numpy()[0], float(an[0])
+    print(f"find_transform on {dev}: shift {sh.tolist()} (5, -3), angle {an:.4f} (3)",
+          flush=True)
+    if abs(an - 3.0) > 0.3 or abs(sh[0] - 5.0) > 0.7 or abs(sh[1] + 3.0) > 0.7:
+        fail("find_transform did not recover the shift and angle")
+    out["find_transform"] = dict(shift=sh.tolist(), angle=an)
+    if dev.type != "cuda":
+        return out
+    # the gather's grid of the same transform for one F.grid_sample call
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    ra = -np.radians(TWO_PASS_ANGLE)
+    px, py = xx - W / 2, yy - H / 2
+    sx = px * np.cos(ra) - py * np.sin(ra) + W / 2 - TWO_PASS_SHIFT[0]
+    sy = px * np.sin(ra) + py * np.cos(ra) + H / 2 - TWO_PASS_SHIFT[1]
+    grid = torch.stack([sx / (W - 1) * 2 - 1, sy / (H - 1) * 2 - 1], -1)[None].expand(
+        B, H, W, 2).contiguous()
+    xc = x.permute(0, 3, 1, 2)
+    tm = compare_timed(run, plain, torch, library=lambda: F.grid_sample(
+        xc, grid, mode="bilinear", padding_mode="border", align_corners=True))
+    b = bound_ops(2 * x.numel() * x.element_size(), {})
+    out.update(ms=tm["kernel"], plain_ms=tm["plain"], library_ms=tm["library"],
+               bound_ms=b[0], bound_by=b[1])
+    print(f"two-pass warp: {tm['kernel']:.3f} ms (bound {b[0]:.3f}, "
+          f"{b[1]}), plain {tm['plain']:.3f}, F.grid_sample {tm['library']:.3f}", flush=True)
+    return out
+
+
+def hdr_check(torch, dev, shape):
+    """``hdr2sdr_frames`` on a seeded uint16 batch, PQ and HLG, both
+    modes: within 1 LSB of the same call on the CPU (two frames), and its
+    time on the device (CUDA events, median of 3)."""
+    from nunif_tpu_torch.video import hdr
+    gen = torch.Generator(device=dev).manual_seed(72)
+    x = torch.randint(0, 65536, shape, generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    out = {}
+    for trc in (hdr.TRC_PQ, hdr.TRC_HLG):
+        for mode in ("hable", "bt2390"):
+            kw = dict(trc=trc, peak_nits=1000.0, mode=mode)
+            y = hdr.hdr2sdr_frames(x, **kw)
+            cpu = hdr.hdr2sdr_frames(x[:2].cpu(), **kw)
+            d = int((y[:2].cpu().int() - cpu.int()).abs().max())
+            ms = statistics.median(cuda_time(lambda: hdr.hdr2sdr_frames(x, **kw), torch)
+                                   for _ in range(3)) if dev.type == "cuda" else None
+            out[f"{'pq' if trc == hdr.TRC_PQ else 'hlg'} {mode}"] = dict(max_lsb=d, ms=ms)
+            if d > 1:
+                fail(f"HDR {trc} {mode}: the device differs from the CPU by {d} LSB")
+    print(f"HDR tone map {tuple(shape)} uint16 -> uint8: {json.dumps(out)}", flush=True)
+    return out
+
+
 def probe_plans(torch, probes):
     """T2's plan at both tool shapes and T4's at every tool shape, from the
     built library, with what T2 reads from L2 a call: its weights (every
@@ -3187,6 +3727,17 @@ def main() -> int:
     phase("t2")
     t2_runs, t2_launches = t2_phase(torch, probes, dev)
 
+    # 17. video: the engine's round trip, both CLIs' video paths, scene
+    #     detection and the autocrop pre-pass, stlizer and BASELINE config 5,
+    #     K3 in the two-pass warp, the HDR tone map
+    phase("video")
+    video = video_phase(torch, dev, k3, k7, {
+        "sdpa": k7.sdpa, "warp_x_bounded": k3.warp_x_bounded,
+        "fused_swin_block_image": k1.fused_swin_block_image,
+        "stem_conv3x3": k2.stem_conv3x3}, smi)
+    print(f"video: {smi}; " + json.dumps(video), flush=True)
+    video_launches = video_run_launches(video)
+
     k1_bf16 = [r for r in k1_rows if r["dtype"] == "bfloat16"]
     # launches per frame of each K1 main-path shape; swin4's first block
     # (C = 192, with skip) is counted at the timed shape without skip
@@ -3284,6 +3835,8 @@ def main() -> int:
          "source": "nunif_tpu_torch/csrc/conv3x3.cu",
          "replaces": "nunif_tpu/ops/conv3x3.py:58",
          "launches": launches["stem_conv3x3"] + launches_4xl["stem_conv3x3"],
+         # each "video" phase run, counted alone (waifu2x: 1 a frame)
+         "video_launches": {run: n["stem_conv3x3"] for run, n in video_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": k2_sum("ms"), "plain_ms": k2_sum("plain_ms"),
          "bound_ms": k2_sum("bound_ms"),
@@ -3293,6 +3846,7 @@ def main() -> int:
          "source": "nunif_tpu_torch/csrc/swin_block.cu",
          "replaces": "nunif_tpu/ops/swin_attention.py:976",
          "launches": launches["fused_swin_block_image"],
+         "video_launches": {run: n["fused_swin_block_image"] for run, n in video_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in k1_bf16),
          "ms": k1_sum("ms"), "plain_ms": k1_sum("plain_ms"),
          "bound_ms": k1_sum("bound_ms"),
@@ -3313,6 +3867,9 @@ def main() -> int:
          # each "iw3 extras" format's batch, and the lagged case's run
          "extras_launches": {c: r["launches"]["warp_x_bounded"]
                              for c, r in extras.items() if "launches" in r},
+         # each "video" phase run; SuperPoint's two-pass warp at 1080p
+         "video_launches": {run: n["warp_x_bounded"] for run, n in video_launches.items()},
+         "two_pass": video["two_pass"],
          "ms": k3_tm["kernel"], "plain_ms": k3_tm["plain"],
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": k3_tm["library"]},
@@ -3356,6 +3913,7 @@ def main() -> int:
          # and the lagged case's run
          "extras_launches": {c: r["launches"]["sdpa"]
                              for c, r in extras.items() if "launches" in r},
+         "video_launches": {run: n["sdpa"] for run, n in video_launches.items()},
          "depth_pro_tiles_per_launch": k7_rows[577, "strided", 35, 16],
          "zoe_any_per_launch": k7_rows[1401, "strided", IW3_BATCH, 16]},
         {"name": "fused_swin_block", "route": "cuda",

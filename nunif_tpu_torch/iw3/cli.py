@@ -30,10 +30,20 @@ otherwise), where the JAX CLI exports with none.  Unlike the JAX CLI, the
 image path honours ``--debug-depth`` and ``--convergence-mode sod_v1``
 (each image on its own: the estimator's EMA is off).
 
-The video flags are parsed as the JAX parser parses them, but a video
-input raises ``NotImplementedError`` (ROADMAP queue 1 item 5), and so does
-``--devices`` above 1 (item 13).  ``--device`` defaults to ``cuda`` and
-fails where CUDA is missing.
+A video input (by its extension; a directory may mix images and videos)
+runs through ``video.process_video_full`` with the video flags of the JAX
+parser: ``--metadata filename`` names the output after the method,
+divergence and convergence; ``--resume`` skips an existing output and
+``--yes`` overwrites it; ``--skip-error`` writes ``<out>.error.flag`` on a
+failure, goes on, and skips a flagged output later;
+``--scene-detect-only`` prints a video's scene boundaries (cached) and
+writes nothing.  ``--export`` takes images only.  ``--devices`` above 1
+raises ``NotImplementedError`` (ROADMAP queue 1 item 13).  ``--device``
+defaults to ``cuda`` and fails where CUDA is missing.
+
+    python -m nunif_tpu_torch.iw3.cli -i in.mp4 -o out.mp4 --half-sbs --yes
+    python -m nunif_tpu_torch.iw3.cli -i in.mp4 -o out.mp4 --depth-model \\
+        VDA_Stream_S --method mlbw_l2_inpaint_video --scene-detect --autocrop
 """
 from __future__ import annotations
 
@@ -125,8 +135,7 @@ def create_parser():
                    help="skip existing output files")
     p.add_argument("--recursive", action="store_true")
     p.add_argument("--format", default="png", choices=["png", "jpeg", "webp"])
-    # video options: parsed as the JAX CLI parses them; a video input
-    # raises until the video path is ported
+    # video options, with the JAX parser's defaults
     p.add_argument("--video-codec", default="libx264")
     p.add_argument("--crf", type=int, default=20)
     p.add_argument("--preset", default="ultrafast")
@@ -377,7 +386,7 @@ def export_main(args, cfg, depth_model, edge_dilation, device) -> int:
     n = 0
     for src in iter_inputs(args.input, args.recursive):
         if os.path.splitext(src)[1].lower() in VIDEO_EXTS:
-            _video_not_ported()
+            raise ValueError(f"--export takes images; {src} is a video")
         with torch.no_grad():
             x = preprocess_image(_load_rgb(src, device)[None], cfg)
             d = depth_model.infer(x, tta=args.tta, edge_dilation=edge_dilation)[0]
@@ -437,10 +446,74 @@ def import_main(args, cfg, device) -> int:
     return 0
 
 
-def _video_not_ported():
-    raise NotImplementedError(
-        "video input is not ported to nunif_tpu_torch yet (ROADMAP queue 1 "
-        "item 5)")
+def video_output_path(args, dst):
+    """``dst``, or with ``--metadata filename`` the method, divergence and
+    convergence added to its name."""
+    if args.metadata != "filename":
+        return dst
+    base, ext = os.path.splitext(dst)
+    return f"{base}_{args.method}_d{args.divergence:g}_c{args.convergence:g}{ext}"
+
+
+def run_video(args, cfg, depth_model, side_model, edge_dilation, device,
+              src, dst) -> bool:
+    """One video with the resume / overwrite / error-flag rules; True when
+    it was converted (or skipped as done)."""
+    from ..video import engine
+    from .video import process_video_full
+    dst = video_output_path(args, dst)
+    if args.resume and os.path.exists(dst):
+        logger.info("skip (exists): %s", dst)
+        return True
+    if os.path.exists(dst) and not args.yes:
+        logger.warning("output exists (use --yes to overwrite or --resume to "
+                       "skip silently): %s", dst)
+        return False
+    if args.skip_error and engine.has_error_flag(dst):
+        logger.info("skip (error flag): %s", dst)
+        return False
+    if args.scene_detect_only:
+        from .scene_boundary_cache import detect_boundaries_cached
+        b = detect_boundaries_cached(
+            src, max_fps=args.max_fps, threshold=args.scene_detect_threshold,
+            min_frames=args.scene_min_frames,
+            checkpoint=args.scene_detect_checkpoint,
+            cache_dir=args.scene_cache_dir, device=device)
+        print(f"{src}: {len(b)} scene boundaries: {sorted(b)[:50]}",
+              file=sys.stderr)
+        return True
+    vc = engine.VideoOutputConfig(
+        codec=args.video_codec, crf=args.crf, preset=args.preset,
+        pix_fmt=args.pix_fmt, max_fps=args.max_fps, bitrate=args.video_bitrate,
+        tune=tuple(args.tune), profile_level=args.profile_level,
+        keyframe_interval=args.keyframe_interval, colorspace=args.colorspace)
+    sod_model = None
+    if args.convergence_mode == "sod_v1":
+        sod_model = _net("iw3.sod_v1", args.sod_checkpoint, device, args.seed)
+    try:
+        process_video_full(
+            src, dst, cfg, depth_model, side_model, tta=args.tta,
+            edge_dilation=edge_dilation, batch_size=args.video_batch,
+            video_config=vc, ema_normalize=args.ema_normalize,
+            ema_decay=args.ema_decay, ema_buffer=args.ema_buffer,
+            scene_detect=args.scene_detect,
+            scene_detect_threshold=args.scene_detect_threshold,
+            scene_min_frames=args.scene_min_frames,
+            scene_detect_checkpoint=args.scene_detect_checkpoint,
+            scene_cache_dir=args.scene_cache_dir,
+            scene_cache_disable=args.disable_scene_cache,
+            autocrop=args.autocrop, autocrop_mode=args.autocrop_mode,
+            start_time=args.start_time, end_time=args.end_time,
+            debug_depth=args.debug_depth,
+            convergence_mode=args.convergence_mode, sod_model=sod_model)
+    except Exception as e:
+        if not args.skip_error:
+            raise
+        logger.error("error processing %s: %s", src, e)
+        engine.write_error_flag(dst, e)
+        return False
+    engine.clear_error_flag(dst)
+    return True
 
 
 def main(argv=None) -> int:
@@ -456,8 +529,8 @@ def main(argv=None) -> int:
     cfg = build_config(args)
     if args.input.lower().endswith((".yml", ".yaml")):
         return import_main(args, cfg, device)
-    if os.path.splitext(args.input)[1].lower() in VIDEO_EXTS:
-        _video_not_ported()
+    if args.batch_size:
+        args.video_batch = args.batch_size
     depth_model = create_depth_model(args.depth_model, device=device)
     depth_model.load(resolution=args.resolution,
                      checkpoint=args.depth_checkpoint,
@@ -472,6 +545,11 @@ def main(argv=None) -> int:
         return export_main(args, cfg, depth_model, edge_dilation, device)
     side_model = create_stereo_model(args.method, args.stereo_checkpoint,
                                      device=device, seed=args.seed)
+    if os.path.splitext(args.input)[1].lower() in VIDEO_EXTS:
+        run_video(args, cfg, depth_model, side_model, edge_dilation, device,
+                  args.input, args.output)
+        print("processed video", file=sys.stderr)
+        return 0
     estimator = create_convergence_estimator(args, cfg, device)
 
     is_dir_out = os.path.isdir(args.input)
@@ -479,9 +557,14 @@ def main(argv=None) -> int:
         os.makedirs(args.output, exist_ok=True)
     n_done = 0
     for src in iter_inputs(args.input, args.recursive):
-        if os.path.splitext(src)[1].lower() in VIDEO_EXTS:
-            _video_not_ported()
         base = os.path.splitext(os.path.basename(src))[0]
+        if os.path.splitext(src)[1].lower() in VIDEO_EXTS:
+            vdst = (os.path.join(args.output, base + "." + args.video_format)
+                    if is_dir_out or os.path.isdir(args.output) else args.output)
+            if run_video(args, cfg, depth_model, side_model, edge_dilation,
+                         device, src, vdst):
+                n_done += 1
+            continue
         if is_dir_out or os.path.isdir(args.output):
             dst = os.path.join(args.output, base + "." + args.format)
         else:

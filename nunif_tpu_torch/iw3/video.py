@@ -31,8 +31,12 @@ and spread to three channels, in place of the stereo frame (no warp runs);
 convergence from the frame and its normalised depth, both resized to 192.
 Unlike the JAX processor, which drops the estimator on the lagged path,
 the estimator runs on whatever frames come out, with their own reset
-flags.  Device meshes (``mesh``) raise ``NotImplementedError``; decoding
-and encoding video (``process_video_full``) is not ported yet.
+flags.  Device meshes (``mesh``) raise ``NotImplementedError``.
+
+``process_video_full`` runs a video file through the processor on the
+engine (``video.engine.process_video``, the processor's ``flush`` as its
+``flush_callback``), after the optional pre-passes: scene detection (with
+its cache) and the letterbox analysis.
 """
 from __future__ import annotations
 
@@ -185,3 +189,77 @@ class Iw3FrameProcessor:
                 outs.append(postprocess_image(left, right, self.cfg.format))
         outs = [o for o in outs if o is not None]
         return torch.cat(outs) if outs else None
+
+
+def process_video_full(input_path: str, output_path: str, cfg: StereoConfig,
+                       depth_model, side_model=None, tta=False, edge_dilation=0,
+                       batch_size=4, video_config=None, ema_normalize=False,
+                       ema_decay=0.75, ema_buffer=30, scene_detect=False,
+                       scene_detect_threshold=0.3, scene_min_frames=10,
+                       scene_detect_checkpoint=None, scene_cache_dir=None,
+                       scene_cache_disable=False, autocrop=False,
+                       autocrop_mode="black", start_time=None, end_time=None,
+                       stop_event=None, suspend_event=None, mesh=None,
+                       debug_depth=False, convergence_mode="constant",
+                       sod_model=None):
+    """Convert a video file to stereo; returns the engine's stage times.
+
+    ``ema_normalize`` turns the depth model's EMA min-max scaler on (its
+    lookahead ``ema_buffer`` delays the output), else off.
+    ``scene_detect``: the cuts (TransNetV2 from ``scene_detect_checkpoint``,
+    else the histogram detector; cached unless ``scene_cache_disable``)
+    reset the EMA and the depth model's temporal state.  ``autocrop``: the
+    letterbox found on sampled frames is cut off every frame.
+    ``convergence_mode="sod_v1"``: a per-frame convergence from
+    ``sod_model`` (an ``iw3.sod_v1`` net; None: seeded), its EMA on."""
+    from ..video import engine
+    if ema_normalize:
+        depth_model.enable_ema(decay=ema_decay, buffer_size=ema_buffer)
+    else:
+        depth_model.disable_ema()
+    video_config = video_config or engine.VideoOutputConfig()
+    device = depth_model.device
+    scene_boundaries = None
+    if scene_detect:
+        if scene_cache_disable:
+            from ..utils.shot_boundary import detect_boundaries
+            scene_boundaries = detect_boundaries(
+                input_path, threshold=scene_detect_threshold,
+                min_frames=scene_min_frames, checkpoint=scene_detect_checkpoint,
+                max_fps=video_config.max_fps, device=device)
+        else:
+            from .scene_boundary_cache import detect_boundaries_cached
+            scene_boundaries = detect_boundaries_cached(
+                input_path, max_fps=video_config.max_fps,
+                threshold=scene_detect_threshold, min_frames=scene_min_frames,
+                checkpoint=scene_detect_checkpoint, cache_dir=scene_cache_dir,
+                device=device)
+    crop = None
+    if autocrop:
+        from ..utils.autocrop import autocrop_analyze_video
+        slice_tb, slice_lr = autocrop_analyze_video(input_path, mode=autocrop_mode)
+        if slice_tb != slice(None) or slice_lr != slice(None):
+            crop = (slice_tb, slice_lr)
+    estimator = None
+    if convergence_mode == "sod_v1":
+        from .convergence_estimator import ConvergenceEstimator
+        if sod_model is None:
+            from ..models import create_model, init_flax_default
+            from . import models  # noqa: F401  (registers the iw3 nets)
+            with torch.device(device):
+                sod_model = create_model("iw3.sod_v1")
+            init_flax_default(sod_model, torch.Generator(device=device).manual_seed(0))
+            sod_model.eval().requires_grad_(False)
+        estimator = ConvergenceEstimator(cfg.convergence, sod_model, enable_ema=True)
+    proc = Iw3FrameProcessor(cfg, depth_model, side_model, tta=tta,
+                             edge_dilation=edge_dilation,
+                             scene_boundaries=scene_boundaries, crop=crop,
+                             mesh=mesh, debug_depth=debug_depth,
+                             convergence_estimator=estimator)
+    stats = engine.process_video(
+        input_path, output_path, proc, batch_size=batch_size,
+        config=video_config, flush_callback=proc.flush, start_time=start_time,
+        end_time=end_time, stop_event=stop_event, suspend_event=suspend_event,
+        device=device)
+    depth_model.reset()
+    return stats

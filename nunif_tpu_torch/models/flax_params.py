@@ -12,8 +12,9 @@ layout.  Video Depth Anything's trees (``pretrained/...``, ``head/...``,
 ``head/motion_modules_i/...``) follow the same rules.  Dense kernels ``(in, out)``
 become Linear weights ``(out, in)``, conv kernels HWIO become OIHW, flax
 ``ConvTranspose(transpose_kernel=True)`` kernels ``(kh, kw, O, I)`` become
-``ConvTranspose2d`` weights ``(I, O, kh, kw)`` by the same 4-D rule, and
-everything else keeps its shape.  ``.nztm`` files keep flax paths, so both
+``ConvTranspose2d`` weights ``(I, O, kh, kw)`` by the same 4-D rule, 3-D
+conv kernels DHWIO become OIDHW (TransNetV2), and everything else keeps
+its shape.  ``.nztm`` files keep flax paths, so both
 packages read them.
 """
 from __future__ import annotations
@@ -44,6 +45,8 @@ def _to_flax_layout(name: str, a: np.ndarray) -> np.ndarray:
             return a.T
         if a.ndim == 4:
             return a.transpose(2, 3, 1, 0)
+        if a.ndim == 5:
+            return a.transpose(2, 3, 4, 1, 0)
     return a
 
 
@@ -53,6 +56,8 @@ def _from_flax_layout(name: str, a: np.ndarray) -> np.ndarray:
             return a.T
         if a.ndim == 4:
             return a.transpose(3, 2, 0, 1)
+        if a.ndim == 5:
+            return a.transpose(4, 3, 0, 1, 2)
     return a
 
 

@@ -30,9 +30,13 @@ FORMAT_KEY = "nunif_tpu_model"
 FORMAT_VERSION = 1
 META_ENTRY = "__meta__.json"
 
-_APP_PACKAGES = {"waifu2x": "nunif_tpu_torch.waifu2x",
-                 "iw3": "nunif_tpu_torch.iw3", "sbs": "nunif_tpu_torch.iw3",
-                 "inpaint": "nunif_tpu_torch.iw3"}
+# the modules that register each family of registry names
+_APP_PACKAGES = {"waifu2x": ("nunif_tpu_torch.waifu2x",),
+                 "iw3": ("nunif_tpu_torch.iw3",), "sbs": ("nunif_tpu_torch.iw3",),
+                 "inpaint": ("nunif_tpu_torch.iw3",),
+                 "aux": ("nunif_tpu_torch.utils.superpoint",
+                         "nunif_tpu_torch.utils.transnetv2"),
+                 "stlizer": ("nunif_tpu_torch.stlizer.light_outpaint_v1",)}
 
 
 class NotPortedError(NotImplementedError):
@@ -85,8 +89,7 @@ def load_model(model_path: str, device="cuda") -> Tuple[nn.Module, dict]:
     CUDA is asked for and absent."""
     meta, flat = read_checkpoint(model_path)
     name = meta["name"]
-    package = _APP_PACKAGES.get(name.split(".", 1)[0])
-    if package:
+    for package in _APP_PACKAGES.get(name.split(".", 1)[0], ()):
         importlib.import_module(package)
     if name not in get_model_names():
         raise NotPortedError(

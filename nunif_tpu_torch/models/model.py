@@ -84,7 +84,8 @@ def init_flax_default(module: nn.Module, generator: torch.Generator):
     lecun_normal kernels, zero biases and class tokens, unit LayerNorm
     scales, 1e-5 LayerScale gammas (BEiT's ``gamma_1`` / ``gamma_2``: 0.1),
     N(0, 0.02) position embeddings, truncated_normal(0.02)
-    relative-position tables, truncated_normal(0.01) mask tokens, and gMLP's
+    relative-position tables, truncated_normal(0.01) mask tokens, the
+    identity affine of SuperPoint's ``bn_scale`` / ``bn_bias``, and gMLP's
     spatial projection: kernel uniform on [0, 2e-3 / C), unit bias.  A
     kernel kept in flax layout (BEiT's ``qkv_kernel``, a module with a
     ``fan_in``) takes its fan-in from there.  Drawn on the generator's
@@ -94,7 +95,7 @@ def init_flax_default(module: nn.Module, generator: torch.Generator):
         p = module.get_parameter(name)
         leaf = key.rsplit("/", 1)[-1]
         owner = module.get_submodule(name.rpartition(".")[0])
-        if leaf in ("bias", "cls_token", "q_bias", "v_bias"):
+        if leaf in ("bias", "cls_token", "q_bias", "v_bias", "bn_bias"):
             p.zero_()
         elif leaf in ("gamma_1", "gamma_2"):
             p.fill_(0.1)
@@ -102,7 +103,7 @@ def init_flax_default(module: nn.Module, generator: torch.Generator):
             fan_in = p.shape[0] if leaf == "qkv_kernel" else owner.fan_in
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
             p.copy_(_truncated_normal(p.shape, std, generator))
-        elif leaf in ("scale", "proj_spatial_bias"):
+        elif leaf in ("scale", "proj_spatial_bias", "bn_scale"):
             p.fill_(1.0)
         elif leaf == "mask_bias":
             p.copy_(_truncated_normal(p.shape, 0.01, generator))

@@ -5,8 +5,7 @@ port imports nothing of the JAX package).
 Modes: ``black`` (dark and flat rows and columns, on tv-range luma),
 ``flat`` (rows and columns within 16 / 255 of their median at 99% of
 their pixels), each also for top / bottom (``_tb``) or left / right
-(``_lr``) only.  The video pre-pass that samples a file
-(``autocrop_analyze_video``) comes with the video path.
+(``_lr``) only.  ``autocrop_analyze_video`` samples a video file.
 """
 from __future__ import annotations
 
@@ -115,3 +114,18 @@ class AutoCropDetector:
         d = cls(mode=mode, mod=mod)
         d.update(frame)
         return d.get_crop(frame_variation_threshold=0.5)
+
+
+def autocrop_analyze_video(video_path: str, mode="black", mod=2,
+                           max_frames=40):
+    """(slice_tb, slice_lr) of a video: about ``max_frames`` frames sampled
+    evenly through ``AutoCropDetector``."""
+    from ..video import backend
+    det = AutoCropDetector(mode=mode, mod=mod)
+    with backend.VideoReader(video_path) as reader:
+        n = reader.nb_frames or 0
+        stride = max(1, int(n // max_frames)) if n else 1
+        for i, (frame, _pts) in enumerate(reader):
+            if i % stride == 0:
+                det.update(frame.astype(np.float32) / 255.0)
+    return det.get_crop()

@@ -1,4 +1,4 @@
-"""waifu2x image CLI (counterpart of ``nunif_tpu/waifu2x/cli.py``).
+"""waifu2x CLI for images and video (counterpart of ``nunif_tpu/waifu2x/cli.py``).
 
 Usage:
   python -m nunif_tpu_torch.waifu2x.cli -i in.png -o out.png
@@ -14,12 +14,18 @@ Usage:
       --model-dir DIR                      # DIR/scale4x.nztm (e.g. a swin_unet_4xl)
   python -m nunif_tpu_torch.waifu2x.cli -i in.png -o out.png --method scale4x \\
       --arch waifu2x.swin_unet_4xl         # seeded random weights
+  python -m nunif_tpu_torch.waifu2x.cli -i in.mp4 -o out.mp4 --yes \\
+      --video-codec libx265 --crf 18 --grain   # a video, frame by frame
 
-Images only: a video input raises ``NotImplementedError``; the video
-flags, ``--rotate-*`` and ``--devices`` are not ported.  RGBA and gray +
-alpha inputs keep their alpha; ``--grayscale`` reads the image as gray and
-writes gray.  ``--device`` defaults to ``cuda`` and fails where CUDA is
-missing.
+RGBA and gray + alpha inputs keep their alpha; ``--grayscale`` reads the
+image as gray and writes gray.  A video input (by its extension) runs
+through ``video.process_video``: the frames stay on the card from the
+upload to the quantised batch; ``--rotate-left`` / ``--rotate-right`` turn
+them first, ``--grain`` adds grain from an EMA noise buffer drawn from a
+seeded ``torch.Generator``, ``--depth 16`` writes rgb48 video (a 16-bit
+source is read at 16 bits and scaled by 65535, where the JAX CLI divides
+it by 255).  ``--devices`` is not ported.  ``--device`` defaults to
+``cuda`` and fails where CUDA is missing.
 """
 from __future__ import annotations
 
@@ -83,14 +89,59 @@ def create_parser():
                    choices=["art", "photo", "scan", "art_scan"],
                    help="model style; selects <model-dir>/<style> when "
                         "that subdirectory exists")
+    # video options, with the JAX parser's defaults
+    p.add_argument("--video-codec", default="libx264",
+                   help="libx264/libx265/libvpx-vp9/mpeg4/utvideo")
+    p.add_argument("--crf", type=int, default=20)
+    p.add_argument("--preset", default="ultrafast")
+    p.add_argument("--pix-fmt", default="yuv420p",
+                   choices=["yuv420p", "yuv444p", "yuv420p10le", "rgb24",
+                            "gbrp", "gbrp10le", "gbrp16le"])
+    p.add_argument("--max-fps", type=float, default=128.0)
+    p.add_argument("--video-batch", type=int, default=4,
+                   help="frames per device batch for video")
     p.add_argument("--depth", type=int, default=8, choices=[8, 16],
-                   help="output bit depth (16: a 16-bit PNG)")
+                   help="output bit depth (16: a 16-bit PNG / rgb48 video)")
+    p.add_argument("--rotate-left", action="store_true",
+                   help="rotate 90 CCW before processing (video)")
+    p.add_argument("--rotate-right", action="store_true",
+                   help="rotate 90 CW before processing (video)")
     p.add_argument("--grain", action="store_true",
                    help="add film grain after denoising")
     p.add_argument("--grain-strength", type=float, default=0.2)
+    p.add_argument("--grain-speed", type=float, default=0.8,
+                   help="noise update speed (video)")
+    p.add_argument("--start-time", default=None,
+                   help="video trim start (seconds or hh:mm:ss)")
+    p.add_argument("--end-time", default=None,
+                   help="video trim end (seconds or hh:mm:ss)")
+    p.add_argument("--yes", "-y", action="store_true",
+                   help="overwrite existing video outputs")
+    p.add_argument("--video-format", "-vf", default="mp4",
+                   choices=["mp4", "mkv", "avi"])
+    p.add_argument("--video-bitrate", default=None)
+    p.add_argument("--tune", nargs="+", default=[])
+    p.add_argument("--profile-level", default=None)
+    p.add_argument("--colorspace", default="auto",
+                   choices=["auto", "unspecified", "copy",
+                            "bt709", "bt709-pc", "bt709-tv",
+                            "bt601", "bt601-pc", "bt601-tv"])
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda fails where CUDA is missing")
     return p
+
+
+def parse_time(v):
+    """Seconds, or [hh:]mm:ss."""
+    if v is None:
+        return None
+    s = str(v)
+    if ":" not in s:
+        return float(s)
+    t = 0.0
+    for part in s.split(":"):
+        t = t * 60.0 + float(part)
+    return t
 
 
 def _iter_inputs(args):
@@ -181,13 +232,66 @@ def process_images(args, w2x: Waifu2x) -> int:
     return n
 
 
+class VideoFrames:
+    """The video batch callback: uint8 / uint16 frames (B, H, W, 3) ->
+    upscaled float frames on the runtime's device, each frame through
+    ``Waifu2x.convert``; with ``--grain``, an EMA noise buffer (weight
+    ``grain_speed`` on each new draw) from a generator seeded with 0."""
+
+    def __init__(self, args, w2x: Waifu2x):
+        self.args = args
+        self.w2x = w2x
+        self.generator = torch.Generator(device=w2x.device).manual_seed(0)
+        self.buffer = None
+
+    @torch.no_grad()
+    def __call__(self, frames):
+        args = self.args
+        frames = torch.as_tensor(frames).to(self.w2x.device)
+        maxv = 65535.0 if frames.dtype == torch.uint16 else 255.0
+        if args.rotate_left:
+            frames = torch.rot90(frames, 1, dims=(1, 2))
+        elif args.rotate_right:
+            frames = torch.rot90(frames, 3, dims=(1, 2))
+        x = frames.float() / maxv
+        out = torch.stack([self.w2x.convert(
+            f, None, method=args.method, noise_level=args.noise_level,
+            tile_size=args.tile_size, batch_size=args.batch_size, tta=args.tta)[0]
+            for f in x])
+        if args.grain:
+            noise = rgb_noise_like(out[0], generator=self.generator)
+            self.buffer = noise if self.buffer is None else (
+                self.buffer * (1.0 - args.grain_speed) + noise * args.grain_speed)
+            out = apply_rgb_noise(out, self.buffer[None], strength=args.grain_strength)
+        return out
+
+
+def process_video(args, w2x: Waifu2x):
+    """One video: None when the output exists and neither ``--yes`` nor
+    ``--resume`` was given (a warning), else the engine's stage times."""
+    from ..video import engine
+    if os.path.exists(args.output) and not (args.yes or args.resume):
+        logger.warning("output exists (use --yes to overwrite): %s", args.output)
+        return None
+    config = engine.VideoOutputConfig(
+        codec=args.video_codec, crf=args.crf, preset=args.preset,
+        pix_fmt=args.pix_fmt, max_fps=args.max_fps, rgb48=args.depth == 16,
+        bitrate=args.video_bitrate, tune=tuple(args.tune),
+        profile_level=args.profile_level, colorspace=args.colorspace)
+    return engine.process_video(args.input, args.output, VideoFrames(args, w2x),
+                                batch_size=args.video_batch, config=config,
+                                start_time=parse_time(args.start_time),
+                                end_time=parse_time(args.end_time),
+                                device=w2x.device)
+
+
 def main(argv=None) -> int:
     args = create_parser().parse_args(argv)
-    if args.input.lower().endswith(VIDEO_EXTS):
-        raise NotImplementedError(
-            "video input is not ported to nunif_tpu_torch yet")
     w2x = _build_runtime(args)
-    process_images(args, w2x)
+    if args.input.lower().endswith(VIDEO_EXTS):
+        process_video(args, w2x)
+    else:
+        process_images(args, w2x)
     return 0
 
 

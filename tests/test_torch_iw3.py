@@ -239,8 +239,10 @@ def test_cli_image_on_cpu(tmp_path, weights, frames):
 
 
 def test_unported_paths_raise(weights, tmp_path):
-    """Device meshes and video still raise, naming their ROADMAP items; crop
-    and the anaglyph no longer do (tests/test_torch_iw3_extras*.py)."""
+    """Device meshes still raise, naming their ROADMAP item; crop, the
+    anaglyph (tests/test_torch_iw3_extras*.py) and video
+    (tests/test_torch_video_cli.py) no longer do: a video path reaches the
+    decoder, which fails on a missing file."""
     from nunif_tpu_torch.iw3 import cli
     dm, flow = _port(weights, torch.float32)
     Iw3FrameProcessor(StereoConfig(), dm, flow, crop=(slice(0, 4), slice(None)))
@@ -249,7 +251,7 @@ def test_unported_paths_raise(weights, tmp_path):
     out = postprocess_image(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 3),
                             StereoFormat(anaglyph="dubois"))
     assert tuple(out.shape) == (1, 4, 4, 3)
-    with pytest.raises(NotImplementedError, match="video"):
+    with pytest.raises(IOError, match="vio_reader_open"):
         cli.main(["-i", str(tmp_path / "clip.mp4"), "-o", str(tmp_path / "o.mp4"),
                   "--device", "cpu"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -285,9 +285,10 @@ def test_raw_helper_checkpoints_convert_as_jax(tmp_path, name, envelope):
 
 
 def test_unported_cli_paths_raise(tmp_path):
-    """A video input and ``--devices`` above 1 raise, naming their ROADMAP
-    items."""
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """``--devices`` above 1 raises, naming its ROADMAP item; a video input
+    no longer does (tests/test_torch_video_cli.py): it reaches the decoder,
+    which fails on a missing file, and writes nothing."""
+    with pytest.raises(IOError, match="vio_reader_open"):
         cli.main(["-i", str(tmp_path / "clip.mp4"), "-o", str(tmp_path / "o.mp4"),
                   "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 13"):

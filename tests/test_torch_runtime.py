@@ -201,7 +201,9 @@ def test_cli_arch_random_weights(tmp_path, caplog):
 
 
 def test_cli_rejects_video_and_missing_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="video"):
+    # a video input reaches the decoder (tests/test_torch_video_cli.py),
+    # which rejects a missing file
+    with pytest.raises(IOError, match="vio_reader_open"):
         cli.main(["-i", "clip.mp4", "-o", "out.mp4", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
