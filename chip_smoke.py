@@ -106,6 +106,19 @@ written by the port:
   on a 1080p RGBA image with TTA and grain, written as a 16-bit PNG and
   read back by zlib (and, where PIL is present, as 8 bits and through the
   CLI at its defaults);
+- waifu2x serving ("waifu2x serving"): cunet, upcunet, swin_unet_v2_2x
+  (base 96), swin_unet_v2_4x and wgmlp_4x (base 128), each from a ``.nztm``
+  of seeded weights, one frame through ``frame_program`` at the default 256
+  tiles (1080p; the 4x models 540p -> 4K), CUDA-event times, and one 64 px
+  tile against the same model on the CPU in fp32 (1e-5) and in bf16
+  (1.5e-2, against the CPU's fp32); then the port's web
+  server (``Waifu2xWebService`` on 127.0.0.1, port 0, in a thread) on a
+  seeded swin_unet_2x and on the bundled turbo ``scale2x``: 4 POST /api of
+  a 1920x1080 PNG (one, two concurrent, the first again from the cache),
+  each reply equal to the renderer on the decoded input, K1 / K2 launches
+  exact (14 / 1 a forward pass, none on turbo), /api/tile plain and with
+  TTA equal to ``tile_forward``, GET / in Japanese, /api/tile/info; and
+  ``waifu2x(model_type="turbo").convert`` equal to the CLI's PNG;
 - K4 and K6 at windows past 6: imagenet swin_t's four stages (window 7,
   N = 49, head dim 32, batch 64 at 224 px, shifts 0 and 3) and one
   window-8 shape (N = 64), against their twins with K4's controls;
@@ -3068,6 +3081,350 @@ def hdr_check(torch, dev, shape):
     return out
 
 
+# the "waifu2x serving" phase: the other waifu2x models at their published
+# widths, the web server, the tile API and the hub
+SERVING_MODELS = (  # (label, registry name, input frame (h, w))
+    ("cunet", "waifu2x.cunet", (1080, 1920)),
+    ("upcunet", "waifu2x.upcunet", (1080, 1920)),
+    ("swin_unet_v2_2x", "waifu2x.swin_unet_v2_2x", (1080, 1920)),
+    ("swin_unet_v2_4x", "waifu2x.swin_unet_v2_4x", (540, 960)),
+    ("wgmlp_4x", "waifu2x.wgmlp_4x", (540, 960)),
+)
+SERVING_TILE = 64  # the tile each model holds against the CPU
+# fp32 tile, the card (cuDNN, TF32 off) against the CPU: the same products
+# summed in another order, outputs in [0, 1]; read at <= 1.25e-7 on an H100,
+# where a TF32 product would miss by ~1e-3
+SERVING_TILE_ATOL = 1e-5
+# the bf16 tile (the policy of the timed frames) against the CPU's fp32:
+# read at 2.4e-3 - 4.4e-3 on an H100, the bf16 roundings of the activations
+SERVING_TILE_BF16_ATOL = 1.5e-2
+SWIN_FORWARD = {"fused_swin_block_image": 14, "stem_conv3x3": 1}  # a forward
+DRIFT_HINT = ("python -m nunif_tpu_torch.tools.serving_drift repeats this "
+              "check and names the first module whose output moved")
+
+
+def serving_flax(model, seed):
+    """Seeded weights in flax layout, made with numpy: kernels N(0, 0.5^2 /
+    fan_in) clipped at 2 std, biases N(0, 0.02^2), norm scales 1 + N(0,
+    0.02^2), the source residual at its nearest-neighbour kernel with a 0.1
+    scale, 0.5 added to cunet's UNet1 output bias: the outputs stay near the
+    nearest upscale (swin_unet_v2, wgmlp) or near 0.5 (cunet), mostly
+    inside (0, 1)."""
+    from nunif_tpu_torch.models import to_flax
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, ref in to_flax(model).items():
+        if key.endswith("resampling"):
+            a = ref
+        elif key.endswith("scale_bias"):
+            a = np.full(ref.shape, 0.1)
+        elif key.endswith("kernel"):
+            a = np.clip(rng.standard_normal(ref.shape), -2, 2) * 0.5 / np.sqrt(
+                np.prod(ref.shape[:-1]))
+        else:
+            a = rng.normal(0.0, 0.02, ref.shape) + key.endswith("scale")
+        if key == "unet1/conv_bottom/bias":
+            a = a + 0.5
+        flat[key] = np.asarray(a, np.float32)
+    return flat
+
+
+def structured_frame(h, w, seed):
+    """uint8 (h, w, 3): gradients, a few flat boxes and mild noise (an
+    image that PNG compresses, unlike uniform noise)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    img = np.stack([yy, xx, 0.5 + 0.5 * np.sin(6 * (xx + yy))], -1)
+    for _ in range(8):
+        y0, x0 = rng.integers(0, h - h // 4), rng.integers(0, w - w // 4)
+        img[y0:y0 + h // 6, x0:x0 + w // 6] = rng.random(3)
+    img = img + rng.normal(0, 0.02, img.shape)
+    return (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+
+
+def serving_renders(torch, dev, model_dir, models=SERVING_MODELS):
+    """Each model from a .nztm of seeded weights: one frame through
+    ``TiledRenderer.frame_program`` at the model's default tiles, timed by
+    CUDA events (median of 3 after a warm frame), and one fp32 tile held
+    against the same model on the CPU."""
+    from nunif_tpu_torch.models import create_model, from_flax, load_model, save_model
+    from nunif_tpu_torch.utils.tiling import TiledRenderer, make_tile_config
+    out = {}
+    for seed, (label, name, (h, w)) in enumerate(models):
+        cpu = create_model(name).eval().requires_grad_(False)
+        from_flax(cpu, serving_flax(cpu, seed))
+        path = os.path.join(model_dir, f"{label}.nztm")
+        save_model(cpu, path)
+        model, meta = load_model(path, device=dev)
+        if meta["name"] != name:
+            fail(f"{label}: checkpoint names {meta['name']}")
+        renderer = TiledRenderer(model)
+        program = renderer.frame_program(h, w)
+        frame = torch.from_numpy(structured_frame(h, w, seed)).to(dev)
+        y = program(frame)
+        s = model.i2i_scale
+        if tuple(y.shape) != (h * s, w * s, 3) or y.dtype != torch.uint8:
+            fail(f"{label}: frame output {tuple(y.shape)} {y.dtype}")
+        yf = y.float()
+        if not (20.0 < float(yf.mean()) < 235.0 and float(yf.std()) > 5.0):
+            fail(f"{label}: degenerate frame (mean {float(yf.mean()):.1f}, "
+                 f"std {float(yf.std()):.1f})")
+        ms = [cuda_time(lambda: program(frame), torch) for _ in range(3)]
+        t = model.find_valid_tile_size(None)
+        cfg = make_tile_config(h, w, s, model.i2i_offset, (t, t),
+                               model.i2i_blend_size)
+        tile = frame[:SERVING_TILE, :SERVING_TILE].float() / 255.0
+        with torch.inference_mode():
+            card32 = model(tile[None])[0].cpu()
+            card16 = model(tile[None].bfloat16())[0].float().cpu()
+            ref = cpu(tile[None].cpu())[0]
+        err32 = float((card32 - ref).abs().max())
+        err16 = float((card16 - ref).abs().max())
+        if not err32 <= SERVING_TILE_ATOL:
+            fail(f"{label}: fp32 tile on the card vs the CPU {err32:.3g} > "
+                 f"{SERVING_TILE_ATOL}")
+        if not err16 <= SERVING_TILE_BF16_ATOL:
+            fail(f"{label}: bf16 tile on the card vs the CPU's fp32 "
+                 f"{err16:.3g} > {SERVING_TILE_BF16_ATOL}")
+        out[label] = {"frame": f"{h}x{w} -> {h * s}x{w * s}",
+                      "base_dim": getattr(model, "base_dim", None),
+                      "tile": t, "batch": model.i2i_default_batch_size,
+                      "tiles": cfg.n_tiles, "ms": statistics.median(ms),
+                      "runs_ms": ms, "tile_err_fp32": err32,
+                      "tile_err_bf16": err16}
+        print(f"serving render {label}: {out[label]}", flush=True)
+        del model, renderer, program, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def png_bytes(a):
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def post_image(url, data, timeout=300):
+    """POST /api with a multipart upload: (status, content type, body, ms)."""
+    import urllib.request
+    b = "nunifboundary"
+    body = b"".join([
+        f"--{b}\r\nContent-Disposition: form-data; name=\"scale\"\r\n\r\n2\r\n".encode(),
+        f"--{b}\r\nContent-Disposition: form-data; name=\"file\"; "
+        f"filename=\"a.png\"\r\nContent-Type: image/png\r\n\r\n".encode(),
+        data, f"\r\n--{b}--\r\n".encode()])
+    req = urllib.request.Request(url + "/api", data=body, headers={
+        "Content-Type": f"multipart/form-data; boundary={b}"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        out = (r.status, r.headers["Content-Type"], r.read())
+    return out + ((time.perf_counter() - t0) * 1e3,)
+
+
+def post_tile(url, tile, tta):
+    import urllib.request
+    h, w = tile.shape[:2]
+    req = urllib.request.Request(
+        f"{url}/api/tile?w={w}&h={h}&tta={tta}&scale=2",
+        data=np.ascontiguousarray(tile).tobytes(),
+        headers={"Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, np.frombuffer(r.read(), np.float32).copy()
+
+
+def serving_web(torch, dev, model_file, kernels, per_forward, work_dir,
+                hw=(1080, 1920)):
+    """The port's web server on ``model_file`` (127.0.0.1, port 0, in a
+    thread): 4 POST /api of an hw PNG (one, two concurrent, the first
+    again from the cache), each response against the renderer on the
+    decoded input, exactly, and the kernels' launches exact (``per_forward``
+    a forward pass, times the render's batches); /api/tile plain and with
+    TTA against ``tile_forward``; GET / in Japanese; /api/tile/info."""
+    import argparse
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from PIL import Image
+    from nunif_tpu_torch.utils import pil_io
+    from nunif_tpu_torch.utils.tiling import make_tile_config
+    from nunif_tpu_torch.waifu2x.unlimited import tile_forward
+    from nunif_tpu_torch.waifu2x.web import (INDEX_HTML, Waifu2xWebService,
+                                             make_handler)
+    h, w = hw
+    # an empty cache of its own, so that only the repeated request hits it
+    args = argparse.Namespace(
+        model_file=model_file, arch=None, tile_size=None, batch_size=None,
+        noise_level=None, cache_dir=tempfile.mkdtemp(dir=work_dir),
+        cache_size_mb=256, public_dir=None, device=str(dev))
+    service = Waifu2xWebService(args)
+    model = service.renderer.model
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    out = {"model": model.model_name}
+    try:
+        pngs = [png_bytes(structured_frame(h, w, 20 + i)) for i in range(3)]
+        srcs = [np.asarray(Image.open(io.BytesIO(p)).convert("RGB"),
+                           np.float32) / 255.0 for p in pngs]
+        # the renderer on each decoded input (and a warm run), uncounted,
+        # with the host's share of a request: PNG decode and encode by PIL
+        refs, render_ms = [], []
+        for x in srcs:
+            t0 = time.perf_counter()
+            refs.append(pil_io.quantize(service.render(x), 8))
+            render_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        Image.open(io.BytesIO(pngs[0])).convert("RGB")
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        png_bytes(refs[0])
+        encode_ms = (time.perf_counter() - t0) * 1e3
+
+        def requests():
+            first = post_image(url, pngs[0])
+            pair = [None, None]
+
+            def hit(i):
+                pair[i] = post_image(url, pngs[i + 1])
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=hit, args=(i,)) for i in (0, 1)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            pair_ms = (time.perf_counter() - t0) * 1e3
+            cached = post_image(url, pngs[0])
+            return [first] + pair + [cached], pair_ms
+        (responses, pair_ms), launches = counted(kernels, requests)
+        t = model.find_valid_tile_size(None)
+        cfg = make_tile_config(h, w, model.i2i_scale, model.i2i_offset, (t, t),
+                               model.i2i_blend_size)
+        batches = 1 if cfg.n_tiles == 1 else -(-cfg.n_tiles // model.i2i_default_batch_size)
+        want = {k: 3 * batches * per_forward.get(k, 0) for k in kernels}
+        if launches != want:
+            fail(f"web {model.model_name}: launches {launches}, expected {want} "
+                 f"(3 renders of {batches} batches; the 4th request is cached)")
+        again = pil_io.quantize(service.render(srcs[0]), 8)
+        if not np.array_equal(again, refs[0]):
+            fail(f"web {model.model_name}: the renderer's output for the first "
+                 f"image changed while the server ran "
+                 f"({int((again != refs[0]).sum())} values); {DRIFT_HINT}")
+        for i, (status, ctype, body, _ms) in enumerate(responses):
+            if status != 200 or ctype != "image/png":
+                fail(f"web {model.model_name} request {i}: {status} {ctype}")
+            got = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+            ref = refs[[0, 1, 2, 0][i]]
+            if got.shape != ref.shape or not np.array_equal(got, ref):
+                d = np.abs(got.astype(np.int16) - ref) if got.shape == ref.shape else None
+                fail(f"web {model.model_name} request {i}: "
+                     f"response differs from the renderer "
+                     f"({got.shape} vs {ref.shape}; "
+                     f"{'-' if d is None else f'{int((d > 0).sum())} values, max {int(d.max())}'}; "
+                     f"equal to another request's reference: "
+                     f"{[j for j, r in enumerate(refs) if np.array_equal(got, r)]}); "
+                     f"{DRIFT_HINT}")
+        if responses[3][2] != responses[0][2]:
+            fail("web: the repeated request did not return the cached bytes")
+        out.update(render_ms=statistics.median(render_ms[1:]),
+                   png_decode_ms=decode_ms, png_encode_ms=encode_ms,
+                   request_ms=responses[0][3], pair_ms=pair_ms,
+                   pair_requests_per_s=2000.0 / pair_ms,
+                   concurrent_ms=[responses[1][3], responses[2][3]],
+                   cached_ms=responses[3][3], tiles=cfg.n_tiles,
+                   batches=batches, launches=launches)
+
+        # the unlimited tile API, plain and 8-way TTA
+        tile = np.asarray(Image.open(io.BytesIO(pngs[0])).convert("RGB"),
+                          np.float32)[:t, :t] / 255.0
+        for tta in (0, 1):
+            (status, got), tl = counted(kernels, lambda: post_tile(url, tile, tta))
+            ref = tile_forward(service, tile, tta=tta).reshape(-1)
+            if status != 200 or not np.array_equal(got, ref):
+                fail(f"tile api tta={tta}: status {status}, max diff "
+                     f"{float(np.abs(got - ref).max()) if got.shape == ref.shape else -1}")
+            want = {k: (8 if tta else 1) * per_forward.get(k, 0) for k in kernels}
+            if tl != want:
+                fail(f"tile api tta={tta}: launches {tl}, expected {want}")
+            out[f"tile_tta{tta}_launches"] = tl
+        with urllib.request.urlopen(url + "/api/tile/info", timeout=60) as r:
+            info = json.loads(r.read())
+        if (info["name"], info["scale"], info["noise"]) != (
+                model.model_name, model.i2i_scale, -1):
+            fail(f"tile info {info}")
+        req = urllib.request.Request(url + "/", headers={"Accept-Language": "ja"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            page, vary = r.read(), r.headers["Vary"]
+        if page != service.pages.get("ja") or page == INDEX_HTML.encode() \
+                or 'lang="ja"' not in page.decode("utf-8") or vary != "Accept-Language":
+            fail("GET / with Accept-Language: ja did not return the ja page")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    print(f"serving web {model.model_name}: {out}", flush=True)
+    return out
+
+
+def serving_hub(torch, dev, work_dir, hw=(540, 960)):
+    """``waifu2x(model_type="turbo").convert(pil)`` against the CLI's PNG
+    of the same image (``--method scale``), exactly."""
+    from PIL import Image
+    from nunif_tpu_torch.waifu2x import cli
+    from nunif_tpu_torch.waifu2x.hub import waifu2x
+    src = os.path.join(work_dir, "hub_in.png")
+    dst = os.path.join(work_dir, "hub_cli.png")
+    Image.fromarray(structured_frame(*hw, 30)).save(src)
+    t0 = time.perf_counter()
+    with Image.open(src) as im:
+        got = np.asarray(waifu2x(model_type="turbo", device=dev).convert(im))
+    hub_ms = (time.perf_counter() - t0) * 1e3
+    cli.main(["-i", src, "-o", dst, "--method", "scale", "--device", dev.type])
+    with Image.open(dst) as im:
+        want = np.asarray(im.convert("RGB"))
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"hub convert differs from the CLI ({got.shape} vs {want.shape})")
+    return {"hub_convert_ms": hub_ms, "size": list(got.shape)}
+
+
+def serving_counts(serving, name):
+    """A kernel's launches in each web server of the serving phase: its 4
+    requests, one tile, one TTA tile."""
+    return {run: {"requests": serving[run]["launches"][name],
+                  "tile": serving[run]["tile_tta0_launches"][name],
+                  "tile_tta": serving[run]["tile_tta1_launches"][name]}
+            for run in ("web_swin_unet_2x", "web_turbo")}
+
+
+def serving_phase(torch, dev, k1, k2, smi):
+    """The "waifu2x serving" phase (see the module docstring)."""
+    from nunif_tpu_torch.models import from_flax, save_model
+    from nunif_tpu_torch.waifu2x.models.swin_unet import SwinUNet2x, tamed_flax_params
+    from nunif_tpu_torch.waifu2x.runtime import default_model_dir
+    t0 = time.perf_counter()
+    kernels = {"fused_swin_block_image": k1.fused_swin_block_image,
+               "stem_conv3x3": k2.stem_conv3x3}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        out["renders"] = serving_renders(torch, dev, work)
+        swin = SwinUNet2x()
+        from_flax(swin, tamed_flax_params(swin, seed=0))
+        swin_file = os.path.join(work, "scale2x.nztm")
+        save_model(swin, swin_file)
+        out["web_swin_unet_2x"] = serving_web(torch, dev, swin_file, kernels,
+                                              SWIN_FORWARD, work)
+        out["web_turbo"] = serving_web(
+            torch, dev, os.path.join(default_model_dir(), "scale2x.nztm"),
+            kernels, {}, work)
+        out["hub"] = serving_hub(torch, dev, work)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"waifu2x serving: {smi}; " + json.dumps(out), flush=True)
+    return out
+
+
 def probe_plans(torch, probes):
     """T2's plan at both tool shapes and T4's at every tool shape, from the
     built library, with what T2 reads from L2 a call: its weights (every
@@ -3719,6 +4076,11 @@ def main() -> int:
     turbo_phase(torch, dev, smi, model_dir)
     tmp.cleanup()
 
+    # 14f. the other waifu2x models at full width, the web server (swin_unet_2x
+    #      and the bundled turbo), the tile API and the hub
+    phase("waifu2x serving")
+    serving = serving_phase(torch, dev, k1, k2, smi)
+
     # 15. the probes T1, T3, T4 against their twins, then their tools
     phase("probes")
     t1, t3, t4, probe_launches, probe_errs = probe_phase(torch, probes, dev)
@@ -3837,6 +4199,8 @@ def main() -> int:
          "launches": launches["stem_conv3x3"] + launches_4xl["stem_conv3x3"],
          # each "video" phase run, counted alone (waifu2x: 1 a frame)
          "video_launches": {run: n["stem_conv3x3"] for run, n in video_launches.items()},
+         # each "waifu2x serving" server: its 4 requests, a tile, a TTA tile
+         "serving_launches": serving_counts(serving, "stem_conv3x3"),
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": k2_sum("ms"), "plain_ms": k2_sum("plain_ms"),
          "bound_ms": k2_sum("bound_ms"),
@@ -3847,6 +4211,7 @@ def main() -> int:
          "replaces": "nunif_tpu/ops/swin_attention.py:976",
          "launches": launches["fused_swin_block_image"],
          "video_launches": {run: n["fused_swin_block_image"] for run, n in video_launches.items()},
+         "serving_launches": serving_counts(serving, "fused_swin_block_image"),
          "max_abs_err": max(r["max_abs_err"] for r in k1_bf16),
          "ms": k1_sum("ms"), "plain_ms": k1_sum("plain_ms"),
          "bound_ms": k1_sum("bound_ms"),

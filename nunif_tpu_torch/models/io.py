@@ -82,19 +82,33 @@ def read_checkpoint(model_path: str) -> Tuple[dict, dict]:
     return meta, flat
 
 
-def load_model(model_path: str, device="cuda") -> Tuple[nn.Module, dict]:
-    """(model, meta): the architecture named by the file, its weights
-    loaded, in eval mode on ``device`` (the card unless the caller names
-    another; ``device="cpu"`` for the plain twins on the CPU).  Raises if
-    CUDA is asked for and absent."""
-    meta, flat = read_checkpoint(model_path)
-    name = meta["name"]
+def ensure_registered(name: str):
+    """Import the port's modules that register ``name``'s family; raise
+    ``NotPortedError`` if the name is still unknown."""
     for package in _APP_PACKAGES.get(name.split(".", 1)[0], ()):
         importlib.import_module(package)
     if name not in get_model_names():
         raise NotPortedError(
-            f"{model_path}: architecture {name!r} is not ported to "
-            f"nunif_tpu_torch yet (ported: {get_model_names()})")
+            f"architecture {name!r} is not ported to nunif_tpu_torch yet "
+            f"(ported: {get_model_names()})")
+
+
+def load_model(model_path: str, device="cuda") -> Tuple[nn.Module, dict]:
+    """(model, meta): the architecture named by the file, its weights
+    loaded, in eval mode on ``device`` (the card unless the caller names
+    another; ``device="cpu"`` for the plain twins on the CPU).  Raises if
+    CUDA is asked for and absent.  A reference ``.pth`` checkpoint is
+    converted and cached beside it as ``<path>.nztm``
+    (``pth_import.load_torch_model``)."""
+    if str(model_path).endswith(".pth"):
+        from .pth_import import load_torch_model
+        return load_torch_model(str(model_path), device=device)
+    meta, flat = read_checkpoint(model_path)
+    name = meta["name"]
+    try:
+        ensure_registered(name)
+    except NotPortedError as e:
+        raise NotPortedError(f"{model_path}: {e}") from None
     device = resolve_device(device)
     model = create_model(name, **(meta.get("kwargs") or {}))
     from_flax(model, flat)

@@ -83,7 +83,8 @@ def init_flax_default(module: nn.Module, generator: torch.Generator):
     """Initialise like the JAX package's flax modules, by flax leaf name:
     lecun_normal kernels, zero biases and class tokens, unit LayerNorm
     scales, 1e-5 LayerScale gammas (BEiT's ``gamma_1`` / ``gamma_2``: 0.1),
-    N(0, 0.02) position embeddings, truncated_normal(0.02)
+    N(0, 0.02) position embeddings, waifu2x's source residual at its
+    nearest-neighbour kernel and a zero scale, truncated_normal(0.02)
     relative-position tables, truncated_normal(0.01) mask tokens, the
     identity affine of SuperPoint's ``bn_scale`` / ``bn_bias``, and gMLP's
     spatial projection: kernel uniform on [0, 2e-3 / C), unit bias.  A
@@ -95,8 +96,11 @@ def init_flax_default(module: nn.Module, generator: torch.Generator):
         p = module.get_parameter(name)
         leaf = key.rsplit("/", 1)[-1]
         owner = module.get_submodule(name.rpartition(".")[0])
-        if leaf in ("bias", "cls_token", "q_bias", "v_bias", "bn_bias"):
+        if leaf in ("bias", "cls_token", "q_bias", "v_bias", "bn_bias",
+                    "scale_bias"):
             p.zero_()
+        elif leaf == "resampling":
+            p.copy_(owner.initial_resampling())
         elif leaf in ("gamma_1", "gamma_2"):
             p.fill_(0.1)
         elif leaf == "qkv_kernel" or (leaf == "kernel" and hasattr(owner, "fan_in")):

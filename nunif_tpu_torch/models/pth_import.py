@@ -12,14 +12,23 @@ The ``.safetensors`` reader needs no package: an 8-byte little-endian
 header length, a JSON header ``{name: {"dtype", "shape", "data_offsets"}}``
 (and an optional ``"__metadata__"``), then the raw little-endian buffer.
 F32, F16 and BF16 are read; any other dtype raises ``ValueError``.
+
+``load_torch_model(path)`` (counterpart of the JAX package's) loads a
+reference waifu2x ``.pth`` in its nunif envelope: it converts the state
+dict by the importer of the envelope's name (``_IMPORTERS``, aliases in
+``_ALIASES``), writes the result beside the file as ``<path>.nztm`` and
+reads that cache on later loads while it is not older than the file.
 """
 from __future__ import annotations
 
 import json
+import os
 import struct
 
 import numpy as np
 import torch
+
+from . import torch_convert as tc
 
 RAW_SUFFIXES = (".pth", ".pt", ".safetensors")
 
@@ -88,3 +97,98 @@ def load_torch_checkpoint(path):
     else:
         name, kwargs, sd = None, {}, data
     return name, kwargs, {k: _numpy(v) for k, v in sd.items()}
+
+
+def _swin_unet(sd, kwargs):
+    name = kwargs["__name"]
+    scale = {"waifu2x.swin_unet_1x": 1, "waifu2x.swin_unet_2x": 2,
+             "waifu2x.swin_unet_4x": 4, "waifu2x.swin_unet_4xl": 4,
+             "waifu2x.swin_unet_8x": 8}[name]
+    base_dim = kwargs.get("base_dim", 192 if name.endswith("4xl") else 96)
+    return tc.convert_swin_unet(sd, base_dim=base_dim, base_layers=2,
+                                scale_factor=scale)
+
+
+_V2_KWARGS = ("base_dim", "lv1_mlp_ratio", "lv2_mlp_ratio", "lv2_ratio")
+
+# canonical name -> (converter(state_dict, kwargs) -> flax tree, the
+# envelope kwargs that create_model takes); the waifu2x rows of the JAX
+# package's table
+_IMPORTERS = {
+    "waifu2x.upconv_7": (lambda sd, kw: tc.convert_upconv7(sd), ()),
+    "waifu2x.vgg_7": (lambda sd, kw: tc.convert_vgg7(sd), ()),
+    "waifu2x.swin_unet_1x": (_swin_unet, ("base_dim", "layer_norm")),
+    "waifu2x.swin_unet_2x": (_swin_unet, ("base_dim", "layer_norm")),
+    "waifu2x.swin_unet_4x": (_swin_unet,
+                             ("base_dim", "layer_norm", "pre_antialias")),
+    "waifu2x.swin_unet_4xl": (_swin_unet, ()),
+    "waifu2x.swin_unet_8x": (_swin_unet, ()),
+    "waifu2x.swin_unet_v2_1x": (
+        lambda sd, kw: tc.convert_swin_unet_v2(
+            sd, first_layers=kw.get("first_layers", 2),
+            last_layers=kw.get("last_layers", 3)),
+        _V2_KWARGS + ("first_layers", "last_layers")),
+    "waifu2x.swin_unet_v2_2x": (lambda sd, kw: tc.convert_swin_unet_v2(sd),
+                                _V2_KWARGS),
+    "waifu2x.swin_unet_v2_4x": (lambda sd, kw: tc.convert_swin_unet_v2(sd),
+                                _V2_KWARGS),
+    "waifu2x.cunet": (lambda sd, kw: tc.convert_cunet(sd, scale=1), ()),
+    "waifu2x.upcunet": (lambda sd, kw: tc.convert_cunet(sd, scale=2), ()),
+    "waifu2x.wgmlp_4x": (lambda sd, kw: tc.convert_wgmlp(sd),
+                         ("base_dim", "lv1_mlp_ratio", "lv2_mlp_ratio")),
+}
+
+# the reference's aliases -> canonical importer names
+_ALIASES = {
+    "waifu2x.winc_unet_1x": "waifu2x.swin_unet_v2_1x",
+    "waifu2x.winc_unet_2x": "waifu2x.swin_unet_v2_2x",
+    "waifu2x.winc_unet_4x": "waifu2x.swin_unet_v2_4x",
+    "waifu2x.swin_unet_1x_v2": "waifu2x.swin_unet_v2_1x",
+}
+
+
+def supported_torch_models():
+    return sorted(set(_IMPORTERS) | set(_ALIASES))
+
+
+def convert_torch_state(name: str, kwargs: dict, sd: dict):
+    """The model ``name`` (on the CPU) with the converted state dict
+    loaded."""
+    from .flax_params import from_flax
+    from .register import create_model
+    canonical = _ALIASES.get(name, name)
+    if canonical not in _IMPORTERS:
+        raise ValueError(f"no importer for a {name!r} .pth checkpoint; "
+                         f"supported: {supported_torch_models()}")
+    converter, keep = _IMPORTERS[canonical]
+    tree = converter(sd, dict(kwargs, __name=canonical))
+    model = create_model(name, **{k: v for k, v in kwargs.items() if k in keep})
+    from_flax(model, tc.flatten(tree))
+    return model
+
+
+def load_torch_model(path: str, device="cuda"):
+    """(model, meta) of a reference ``.pth`` checkpoint, in eval mode on
+    ``device``.  The converted weights go to ``<path>.nztm`` on the first
+    load and come from there on later ones (while the cache is not older
+    than the file)."""
+    from ..core.device import resolve_device
+    from .io import load_model as load_nztm, save_model
+    cache_path = path + ".nztm"
+    if os.path.exists(cache_path) and (
+            os.path.getmtime(cache_path) >= os.path.getmtime(path)):
+        return load_nztm(cache_path, device=device)
+    name, kwargs, sd = load_torch_checkpoint(path)
+    if name is None:
+        raise ValueError(f"{path}: a raw state dict without a nunif envelope; "
+                         "use the converters of models.torch_convert")
+    from .io import ensure_registered
+    ensure_registered(name)
+    device = resolve_device(device)
+    model = convert_torch_state(name, kwargs, sd)
+    try:
+        save_model(model, cache_path)
+    except OSError:
+        pass  # a read-only directory: convert again next time
+    model.eval().requires_grad_(False).to(device)
+    return model, {"name": name, "kwargs": kwargs, "imported_from": path}

@@ -26,6 +26,15 @@ def register_model_factory(name: str, factory: Callable[..., nn.Module]):
     _models[name] = factory
 
 
+def register_model_alias(alias: str, name: str):
+    """Register ``alias`` for the registered ``name`` (the reference's
+    ``winc_unet_*`` names, for example); raises ``KeyError`` if ``name`` is
+    not registered."""
+    if name not in _models:
+        raise KeyError(name)
+    _models[alias] = _models[name]
+
+
 def create_model(name: str, **kwargs) -> nn.Module:
     if name not in _models:
         raise ValueError(f"unknown model: {name!r} (known: {sorted(_models)})")
@@ -34,3 +43,11 @@ def create_model(name: str, **kwargs) -> nn.Module:
 
 def get_model_names():
     return sorted(_models.keys())
+
+
+def resolve_alias(name: str) -> str:
+    """The ``model_name`` of the class registered under ``name`` (an alias
+    resolves to its target's); ``name`` itself for a factory or an unknown
+    name."""
+    canonical = getattr(_models.get(name), "model_name", None)
+    return canonical or name

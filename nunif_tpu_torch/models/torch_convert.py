@@ -1,7 +1,7 @@
 """Upstream PyTorch state dicts -> the flax-named parameter tree that
-``models.flax_params`` loads (the port's own copy of the depth, DepthAA
-and U2NETP converters of ``nunif_tpu/models/torch_convert.py``, which it
-does not import).
+``models.flax_params`` loads (the port's own copy of the depth, DepthAA,
+U2NETP and waifu2x converters of ``nunif_tpu/models/torch_convert.py``,
+which it does not import).
 
 Works on numpy arrays or anything with ``.numpy()``.  Layout rules:
   Conv2d           (O, I, kh, kw) -> HWIO (kh, kw, I, O)
@@ -358,6 +358,193 @@ def convert_depth_aa(sd):
     return {"proj_in": conv2d(sd, "proj_in"),
             **{f"blocks_{i}": _wa_block(sd, f"blocks.{i}") for i in range(3)},
             "proj_out": conv2d(sd, "proj_out")}
+
+
+def convert_upconv7(sd):
+    """waifu2x upconv_7: ``net.{0,2,...,10}`` 3x3 convs -> ``Conv_0`` ..
+    ``Conv_5``; ``net.12``, ``ConvTranspose2d(256, out, 4, 2, 3)``, ->
+    ``ConvTranspose2dTorch_0``, whose kernel is the forward conv's over the
+    dilated input: (kh, kw, I, O) flipped in space."""
+    out = {f"Conv_{i}": conv2d(sd, f"net.{t}")
+           for i, t in enumerate((0, 2, 4, 6, 8, 10))}
+    w = _np(sd["net.12.weight"])  # (I, O, kh, kw)
+    out["ConvTranspose2dTorch_0"] = {
+        "kernel": w.transpose(2, 3, 0, 1)[::-1, ::-1].copy(),
+        "bias": _np(sd["net.12.bias"])}
+    return out
+
+
+def convert_vgg7(sd):
+    """waifu2x vgg_7: ``net.{0,2,...,12}`` 3x3 convs -> ``Conv_0`` .. ``Conv_6``."""
+    return {f"Conv_{i}": conv2d(sd, f"net.{t}")
+            for i, t in enumerate((0, 2, 4, 6, 8, 10, 12))}
+
+
+def convert_swin_unet(sd, base_dim: int = 96, base_layers: int = 2,
+                      scale_factor: int = 2):
+    """waifu2x swin_unet (torchvision ``SwinTransformerBlock`` V1 inside)
+    -> ``waifu2x.swin_unet_*``; the block norms only where the checkpoint
+    has them (``layer_norm`` models)."""
+    def swin_blocks(prefix, num_layers):
+        out = {}
+        for i in range(num_layers):
+            b = f"{prefix}.block.{i}"
+            blk = {"attn": {"qkv": linear(sd, b + ".attn.qkv"),
+                            "proj": linear(sd, b + ".attn.proj"),
+                            "relative_position_bias_table": raw(
+                                sd, b + ".attn.relative_position_bias_table")},
+                   "mlp": {"fc1": linear(sd, b + ".mlp.0"),
+                           "fc2": linear(sd, b + ".mlp.3")}}
+            if b + ".norm1.weight" in sd:
+                blk["norm1"] = layer_norm(sd, b + ".norm1")
+                blk["norm2"] = layer_norm(sd, b + ".norm2")
+            out[f"block{i}"] = blk
+        return out
+
+    L = base_layers
+    unet = {
+        "patch_conv0": conv2d(sd, "unet.patch.0"),
+        "patch_conv1": conv2d(sd, "unet.patch.2"),
+        "swin1": swin_blocks("unet.swin1", L),
+        "down1": {"conv": conv2d(sd, "unet.down1.conv")},
+        "swin2": swin_blocks("unet.swin2", L),
+        "down2": {"conv": conv2d(sd, "unet.down2.conv")},
+        "swin3": swin_blocks("unet.swin3", L * 3),
+        "up2": {"proj": linear(sd, "unet.up2.proj")},
+        "swin4": swin_blocks("unet.swin4", L),
+        "up1": {"proj": linear(sd, "unet.up1.proj")},
+        "swin5": swin_blocks("unet.swin5", L),
+    }
+    if scale_factor in (4, 8):
+        unet["proj2"] = linear(sd, "unet.proj2")
+    if scale_factor == 8:
+        unet["to_image"] = {"proj0": linear(sd, "unet.to_image.proj.0"),
+                            "proj1": linear(sd, "unet.to_image.proj.2")}
+    else:
+        unet["to_image"] = {"proj": linear(sd, "unet.to_image.proj")}
+    return {"unet": unet}
+
+
+def _wac_block(sd, prefix):
+    """swin_unet_v2's WACBlock: window MHA, its score-bias MLP, the
+    scale-only norm and the conv MLP."""
+    return {
+        "mha": {"qkv_proj": linear(sd, prefix + ".mha.mha.qkv_proj"),
+                "head_proj": linear(sd, prefix + ".mha.mha.head_proj")},
+        "relative_bias": {
+            "to_bias_0": linear(sd, prefix + ".relative_bias.to_bias.0"),
+            "to_bias_2": linear(sd, prefix + ".relative_bias.to_bias.2")},
+        "norm": {"LayerNorm_0": layer_norm(sd, prefix + ".norm")},
+        "conv_mlp": {"w1": conv2d(sd, prefix + ".conv_mlp.w1"),
+                     "w2": conv2d(sd, prefix + ".conv_mlp.w2")},
+    }
+
+
+def _source_residual(sd):
+    return {"resampling": _np(
+                sd["unet.to_image.resampling.weight"]).transpose(2, 3, 1, 0),
+            "scale_bias": _np(sd["unet.to_image.scale_bias"])}
+
+
+def convert_swin_unet_v2(sd, first_layers: int = 2, last_layers: int = 3):
+    """waifu2x swin_unet_v2 (winc_unet) -> ``waifu2x.swin_unet_v2_*``."""
+    def wacs(prefix, n):
+        return {f"blocks_{i}": _wac_block(sd, f"{prefix}.blocks.{i}")
+                for i in range(n)}
+
+    return {"unet": {
+        "ir": {"path1_0": conv2d(sd, "unet.ir.path1.0"),
+               "path2_1": conv2d(sd, "unet.ir.path2.1"),
+               "path2_2": _wac_block(sd, "unet.ir.path2.2"),
+               "path2_3": _wac_block(sd, "unet.ir.path2.3")},
+        "patch": conv2d(sd, "unet.patch"),
+        "wac1": wacs("unet.wac1", first_layers),
+        "down1": {"conv": conv2d(sd, "unet.down1.conv")},
+        "wac2": wacs("unet.wac2", 4),
+        "up1": {"proj": conv2d(sd, "unet.up1.proj")},
+        "wac3": wacs("unet.wac3", last_layers),
+        "to_residual_image": {
+            "proj": conv2d(sd, "unet.to_residual_image.proj")},
+        "to_image": _source_residual(sd),
+    }}
+
+
+def _wgmlp_block(sd, prefix):
+    """wgmlp's WGMLPBlock: gMLP (its spatial projection a k = 1 Conv1d),
+    two scale-only norms, the conv MLP."""
+    g = prefix + ".gmlp.gmlp"
+    return {
+        "gmlp": {"gmlp": {
+            "proj_in": linear(sd, g + ".proj_in"),
+            "proj_spatial_kernel": _np(sd[g + ".proj_spatial.weight"])[:, :, 0],
+            "proj_spatial_bias": _np(sd[g + ".proj_spatial.bias"]),
+            "proj_out": linear(sd, g + ".proj_out"),
+        }},
+        "norm1": {"LayerNorm_0": layer_norm(sd, prefix + ".norm1")},
+        "norm2": {"LayerNorm_0": layer_norm(sd, prefix + ".norm2")},
+        "conv_mlp": {"w1": conv2d(sd, prefix + ".conv_mlp.w1"),
+                     "w2": conv2d(sd, prefix + ".conv_mlp.w2")},
+    }
+
+
+def convert_wgmlp(sd, first_layers: int = 2, last_layers: int = 3):
+    """waifu2x wgmlp_4x -> ``waifu2x.wgmlp_4x``."""
+    def blocks(prefix, n):
+        return {f"blocks_{i}": _wgmlp_block(sd, f"{prefix}.blocks.{i}")
+                for i in range(n)}
+
+    overscan = {name: conv2d(sd, f"unet.ir.overscan.{src}") for name, src in (
+        ("conv1", "conv1"), ("conv2", "conv2"), ("conv3", "conv3"),
+        ("fuse_0", "fuse.0"), ("fuse_2", "fuse.2"))}
+    return {"unet": {
+        "ir": {"patch": conv2d(sd, "unet.ir.patch"), "overscan": overscan,
+               "fusion": conv2d(sd, "unet.ir.fusion")},
+        "patch": conv2d(sd, "unet.patch"),
+        "wgmlp1": blocks("unet.wgmlp1", first_layers),
+        "down1": {"conv": conv2d(sd, "unet.down1.conv")},
+        "wgmlp2": blocks("unet.wgmlp2", 4),
+        "up1": {"proj": conv2d(sd, "unet.up1.proj")},
+        "wgmlp3": blocks("unet.wgmlp3", last_layers),
+        "to_residual_image": {
+            "proj": conv2d(sd, "unet.to_residual_image.proj")},
+        "to_image": _source_residual(sd),
+    }}
+
+
+def _unet_conv(sd, prefix, se):
+    out = {"conv_0": conv2d(sd, prefix + ".conv.0"),
+           "conv_2": conv2d(sd, prefix + ".conv.2")}
+    if se:
+        out["seblock"] = {"conv1": conv2d(sd, prefix + ".seblock.conv1"),
+                          "conv2": conv2d(sd, prefix + ".seblock.conv2")}
+    return out
+
+
+def convert_cunet(sd, scale: int = 1):
+    """waifu2x cunet (``scale`` 1) / upcunet (2) -> ``waifu2x.cunet`` /
+    ``waifu2x.upcunet``."""
+    unet1 = {
+        "conv1": _unet_conv(sd, "unet1.conv1", se=False),
+        "conv1_down": conv2d(sd, "unet1.conv1_down"),
+        "conv2": _unet_conv(sd, "unet1.conv2", se=True),
+        "conv2_up": conv_transpose2d(sd, "unet1.conv2_up"),
+        "conv3": conv2d(sd, "unet1.conv3"),
+        "conv_bottom": (conv_transpose2d if scale == 2 else conv2d)(
+            sd, "unet1.conv_bottom"),
+    }
+    unet2 = {
+        "conv1": _unet_conv(sd, "unet2.conv1", se=False),
+        "conv1_down": conv2d(sd, "unet2.conv1_down"),
+        "conv2": _unet_conv(sd, "unet2.conv2", se=True),
+        "conv2_down": conv2d(sd, "unet2.conv2_down"),
+        "conv3": _unet_conv(sd, "unet2.conv3", se=True),
+        "conv3_up": conv_transpose2d(sd, "unet2.conv3_up"),
+        "conv4": _unet_conv(sd, "unet2.conv4", se=True),
+        "conv4_up": conv_transpose2d(sd, "unet2.conv4_up"),
+        "conv5": conv2d(sd, "unet2.conv5"),
+        "conv_bottom": conv2d(sd, "unet2.conv_bottom"),
+    }
+    return {"unet1": unet1, "unet2": unet2}
 
 
 def flatten(tree, prefix: str = "") -> dict:

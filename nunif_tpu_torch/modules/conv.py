@@ -16,12 +16,19 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, layer: nn.Conv2d, stride: int = 1,
-           padding=0) -> torch.Tensor:
+           padding=0, dilation: int = 1) -> torch.Tensor:
     """flax ``nn.Conv(dtype=x.dtype)`` with ``layer``'s fp32 weights: the
     weight and bias cast to x's dtype (cached per weight load), the weight
     kept ``channels_last``.  x is NCHW (a channels_last view)."""
     return F.conv2d(x, cast_param(layer.weight, x.dtype, torch.channels_last),
-                    cast_param(layer.bias, x.dtype), stride, padding)
+                    cast_param(layer.bias, x.dtype), stride, padding, dilation)
+
+
+def conv2d_nhwc(x: torch.Tensor, layer: nn.Conv2d, stride: int = 1,
+                dilation: int = 1) -> torch.Tensor:
+    """``conv2d`` (VALID) on an NHWC tensor, NHWC out."""
+    return conv2d(x.permute(0, 3, 1, 2), layer, stride,
+                  dilation=dilation).permute(0, 2, 3, 1)
 
 
 class ConvTranspose2dTorch(nn.Module):
