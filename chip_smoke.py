@@ -92,6 +92,24 @@ written by the port:
   half-SBS batch; then the CLI: ``--export`` and its ``.yml`` re-import
   against a direct render, ``--anaglyph dubois --depth-aa`` and
   ``--vr180 --convergence-mode sod_v1``;
+- iw3's desktop stream ("iw3 desktop"): 60 raw 1080p frames pushed over
+  the ``IW3CAP01`` TCP capture socket into ``desktop.run_pipeline`` with
+  Any_V2_S and row_flow_v3 (the iw3 batch's ``.nztm`` files) at batch 1,
+  an HTTP client reading ``/stream``: K7 12 and K3 1 launches a frame,
+  exact; every part a half-SBS JPEG of the frame's size; one frame's SBS
+  before JPEG against the twin path and against K3's twin alone (>= 50
+  dB each), its normalised depth against K7's twin (>= 45 dB), K7 alone
+  at the stream's (1, 6, 1373, 64) in the "k7" phase; fps and the per-frame stage medians (capture wait,
+  depth, warp / compose, host read, JPEG encode);
+- cliqa ("cliqa", BASELINE config 3): the three predictors at their width,
+  ``norm="none"``, seeded and written to ``.nztm``; the filter CLI on the
+  card over 16 structured 1080p JPEGs of several qualities per kind, its
+  kept set equal to what the CPU's scores of the same weights keep (a
+  threshold in their widest gap), the scores and raw outputs within fp32
+  tolerance of the CPU's, the chosen patches equal; then a reference
+  ``.pth`` of ten importer rows (the iw3 stereo, inpaint and helper nets,
+  cliqa, stlizer's outpaint net; state dicts built by
+  ``tests/torch_pth_states.py`` from ``tests/torchref``'s plain modules) loaded on the card and held to the CPU's forward (fp32);
 - waifu2x turbo_2x, the bundled zoo (``models/waifu2x/turbo``, trained
   weights, no hand-written kernel: cuDNN convs): loads all four
   checkpoints through ``Waifu2x``; holds an untrained turbo_2x and
@@ -175,6 +193,7 @@ this file, it exits 1.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -473,7 +492,7 @@ def k7_launch_times(torch, F, k7, q, k, v):
 K7_SHAPES = ((1373, "contiguous", IW3_BATCH, 6), (1344, "contiguous", IW3_BATCH, 6),
              (197, "contiguous", IW3_BATCH, 6), (1373, "strided", IW3_BATCH, 6),
              (1373, "strided", 32, 6), (577, "strided", 35, 16),
-             (1401, "strided", IW3_BATCH, 16))
+             (1401, "strided", IW3_BATCH, 16), (1373, "strided", 1, 6))
 
 
 def k7_device_child():
@@ -1530,6 +1549,413 @@ def extras_cli(torch, dev, frame, model_dir, smi):
     if psnr < FRAME_PSNR_MIN:
         fail(f"iw3 extras CLI: export -> import vs the direct render {psnr:.2f} dB")
     return dict(export_import_psnr=psnr, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# "cliqa" (BASELINE config 3): the three predictors at their only width,
+# norm="none" (the reference checkpoints' form), seeded and written to
+# .nztm; the filter CLI over CLIQA_IMAGES structured 1080p JPEGs at the
+# CLIQA_QUALITIES, on the card, against the same weights on the CPU.  fp32
+# on both (TF32 off): the same products summed in another order.
+CLIQA_KINDS = {"jpeg": "cliqa.jpeg_quality", "noise": "cliqa.grain_noise_level",
+               "resize": "cliqa.scale_factor"}
+# the head whose output the score reads, and the score's middle raw value
+CLIQA_HEADS = {"jpeg": "quality_output", "noise": "noise_level_output",
+               "resize": "scale_factor_output"}
+CLIQA_TARGETS = {"jpeg": 50.0, "noise": 25.0, "resize": 1.5}
+CLIQA_IMAGES = 16
+CLIQA_QUALITIES = (25, 40, 55, 70, 85, 95)
+CLIQA_OUT_TOL = (1e-4, 1e-4)  # (relative, absolute) on the raw model outputs
+CLIQA_SCORE_ATOL = 1e-3  # quality / PSNR scores; the resize score's factor too
+# the reference .pth rows (tests/torch_pth_states.py's ROWS) loaded on the
+# card against the CPU (fp32; the outputs lie within [-10, 10]): row -> the
+# input shapes of one forward, the second one the model's mask
+PTH_ROWS = {
+    "sbs.row_flow_v2": [(1, 256, 448, 3)],
+    "sbs.row_flow_v3": [(1, 256, 448, 3)],
+    "sbs.mlbw_l2": [(1, 256, 448, 3)],
+    "sbs.mask_mlbw_l2": [(1, 256, 448, 3)],
+    "inpaint.light_inpaint_v1": [(1, 256, 448, 3), (1, 256, 448, 1)],
+    "inpaint.light_video_inpaint_v1_large": [(12, 128, 256, 3), (12, 128, 256, 1)],
+    "iw3.depth_aa": [(1, 392, 700, 1)],
+    "iw3.dsod_v1": [(1, 270, 480, 4)],
+    "cliqa.jpeg_quality": [(8, 128, 128, 3)],
+    "stlizer.light_outpaint_v1": [(1, 256, 448, 3), (1, 256, 448, 1)],
+}
+PTH_ATOL = 1e-4
+
+
+def cliqa_images(root, n=CLIQA_IMAGES, hw=(1080, 1920)):
+    """n structured 1080p JPEGs (gradients, discs, texture, noise of several
+    levels) at the CLIQA_QUALITIES in turn, some with 4:2:0 chroma."""
+    from PIL import Image
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(21)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(n):
+        f = np.stack([np.sin(xx / (40 + 7 * i) + yy / 90), np.cos(yy / (55 + 3 * i)),
+                      (xx + yy) / (h + w)], -1) * 0.35 + 0.5
+        for _ in range(6):
+            cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(40, 260)
+            f[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] *= rng.uniform(0.3, 0.9)
+        f += rng.normal(0, 0.01 * (i % 5), f.shape).astype(np.float32)
+        im = Image.fromarray((np.clip(f, 0, 1) * 255 + 0.5).astype(np.uint8))
+        q = CLIQA_QUALITIES[i % len(CLIQA_QUALITIES)]
+        im.save(os.path.join(root, f"im{i:02d}.jpg"), quality=q,
+                subsampling=2 if i % 2 else 0)
+
+
+def cliqa_models(torch, model_dir, xs):
+    """Seeded norm="none" predictors (flax's init, biases N(0, 0.05)), each
+    head's output bias moved so the scores of ``xs`` straddle the middle of
+    their range; written to .nztm.  {kind: path}."""
+    from nunif_tpu_torch.cliqa import utils as U
+    from nunif_tpu_torch.models import create_model, init_flax_default, save_model
+    paths = {}
+    for kind, name in CLIQA_KINDS.items():
+        model = create_model(name, norm="none")
+        gen = torch.Generator().manual_seed(len(kind))
+        init_flax_default(model, gen)
+        with torch.no_grad():
+            for pname, p in model.named_parameters():
+                if pname.endswith("bias"):
+                    p.normal_(0, 0.05, generator=gen)
+        model.eval().requires_grad_(False)
+        score_fn = U.tv_score if kind == "resize" else U.std_score
+        with torch.no_grad():
+            raw = []
+            for x in xs:
+                y = model(torch.from_numpy(U.extract_patches(x, 8, score_fn=score_fn)))
+                y = y[0] if isinstance(y, tuple) else y
+                raw.append(float(y.min() if kind == "resize" else y.mean()))
+            getattr(model, CLIQA_HEADS[kind]).out.bias += \
+                CLIQA_TARGETS[kind] - float(np.median(raw))
+        paths[kind] = os.path.join(model_dir, f"cliqa_{kind}.nztm")
+        save_model(model, paths[kind])
+    return paths
+
+
+def cliqa_scores(torch, model, kind, xs):
+    """(scores, raw model outputs, chosen patch indexes) of each image."""
+    from nunif_tpu_torch.cliqa import filter_cli
+    from nunif_tpu_torch.cliqa import utils as U
+    device = next(model.parameters()).device
+    score_fn = U.tv_score if kind == "resize" else U.std_score
+    scores, raws, idxs = [], [], []
+    for x in xs:
+        grid = U.patch_grid(x)
+        idx = U.patch_indexes(grid, 8, score_fn)
+        with torch.no_grad():
+            y = model(torch.from_numpy(grid[idx]).to(device))
+        raws.append([a.float().cpu() for a in (y if isinstance(y, tuple) else (y,))])
+        idxs.append(idx)
+        scores.append(filter_cli.score(kind, model, x, 8))
+    return scores, raws, idxs
+
+
+def cliqa_phase(torch, dev, smi):
+    """BASELINE config 3 on the card: seeded full-width predictors from
+    .nztm, the filter CLI over 16 1080p JPEGs per kind on the card, its
+    kept set against the CPU's scores of the same weights (a threshold in
+    the widest gap between them), the scores and raw outputs within fp32
+    tolerance, the chosen patches equal; the reference .pth rows loaded on
+    the card against the CPU."""
+    from nunif_tpu_torch.cliqa import filter_cli
+    from nunif_tpu_torch.models import load_model
+    from nunif_tpu_torch.utils.pil_io import load_image
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory()
+    src = os.path.join(work.name, "src")
+    cliqa_images(src)
+    files = filter_cli.listdir_images(src)
+    xs = [load_image(f)[0][..., :3] for f in files]
+    paths = cliqa_models(torch, work.name, xs)
+    out = {}
+    for kind, path in paths.items():
+        cpu_model, _ = load_model(path, device="cpu")
+        card_model, meta = load_model(path, device=dev)
+        if meta["kwargs"] != {"norm": "none"}:
+            fail(f"cliqa {kind}: checkpoint kwargs {meta['kwargs']}")
+        want, want_raw, want_idx = cliqa_scores(torch, cpu_model, kind, xs)
+        got, got_raw, got_idx = cliqa_scores(torch, card_model, kind, xs)
+        if any(not np.array_equal(a, b) for a, b in zip(got_idx, want_idx)):
+            fail(f"cliqa {kind}: chosen patches differ between the card and the CPU")
+        raw_err = 0.0
+        for g, w in zip(got_raw, want_raw):
+            for a, b in zip(g, w):
+                ok, err, _ = compare(a, b, CLIQA_OUT_TOL)
+                raw_err = max(raw_err, err)
+                if not ok:
+                    fail(f"cliqa {kind}: raw outputs differ from the CPU by {err}")
+        if kind == "resize":  # the truncated int may flip at a hundredth
+            score_err = max(abs(a - b) for a, b in zip(got, want))
+            factor_err = max(abs(float(g[0].min()) - float(w[0].min()))
+                             for g, w in zip(got_raw, want_raw))
+            if score_err > 1 or factor_err > CLIQA_SCORE_ATOL:
+                fail(f"cliqa resize: scores {got} vs CPU {want}")
+        else:
+            score_err = max(abs(a - b) for a, b in zip(got, want))
+            if score_err > CLIQA_SCORE_ATOL:
+                fail(f"cliqa {kind}: scores differ from the CPU by {score_err}")
+        order = sorted(want)
+        gaps = np.diff(order)
+        if gaps.max() <= 4 * CLIQA_SCORE_ATOL:
+            fail(f"cliqa {kind}: no gap between the CPU scores {order}")
+        g = int(np.argmax(gaps))
+        threshold = (order[g] + order[g + 1]) / 2
+        expected = sorted(os.path.basename(f) for f, s in zip(files, want)
+                          if s >= threshold)
+        dst = os.path.join(work.name, f"kept_{kind}")
+        t0 = time.perf_counter()
+        rc = filter_cli.main([kind, "-i", src, "-o", dst, "--filter",
+                              repr(threshold), "--checkpoint", path,
+                              "--device", dev.type])
+        cli_s = time.perf_counter() - t0
+        kept = sorted(os.listdir(dst))
+        if rc != 0 or kept != expected or not 0 < len(kept) < len(files):
+            fail(f"cliqa {kind}: the CLI kept {kept}, the CPU scores keep {expected}")
+        out[kind] = {"kept": len(kept), "threshold": threshold,
+                     "score_max_abs_err": score_err, "raw_max_abs_err": raw_err,
+                     "cli_images_per_s": len(files) / cli_s,
+                     "score_range": [order[0], order[-1]]}
+        print(f"cliqa {kind}: kept {len(kept)}/{len(files)} at {threshold:.4f}; "
+              f"score err vs CPU {score_err:.3g}, raw {raw_err:.3g}; CLI "
+              f"{len(files) / cli_s:.2f} images/s (1080p JPEG decode included)",
+              flush=True)
+    out["pth_rows"] = pth_rows_check(torch, dev, work.name)
+    work.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def pth_rows_check(torch, dev, work_dir):
+    """Each PTH_ROWS row: a reference .pth loaded through ``load_model`` on
+    the card and on the CPU, one fp32 forward on each, held within
+    PTH_ATOL.  {row: max abs err}."""
+    from nunif_tpu_torch.models import load_model
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_pth_states import ROWS, reference_state, save_pth
+    errs = {}
+    for i, (name, shapes) in enumerate(PTH_ROWS.items()):
+        kwargs, kind, ref_kw = ROWS[name]
+        sd, _net = reference_state(kind, i, **ref_kw)
+        path = save_pth(os.path.join(work_dir, f"row{i}.pth"), name, kwargs, sd)
+        card, _ = load_model(path, device=dev)  # converts, writes the cache
+        cpu, _ = load_model(path, device="cpu")  # reads the cache
+        gen = torch.Generator().manual_seed(i)
+        args = [torch.rand(s, generator=gen) for s in shapes]
+        if len(args) == 2:
+            args[1] = (args[1] > 0.7).float()
+        kwargs = {"mask": args.pop()} if len(args) == 2 else {}
+        with torch.no_grad():
+            want = cpu(*args, **kwargs)
+            got = card(*[a.to(dev) for a in args],
+                       **{k: v.to(dev) for k, v in kwargs.items()})
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = 0.0
+        for a, b in zip(got, want):
+            ok, e, _ = compare(a.cpu(), b, (0.0, PTH_ATOL))
+            err = max(err, e)
+            if not ok or a.shape != b.shape:
+                fail(f"pth row {name}: the card's forward differs from the "
+                     f"CPU's by {e} (shape {tuple(a.shape)})")
+        errs[name] = err
+        del card, cpu
+    print(f"pth rows on the card vs the CPU (fp32 max abs err): {errs}", flush=True)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# "iw3 desktop": the desktop stream at batch 1.  1920x1080 raw frames over
+# the IW3CAP01 TCP socket into run_pipeline with Any_V2_S and row_flow_v3
+# (the iw3 batch's seeded .nztm files), DESKTOP_FRAMES frames, an HTTP
+# client reading /stream.  Each frame runs K7 12 times (the ViT-S trunk)
+# and K3 once (both eyes as one warp).
+DESKTOP_FRAMES = 60
+DESKTOP_WARM = 10  # frames before the timed window
+DESKTOP_GRAB_FPS = 60.0  # the grabber pushes as a 60 Hz screen would
+DESKTOP_PER_FRAME = {"sdpa": 12, "warp_x_bounded": 1}
+DESKTOP_HW = (1080, 1920)
+# one frame's SBS before JPEG against the twin path (K7 and K3 both
+# replaced) and against K3's twin alone, uint8 PSNR: read at 50.64 dB and
+# bit-equal on an H100 80GB HBM3 at 700 W (the iw3 batch of 8 reads 49.77
+# against its twin path: K7's rounding moves the normalised depth)
+DESKTOP_PSNR_MIN = 50.0
+
+
+def read_mjpeg(url, stop, parts, errors):
+    """Read /stream's parts into ``parts`` until ``stop`` is set."""
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            boundary = r.headers["Content-Type"].split("boundary=")[1].encode()
+            while not stop.is_set():
+                line = r.readline()
+                if not line:
+                    return
+                if line.strip() != b"--" + boundary:
+                    raise ValueError(f"bad part boundary {line[:40]!r}")
+                headers = {}
+                for h in iter(r.readline, b"\r\n"):
+                    k, v = h.decode().split(":", 1)
+                    headers[k.strip().lower()] = v.strip()
+                if headers.get("content-type") != "image/jpeg":
+                    raise ValueError(f"part type {headers}")
+                parts.append(r.read(int(headers["content-length"])))
+                r.readline()
+    except Exception as e:  # noqa: BLE001  (reported by the phase)
+        if not stop.is_set():
+            errors.append(repr(e))
+
+
+def desktop_phase(torch, dev, model_dir, k3, k7, smi):
+    """The desktop stream on the card: exact K7 / K3 launches a frame, every
+    /stream part a half-SBS JPEG of the frame's size, one frame's SBS
+    against the twin path, fps and the stage split (medians over the frames
+    after DESKTOP_WARM)."""
+    import threading
+    import types as types_mod
+    from http.server import ThreadingHTTPServer
+    from PIL import Image
+    from nunif_tpu_torch.iw3 import desktop
+    from nunif_tpu_torch.iw3.capture_source import FileGrabber, SocketFrameSource
+    t_phase = time.perf_counter()
+    path = lambda f: os.path.join(model_dir, f)  # noqa: E731
+    args = types_mod.SimpleNamespace(
+        depth_model="Any_V2_S", depth_checkpoint=path("depth_any_v2_s.nztm"),
+        stereo_checkpoint=path("row_flow_v3.nztm"), method="row_flow_v3",
+        divergence=2.0, convergence=0.5, resolution=None, full_sbs=False,
+        stream_fps=1000.0, quality=90, device="cuda", max_frames=DESKTOP_FRAMES)
+    renderer = desktop.build_renderer(args, dev)
+    frames = iw3_frames(torch, dev, 8, *DESKTOP_HW, seed=31).cpu().numpy()
+    source = SocketFrameSource(("127.0.0.1", 0), timeout=60.0)
+    feeding = threading.Event()
+    feeding.set()
+
+    def feed():
+        i, t_next = 0, time.perf_counter()
+        while feeding.is_set():
+            yield frames[i % len(frames)]
+            i += 1
+            t_next += 1.0 / DESKTOP_GRAB_FPS
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+
+    feeder = threading.Thread(target=lambda: FileGrabber(source.bound_address).push(feed()),
+                              daemon=True)
+    feeder.start()
+    state = desktop.StreamingState()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), desktop.make_handler(state))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    parts, errors, reading = [], [], threading.Event()
+    reader = threading.Thread(target=read_mjpeg, args=(
+        f"http://127.0.0.1:{server.server_address[1]}/stream", reading, parts,
+        errors), daemon=True)
+    reader.start()
+    k3.warp_x_bounded.launches = 0
+    k7.sdpa.launches = 0
+    stop = threading.Event()
+    worker = threading.Thread(target=desktop.run_pipeline,
+                              args=(state, source, args, stop, renderer), daemon=True)
+    worker.start()
+    t_warm = None
+    while worker.is_alive():
+        if t_warm is None and state._seq >= DESKTOP_WARM:
+            t_warm = time.perf_counter()
+        time.sleep(0.001)
+    t_end = time.perf_counter()
+    torch.cuda.synchronize()
+    launches = {"sdpa": k7.sdpa.launches, "warp_x_bounded": k3.warp_x_bounded.launches}
+    time.sleep(0.2)
+    reading.set()
+    server.shutdown()
+    server.server_close()
+    feeding.clear()
+    source.close()
+    feeder.join(10)
+    reader.join(10)
+    n = state._seq
+    print(f"iw3 desktop: {n} frames, launches {launches}, {len(parts)} /stream "
+          f"parts", flush=True)
+    if n != DESKTOP_FRAMES or launches != {k: v * n for k, v in DESKTOP_PER_FRAME.items()}:
+        fail(f"iw3 desktop: {n} frames launched {launches}, expected "
+             f"{DESKTOP_PER_FRAME} a frame")
+    if errors or len(parts) < 2:
+        fail(f"iw3 desktop: /stream read {len(parts)} parts, errors {errors}")
+    for p in parts:
+        with Image.open(io.BytesIO(p)) as im:
+            if im.format != "JPEG" or im.size != DESKTOP_HW[::-1]:
+                fail(f"iw3 desktop: a /stream part is {im.format} {im.size}")
+    times = list(state.frame_ms)[DESKTOP_WARM:]
+    split = {k: statistics.median(t[k] for t in times) for k in desktop.STAGES}
+    fps = (n - DESKTOP_WARM) / (t_end - t_warm)
+    # the same stages with no grabber, socket or HTTP thread running: how
+    # much of a streamed frame is the host's contention
+    idle = []
+    for i in range(5):
+        arr, t = renderer(frames[i])
+        t0 = time.perf_counter()
+        desktop.encode_jpeg(arr, args.quality)
+        t["jpeg_encode"] = (time.perf_counter() - t0) * 1e3
+        idle.append(t)
+    idle = {k: statistics.median(t[k] for t in idle) for k in idle[0]}
+    # one frame's SBS before JPEG: the kernel path, the full twin path and
+    # K3 alone on the kernel path's depth, each from a reset depth EMA
+    frame = frames[3]
+
+    def sbs():
+        renderer.depth_model.reset_ema(decay=0.75, buffer_size=1)
+        out, _t = renderer.sbs(frame)
+        return out
+
+    got = sbs()
+    with twins((k3, "warp_x_bounded"), (k7, "sdpa")):
+        twin = sbs()
+    with twins((k3, "warp_x_bounded")):
+        k3_twin = sbs()
+    psnr, k3_psnr = uint8_psnr(got, twin), uint8_psnr(got, k3_twin)
+
+    # K7 held at the depth: the frame's normalised depth against K7's twin
+    def norm_depth():
+        dm = renderer.depth_model
+        dm.reset_ema(decay=0.75, buffer_size=1)
+        x = torch.from_numpy(frame).to(dev)[None].float() / 255.0
+        with torch.no_grad():
+            return torch.stack(dm.minmax_normalize(dm.infer(x, edge_dilation=2)))
+
+    to_u8 = lambda t: (t.clamp(0, 1) * 255 + 0.5).to(torch.uint8)  # noqa: E731
+    depth = norm_depth()
+    with twins((k7, "sdpa")):
+        depth_twin = norm_depth()
+    depth_psnr = uint8_psnr(to_u8(depth), to_u8(depth_twin))
+    # the warp acts: the two eyes of the half-SBS frame differ
+    half = DESKTOP_HW[1] // 2
+    moved = float((got[:, :half].float() - got[:, half:].float()).abs().gt(8).float().mean())
+    out = {"frames": n, "fps": fps, "per_frame_ms": split, "alone_ms": idle,
+           "launches_per_frame": {k: v / n for k, v in launches.items()},
+           "stream_parts": len(parts), "vs_twins_psnr": psnr,
+           "vs_k3_twin_psnr": k3_psnr, "depth_vs_k7_twin_psnr": depth_psnr,
+           "depth_std": float(depth.std()), "eyes_px_differ": moved,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"iw3 desktop 1080p half-SBS at batch 1: {fps:.2f} fps; per-frame ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + "; a frame alone (no grabber, socket or HTTP thread) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in idle.items())
+          + f"; vs twins {psnr:.2f} dB, K3 alone {k3_psnr:.2f} dB; normalised "
+          f"depth vs K7's twin {depth_psnr:.2f} dB (std {float(depth.std()):.4f}); "
+          f"{smi}", flush=True)
+    if min(psnr, k3_psnr) < DESKTOP_PSNR_MIN:
+        fail(f"iw3 desktop: SBS frame vs twins {psnr:.2f} dB, K3's twin alone "
+             f"{k3_psnr:.2f} dB (min {DESKTOP_PSNR_MIN})")
+    if depth_psnr < FRAME_PSNR_MIN or float(depth.std()) <= 0.05:
+        fail(f"iw3 desktop: normalised depth vs K7's twin {depth_psnr:.2f} dB "
+             f"(min {FRAME_PSNR_MIN}), std {float(depth.std())}")
+    if moved < 0.05:
+        fail(f"iw3 desktop: the eyes differ at {moved} of the pixels")
+    return out
 
 
 # waifu2x turbo: the bundled zoo's slots (all turbo_2x, dim 128, 8 blocks)
@@ -3981,7 +4407,8 @@ def main() -> int:
 
     # 12. K7 at DINOv2-S shapes (K7_SHAPES): 1373 = the 1080p path's 28x49
     # patches + cls, on contiguous q, k, v and on the path's strided views
-    # of a qkv tensor, at the iw3 batch's 8 frames and VDA's window of 32
+    # of a qkv tensor, at the iw3 batch's 8 frames, VDA's window of 32 and
+    # the desktop stream's one frame
     phase("k7")
     k7_rows = {}
     # the device times a launch, in a process of their own
@@ -4071,12 +4498,24 @@ def main() -> int:
     extras = iw3_extras_phase(torch, dev, model_dir, k3, k7, smi)
     print(f"iw3 extras: {smi}; " + json.dumps(extras), flush=True)
 
-    # 14e. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
+    # 14e. iw3's desktop stream: raw 1080p frames over the capture socket,
+    #      run_pipeline at batch 1 (Any_V2_S, row_flow_v3), /stream read
+    phase("iw3 desktop")
+    desktop = desktop_phase(torch, dev, model_dir, k3, k7, smi)
+    print(f"iw3 desktop: {smi}; " + json.dumps(desktop), flush=True)
+
+    # 14f. cliqa (BASELINE config 3): the filter CLI on the card against the
+    #      CPU, and the reference .pth rows
+    phase("cliqa")
+    cliqa = cliqa_phase(torch, dev, smi)
+    print(f"cliqa: {smi}; " + json.dumps(cliqa), flush=True)
+
+    # 14g. the bundled turbo_2x zoo: load, catrom, frame, eval set, convert
     phase("waifu2x turbo")
     turbo_phase(torch, dev, smi, model_dir)
     tmp.cleanup()
 
-    # 14f. the other waifu2x models at full width, the web server (swin_unet_2x
+    # 14h. the other waifu2x models at full width, the web server (swin_unet_2x
     #      and the bundled turbo), the tile API and the hub
     phase("waifu2x serving")
     serving = serving_phase(torch, dev, k1, k2, smi)
@@ -4232,6 +4671,9 @@ def main() -> int:
          # each "iw3 extras" format's batch, and the lagged case's run
          "extras_launches": {c: r["launches"]["warp_x_bounded"]
                              for c, r in extras.items() if "launches" in r},
+         # the "iw3 desktop" stream: a frame's launches, over its run
+         "desktop_launches": desktop["launches_per_frame"]["warp_x_bounded"]
+         * desktop["frames"], "desktop_frames": desktop["frames"],
          # each "video" phase run; SuperPoint's two-pass warp at 1080p
          "video_launches": {run: n["warp_x_bounded"] for run, n in video_launches.items()},
          "two_pass": video["two_pass"],
@@ -4278,6 +4720,10 @@ def main() -> int:
          # and the lagged case's run
          "extras_launches": {c: r["launches"]["sdpa"]
                              for c, r in extras.items() if "launches" in r},
+         "desktop_launches": desktop["launches_per_frame"]["sdpa"]
+         * desktop["frames"], "desktop_frames": desktop["frames"],
+         # the desktop stream's shape: one frame, strided views
+         "desktop_per_launch": k7_rows[1373, "strided", 1, 6],
          "video_launches": {run: n["sdpa"] for run, n in video_launches.items()},
          "depth_pro_tiles_per_launch": k7_rows[577, "strided", 35, 16],
          "zoe_any_per_launch": k7_rows[1401, "strided", IW3_BATCH, 16]},

@@ -56,7 +56,6 @@ import sys
 import torch
 
 from ..core.device import resolve_device
-from ..models import torch_convert
 from ..utils import pil_io
 from .anaglyph import ANAGLYPH_TYPES
 from .composition import StereoFormat
@@ -280,28 +279,23 @@ def _seeded(name, device, seed):
     return model.eval().requires_grad_(False).to(device)
 
 
-# raw upstream checkpoints of the helper nets: their converters
-RAW_CONVERTERS = {"iw3.depth_aa": torch_convert.convert_depth_aa,
-                  "iw3.sod_v1": lambda sd: {"u2netp": torch_convert.convert_u2netp(
-                      sd, "u2netp.")}}
-
-
 def _net(name, checkpoint, device, seed):
-    """The registered net ``name`` (``RAW_CONVERTERS``'): from a ``.nztm``
-    checkpoint, which must hold one, or a raw upstream ``.pth`` / ``.pt``
-    / ``.safetensors`` state dict (bare or in a nunif envelope that names
-    it), or seeded."""
-    from ..models import create_model, from_flax, load_model
-    from ..models.pth_import import is_raw_checkpoint, load_torch_checkpoint
+    """The registered net ``name`` (``iw3.depth_aa``, ``iw3.sod_v1``): from
+    a ``.nztm`` checkpoint, which must hold one, or a raw upstream ``.pth``
+    / ``.pt`` / ``.safetensors`` state dict (bare or in a nunif envelope
+    that names it or an alias of it), converted by the ``.pth`` importer's
+    row, or seeded."""
+    from ..models import load_model
+    from ..models.pth_import import (canonical_name, convert_torch_state,
+                                     is_raw_checkpoint, load_torch_checkpoint)
     from . import models  # noqa: F401  (registers the iw3 nets)
     if not checkpoint:
         return _seeded(name, device, seed)
     if is_raw_checkpoint(checkpoint):
-        named, _kwargs, sd = load_torch_checkpoint(checkpoint)
-        if named not in (None, name):
+        named, kwargs, sd = load_torch_checkpoint(checkpoint)
+        if named is not None and canonical_name(named) != name:
             raise ValueError(f"{checkpoint}: a {named} checkpoint, not {name}")
-        model = create_model(name)
-        from_flax(model, torch_convert.flatten(RAW_CONVERTERS[name](sd)))
+        model = convert_torch_state(name, kwargs, sd)
         return model.eval().requires_grad_(False).to(device)
     model, _meta = load_model(checkpoint, device=device)
     if getattr(model, "model_name", None) != name:

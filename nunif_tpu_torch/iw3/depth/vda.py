@@ -32,7 +32,7 @@ from torch import nn
 
 from ...models import Model, init_flax_default, register_model
 from ...modules.attention import dense
-from ...modules.norm import LayerNorm
+from ...modules.norm import GroupNorm, LayerNorm
 from ...modules.pad import crop2d, reflection_pad2d
 from ..dilation import dilate_edge, edge_dilation_is_enabled
 from .base import BaseDepthModel
@@ -76,22 +76,6 @@ def sinusoidal_pe(T: int, dim: int) -> np.ndarray:
     pe[:, 0::2] = np.sin(pos * div)
     pe[:, 1::2] = np.cos(pos * div)[:, : pe[:, 1::2].shape[1]]
     return pe
-
-
-class GroupNorm(nn.GroupNorm):
-    """flax ``nn.GroupNorm`` on NHWC: statistics over (H, W, C / G) in fp32
-    with the fast variance E[x^2] - E[x]^2, the result rounded once to x's
-    dtype."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, C = x.shape
-        g = x.float().reshape(B, H * W, self.num_groups, C // self.num_groups)
-        mean = g.mean(dim=(1, 3), keepdim=True)
-        var = ((g * g).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp_min(0.0)
-        G = self.num_groups
-        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G)
-        y = (g - mean) * mul + self.bias.reshape(G, C // G)
-        return y.reshape(B, H, W, C).to(x.dtype)
 
 
 class TemporalAttention(nn.Module):

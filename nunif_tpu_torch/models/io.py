@@ -36,7 +36,8 @@ _APP_PACKAGES = {"waifu2x": ("nunif_tpu_torch.waifu2x",),
                  "inpaint": ("nunif_tpu_torch.iw3",),
                  "aux": ("nunif_tpu_torch.utils.superpoint",
                          "nunif_tpu_torch.utils.transnetv2"),
-                 "stlizer": ("nunif_tpu_torch.stlizer.light_outpaint_v1",)}
+                 "stlizer": ("nunif_tpu_torch.stlizer.light_outpaint_v1",),
+                 "cliqa": ("nunif_tpu_torch.cliqa",)}
 
 
 class NotPortedError(NotImplementedError):

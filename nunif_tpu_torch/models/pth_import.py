@@ -14,10 +14,18 @@ header length, a JSON header ``{name: {"dtype", "shape", "data_offsets"}}``
 F32, F16 and BF16 are read; any other dtype raises ``ValueError``.
 
 ``load_torch_model(path)`` (counterpart of the JAX package's) loads a
-reference waifu2x ``.pth`` in its nunif envelope: it converts the state
-dict by the importer of the envelope's name (``_IMPORTERS``, aliases in
+reference ``.pth`` in its nunif envelope: it converts the state dict by
+the importer of the envelope's name (``_IMPORTERS``, aliases in
 ``_ALIASES``), writes the result beside the file as ``<path>.nztm`` and
 reads that cache on later loads while it is not older than the file.
+Every row of the JAX package's table is here.  Three of its rows fail
+there and work here: ``iw3.sod_v1`` (the JAX row returns the U2NETP tree
+without the model's ``u2netp`` scope, so the cache does not fit the
+model), ``iw3.dsod_v1`` (an alias the JAX row hands to ``create_model``,
+which does not know it; the port builds the canonical model for an alias
+that is not registered) and ``sbs.mlbw_l2s`` / ``sbs.mlbw_l4s`` (the JAX
+converter takes ``small`` from the envelope's kwargs, which the registered
+name implies; the port reads it from the model it built).
 """
 from __future__ import annotations
 
@@ -99,7 +107,7 @@ def load_torch_checkpoint(path):
     return name, kwargs, {k: _numpy(v) for k, v in sd.items()}
 
 
-def _swin_unet(sd, kwargs):
+def _swin_unet(sd, kwargs, model):
     name = kwargs["__name"]
     scale = {"waifu2x.swin_unet_1x": 1, "waifu2x.swin_unet_2x": 2,
              "waifu2x.swin_unet_4x": 4, "waifu2x.swin_unet_4xl": 4,
@@ -110,13 +118,23 @@ def _swin_unet(sd, kwargs):
 
 
 _V2_KWARGS = ("base_dim", "lv1_mlp_ratio", "lv2_mlp_ratio", "lv2_ratio")
+_VIDEO_INPAINT = (lambda sd, kw, model: tc.convert_light_video_inpaint_v1(sd),
+                  ("base_dim", "lv2_mlp_ratio"))
 
-# canonical name -> (converter(state_dict, kwargs) -> flax tree, the
-# envelope kwargs that create_model takes); the waifu2x rows of the JAX
-# package's table
+
+def _cliqa(*heads):
+    # reference cliqa checkpoints hold BatchNorm, which the converter folds
+    # into the convs: the model is built without a norm
+    return (lambda sd, kw, model: tc.convert_cliqa(sd, list(heads)), (),
+            {"norm": "none"})
+
+
+# canonical name -> (converter(state_dict, kwargs, model) -> flax tree of
+# ``model``, the envelope kwargs that create_model takes[, create_model
+# kwargs that the row fixes])
 _IMPORTERS = {
-    "waifu2x.upconv_7": (lambda sd, kw: tc.convert_upconv7(sd), ()),
-    "waifu2x.vgg_7": (lambda sd, kw: tc.convert_vgg7(sd), ()),
+    "waifu2x.upconv_7": (lambda sd, kw, model: tc.convert_upconv7(sd), ()),
+    "waifu2x.vgg_7": (lambda sd, kw, model: tc.convert_vgg7(sd), ()),
     "waifu2x.swin_unet_1x": (_swin_unet, ("base_dim", "layer_norm")),
     "waifu2x.swin_unet_2x": (_swin_unet, ("base_dim", "layer_norm")),
     "waifu2x.swin_unet_4x": (_swin_unet,
@@ -124,18 +142,35 @@ _IMPORTERS = {
     "waifu2x.swin_unet_4xl": (_swin_unet, ()),
     "waifu2x.swin_unet_8x": (_swin_unet, ()),
     "waifu2x.swin_unet_v2_1x": (
-        lambda sd, kw: tc.convert_swin_unet_v2(
+        lambda sd, kw, model: tc.convert_swin_unet_v2(
             sd, first_layers=kw.get("first_layers", 2),
             last_layers=kw.get("last_layers", 3)),
         _V2_KWARGS + ("first_layers", "last_layers")),
-    "waifu2x.swin_unet_v2_2x": (lambda sd, kw: tc.convert_swin_unet_v2(sd),
+    "waifu2x.swin_unet_v2_2x": (lambda sd, kw, model: tc.convert_swin_unet_v2(sd),
                                 _V2_KWARGS),
-    "waifu2x.swin_unet_v2_4x": (lambda sd, kw: tc.convert_swin_unet_v2(sd),
+    "waifu2x.swin_unet_v2_4x": (lambda sd, kw, model: tc.convert_swin_unet_v2(sd),
                                 _V2_KWARGS),
-    "waifu2x.cunet": (lambda sd, kw: tc.convert_cunet(sd, scale=1), ()),
-    "waifu2x.upcunet": (lambda sd, kw: tc.convert_cunet(sd, scale=2), ()),
-    "waifu2x.wgmlp_4x": (lambda sd, kw: tc.convert_wgmlp(sd),
+    "waifu2x.cunet": (lambda sd, kw, model: tc.convert_cunet(sd, scale=1), ()),
+    "waifu2x.upcunet": (lambda sd, kw, model: tc.convert_cunet(sd, scale=2), ()),
+    "waifu2x.wgmlp_4x": (lambda sd, kw, model: tc.convert_wgmlp(sd),
                          ("base_dim", "lv1_mlp_ratio", "lv2_mlp_ratio")),
+    "sbs.row_flow_v2": (lambda sd, kw, model: tc.convert_row_flow_v2(sd), ()),
+    "sbs.row_flow_v3": (lambda sd, kw, model: tc.convert_row_flow_v3(sd), ()),
+    "sbs.mlbw": (lambda sd, kw, model: tc.convert_mlbw(sd, small=model.small),
+                 ("num_layers", "base_dim", "small", "hole_mask")),
+    "inpaint.light_inpaint_v1": (
+        lambda sd, kw, model: tc.convert_light_inpaint_v1(sd), ()),
+    "inpaint.light_video_inpaint_v1": _VIDEO_INPAINT,
+    "inpaint.light_video_inpaint_v1_medium": _VIDEO_INPAINT,
+    "inpaint.light_video_inpaint_v1_large": _VIDEO_INPAINT,
+    "iw3.depth_aa": (lambda sd, kw, model: tc.convert_depth_aa(sd), ()),
+    "iw3.sod_v1": (lambda sd, kw, model: {"u2netp": tc.convert_u2netp(sd, "u2netp.")},
+                   ()),
+    "cliqa.jpeg_quality": _cliqa("quality_output", "subsampling_output"),
+    "cliqa.grain_noise_level": _cliqa("noise_level_output"),
+    "cliqa.scale_factor": _cliqa("scale_factor_output"),
+    "stlizer.light_outpaint_v1": (
+        lambda sd, kw, model: tc.convert_light_outpaint_v1(sd), ()),
 }
 
 # the reference's aliases -> canonical importer names
@@ -144,7 +179,19 @@ _ALIASES = {
     "waifu2x.winc_unet_2x": "waifu2x.swin_unet_v2_2x",
     "waifu2x.winc_unet_4x": "waifu2x.swin_unet_v2_4x",
     "waifu2x.swin_unet_1x_v2": "waifu2x.swin_unet_v2_1x",
+    "inpaint.light_video_inpaint_v1_small": "inpaint.light_video_inpaint_v1",
+    "iw3.dsod_v1": "iw3.sod_v1",
+    "sbs.mlbw_l2": "sbs.mlbw",
+    "sbs.mlbw_l4": "sbs.mlbw",
+    "sbs.mlbw_l2s": "sbs.mlbw",
+    "sbs.mlbw_l4s": "sbs.mlbw",
+    "sbs.mask_mlbw_l2": "sbs.mlbw",
 }
+
+
+def canonical_name(name: str) -> str:
+    """The importer row of ``name`` (an alias's target, else ``name``)."""
+    return _ALIASES.get(name, name)
 
 
 def supported_torch_models():
@@ -155,14 +202,18 @@ def convert_torch_state(name: str, kwargs: dict, sd: dict):
     """The model ``name`` (on the CPU) with the converted state dict
     loaded."""
     from .flax_params import from_flax
-    from .register import create_model
-    canonical = _ALIASES.get(name, name)
+    from .register import create_model, get_model_names
+    canonical = canonical_name(name)
     if canonical not in _IMPORTERS:
         raise ValueError(f"no importer for a {name!r} .pth checkpoint; "
                          f"supported: {supported_torch_models()}")
-    converter, keep = _IMPORTERS[canonical]
-    tree = converter(sd, dict(kwargs, __name=canonical))
-    model = create_model(name, **{k: v for k, v in kwargs.items() if k in keep})
+    converter, keep, *fixed = _IMPORTERS[canonical]
+    create_kw = {k: v for k, v in kwargs.items() if k in keep}
+    create_kw.update(*fixed)
+    # an alias the registry does not know builds its canonical model
+    model = create_model(name if name in get_model_names() else canonical,
+                         **create_kw)
+    tree = converter(sd, dict(kwargs, __name=canonical), model)
     from_flax(model, tc.flatten(tree))
     return model
 
@@ -183,7 +234,7 @@ def load_torch_model(path: str, device="cuda"):
         raise ValueError(f"{path}: a raw state dict without a nunif envelope; "
                          "use the converters of models.torch_convert")
     from .io import ensure_registered
-    ensure_registered(name)
+    ensure_registered(canonical_name(name))
     device = resolve_device(device)
     model = convert_torch_state(name, kwargs, sd)
     try:

@@ -1,7 +1,8 @@
 """Upstream PyTorch state dicts -> the flax-named parameter tree that
-``models.flax_params`` loads (the port's own copy of the depth, DepthAA,
-U2NETP and waifu2x converters of ``nunif_tpu/models/torch_convert.py``,
-which it does not import).
+``models.flax_params`` loads (the port's own copy of the converters of
+``nunif_tpu/models/torch_convert.py``: depth, the iw3 stereo and inpaint
+nets, DepthAA, U2NETP, cliqa, stlizer's outpaint net and waifu2x; the
+port does not import it).
 
 Works on numpy arrays or anything with ``.numpy()``.  Layout rules:
   Conv2d           (O, I, kh, kw) -> HWIO (kh, kw, I, O)
@@ -358,6 +359,124 @@ def convert_depth_aa(sd):
     return {"proj_in": conv2d(sd, "proj_in"),
             **{f"blocks_{i}": _wa_block(sd, f"blocks.{i}") for i in range(3)},
             "proj_out": conv2d(sd, "proj_out")}
+
+
+def convert_row_flow_v2(sd):
+    return {"feature_0": conv2d(sd, "feature.0"),
+            "non_overlap": conv2d(sd, "non_overlap"),
+            **{f"overlap_residual_{i}": conv2d(sd, f"overlap_residual.{i}")
+               for i in (0, 2, 4, 6)}}
+
+
+def convert_row_flow_v3(sd):
+    return {"blocks_0": conv2d(sd, "blocks.0"),
+            "blocks_1": _wa_block(sd, "blocks.1"),
+            "blocks_2": _wa_block(sd, "blocks.2"),
+            "last_layer_1": conv2d(sd, "last_layer.1")}
+
+
+def convert_mlbw(sd, small: bool = False):
+    """MLBW and its variants (l2 / l4 / l2s / l4s / the mask net): the
+    variant changes channel counts, not the key layout."""
+    return {"lv1_in_1": conv2d(sd, "lv1_in.1"),
+            "lv1_out_1": conv2d(sd, "lv1_out.1"),
+            **{f"lv2_{i}": _wa_block(sd, f"lv2.{i}")
+               for i in range(2 if small else 4)}}
+
+
+def _gmlp_inner(sd, prefix):
+    """GMLP: ``proj_spatial`` is a Conv1d whose (out, in, 1) kernel keeps
+    its first two axes."""
+    return {"proj_in": linear(sd, prefix + ".proj_in"),
+            "proj_spatial_kernel": _np(sd[prefix + ".proj_spatial.weight"])[:, :, 0],
+            "proj_spatial_bias": _np(sd[prefix + ".proj_spatial.bias"]),
+            "proj_out": linear(sd, prefix + ".proj_out")}
+
+
+def _gmlp_block(sd, prefix):
+    """The inpaint nets' GMLPBlock / GMLP3DBlock."""
+    return {"gmlp": {"gmlp": _gmlp_inner(sd, prefix + ".gmlp.gmlp")},
+            "norm1": {"LayerNorm_0": layer_norm(sd, prefix + ".norm1")},
+            "norm2": {"LayerNorm_0": layer_norm(sd, prefix + ".norm2")},
+            "glu_conv": {"w1": conv2d(sd, prefix + ".glu_conv.w1"),
+                         "w2": conv2d(sd, prefix + ".glu_conv.w2")}}
+
+
+def convert_light_inpaint_v1(sd):
+    return {"mask_bias": _np(sd["mask_bias"]).transpose(0, 2, 3, 1),
+            "patch_0": conv2d(sd, "patch.0"),
+            "enc1": _gmlp_block(sd, "enc1"),
+            "down": conv2d(sd, "down"),
+            **{f"enc2_{i}": _gmlp_block(sd, f"enc2.{i}") for i in range(4)},
+            "up": conv2d(sd, "up"),
+            "dec1": _gmlp_block(sd, "dec1"),
+            "to_image_1": conv2d(sd, "to_image.1")}
+
+
+def convert_light_video_inpaint_v1(sd):
+    return {"mask_bias": _np(sd["mask_bias"]).transpose(0, 2, 3, 1),
+            "patch": conv2d(sd, "patch"),
+            "enc1": _gmlp_block(sd, "enc1"),
+            "down": conv2d(sd, "down"),
+            **{f"enc2_{i}": _gmlp_block(sd, f"enc2.{i}") for i in range(5)},
+            "up": conv2d(sd, "up"),
+            "dec1": _gmlp_block(sd, "dec1"),
+            "to_image": conv2d(sd, "to_image")}
+
+
+def _cliqa_res(sd, prefix):
+    """ResBlockBNReLU, identity shortcut: conv.0 + conv.1 (BN), conv.3 +
+    conv.4 (BN)."""
+    return {"conv1": conv_bn_fused(sd, prefix + ".conv.0", prefix + ".conv.1"),
+            "conv2": conv_bn_fused(sd, prefix + ".conv.3", prefix + ".conv.4")}
+
+
+def _cliqa_head(sd, prefix):
+    return {"conv": conv_bn_fused(sd, prefix + ".0", prefix + ".1"),
+            "out": conv2d(sd, prefix + ".4")}
+
+
+def convert_cliqa(sd, heads):
+    """A cliqa predictor's shared trunk and its named ``heads`` (e.g.
+    ["quality_output", "subsampling_output"]), BatchNorm folded in: for a
+    model built with ``norm="none"``."""
+    out = {"features": {
+        "conv0": conv_bn_fused(sd, "features.0", "features.1"),
+        "conv1": conv_bn_fused(sd, "features.3", "features.4"),
+        "res1": _cliqa_res(sd, "features.7"),
+        "res2": _cliqa_res(sd, "features.9")}}
+    out.update({h: _cliqa_head(sd, h) for h in heads})
+    return out
+
+
+def _outpaint_mha_block(sd, prefix):
+    """stlizer's MHABlock."""
+    return {"mha": {"qkv_proj": linear(sd, prefix + ".mha.mha.qkv_proj"),
+                    "head_proj": linear(sd, prefix + ".mha.mha.head_proj")},
+            "bias": {"to_bias_0": linear(sd, prefix + ".bias.to_bias.0"),
+                     "to_bias_2": linear(sd, prefix + ".bias.to_bias.2")},
+            "mlp_0": conv2d(sd, prefix + ".mlp.0"),
+            "mlp_2": conv2d(sd, prefix + ".mlp.2")}
+
+
+def _outpaint_pool_block(sd, prefix):
+    """stlizer's PoolBlock."""
+    return {f"mlp_{i}": conv2d(sd, f"{prefix}.mlp.{i}") for i in (0, 3, 5)}
+
+
+def convert_light_outpaint_v1(sd):
+    m, p = _outpaint_mha_block, _outpaint_pool_block
+    return {"net": {
+        "dct_0": conv2d(sd, "net.dct.blocks.1"),
+        "dct_1": conv2d(sd, "net.dct.blocks.4"),
+        "dct_2": conv2d(sd, "net.dct.blocks.7"),
+        "enc_mha": m(sd, "net.enc_block.0"), "enc_pool": p(sd, "net.enc_block.1"),
+        "proj_mid": conv2d(sd, "net.proj_mid"),
+        "mid_mha1": m(sd, "net.mid_block.0"), "mid_pool1": p(sd, "net.mid_block.1"),
+        "mid_mha2": m(sd, "net.mid_block.2"), "mid_pool2": p(sd, "net.mid_block.3"),
+        "proj_out": conv2d(sd, "net.proj_out"),
+        "dec_mha": m(sd, "net.dec_block.0"), "dec_pool": p(sd, "net.dec_block.1"),
+        "to_image": conv2d(sd, "net.to_image_biliner.proj")}}
 
 
 def convert_upconv7(sd):

@@ -20,8 +20,9 @@ def conv2d(x: torch.Tensor, layer: nn.Conv2d, stride: int = 1,
     """flax ``nn.Conv(dtype=x.dtype)`` with ``layer``'s fp32 weights: the
     weight and bias cast to x's dtype (cached per weight load), the weight
     kept ``channels_last``.  x is NCHW (a channels_last view)."""
+    bias = None if layer.bias is None else cast_param(layer.bias, x.dtype)
     return F.conv2d(x, cast_param(layer.weight, x.dtype, torch.channels_last),
-                    cast_param(layer.bias, x.dtype), stride, padding, dilation)
+                    bias, stride, padding, dilation)
 
 
 def conv2d_nhwc(x: torch.Tensor, layer: nn.Conv2d, stride: int = 1,

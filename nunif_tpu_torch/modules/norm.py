@@ -1,5 +1,6 @@
-"""LayerNorm with flax ``nn.LayerNorm`` semantics (counterpart of
-``nunif_tpu/modules/norm.py`` and the Swin blocks' norms)."""
+"""LayerNorm and GroupNorm with flax's semantics (counterpart of
+``nunif_tpu/modules/norm.py``, the Swin blocks' norms and flax
+``nn.GroupNorm``)."""
 from __future__ import annotations
 
 import torch
@@ -41,3 +42,19 @@ class LayerNormNoBias(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm_0(x)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm`` on NHWC: statistics over (H, W, C / G) in fp32
+    with the fast variance E[x^2] - E[x]^2, the result rounded once to x's
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        g = x.float().reshape(B, H * W, self.num_groups, C // self.num_groups)
+        mean = g.mean(dim=(1, 3), keepdim=True)
+        var = ((g * g).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp_min(0.0)
+        G = self.num_groups
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G)
+        y = (g - mean) * mul + self.bias.reshape(G, C // G)
+        return y.reshape(B, H, W, C).to(x.dtype)

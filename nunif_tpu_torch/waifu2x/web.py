@@ -14,7 +14,12 @@ model file's name (``noise{n}``, ``noise{n}_scale2x``, ...; the runtime's
 naming), else -1; the JAX server takes it from the flag only.  Cached
 results are keyed on the model too (the file's path, size and time), so a
 server restarted on another model does not answer from the last one's
-cache; the JAX server keys on the request alone.
+cache; the JAX server keys on the request alone.  A ``POST /api`` whose
+``noise`` or ``scale`` names a conversion the loaded model does not render
+is answered 400, as ``/api/tile`` answers it (the JAX server renders its
+one model whatever the request names).  The cache writes each entry
+through a temporary file of its own, so two requests that put one key at
+once both succeed (the JAX cache shares one ``<key>.tmp`` between them).
 
 Usage: python -m nunif_tpu_torch.waifu2x.web --port 8812 \\
     [--model-file X.nztm|X.pth] [--device cuda]
@@ -111,10 +116,20 @@ class DiskCache:
             return None
 
     def put(self, key: str, data: bytes):
+        """Write the entry through a temporary file of this call's own, so
+        that writers of one key never share a name; the last replace wins."""
         p = self._path(key)
-        with open(p + ".tmp", "wb") as f:
-            f.write(data)
-        os.replace(p + ".tmp", p)
+        fd, tmp = tempfile.mkstemp(dir=self.root, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(data)
+            os.replace(tmp, p)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
 
     def gc(self):
         with self._lock:
@@ -208,9 +223,22 @@ class Waifu2xWebService:
                 x, tile_size=self.args.tile_size,
                 batch_size=self.args.batch_size).cpu().numpy()
 
+    def check_conversion(self, noise=None, scale=None):
+        """Raise ``ValueError`` if ``noise`` or ``scale`` (None: not asked)
+        names a conversion the loaded model does not render."""
+        if scale is not None and scale != self.scale:
+            raise ValueError(f"server model is {self.scale}x (requested "
+                             f"{scale}x); see /api/tile/info")
+        if noise is not None and noise != self.noise_level:
+            raise ValueError(f"server model noise level is {self.noise_level} "
+                             f"(requested {noise}); see /api/tile/info")
+
     def convert(self, image_bytes: bytes, style: str, noise: int, scale: int,
                 image_format: str) -> bytes:
+        """The model's render of the image, encoded; ``noise`` and
+        ``scale`` must be the model's (``check_conversion``)."""
         from PIL import Image
+        self.check_conversion(noise, scale)
         key = hashlib.sha1(image_bytes).hexdigest() + \
             f"_{style}_{noise}_{scale}_{image_format}_{self.model_id}"
         cached = self.cache.get(key)
@@ -221,9 +249,7 @@ class Waifu2xWebService:
         if im.mode != "RGB":
             im = im.convert("RGB")
         n_px = im.size[0] * im.size[1]
-        if scale != 1 and n_px > MAX_SCALE_PIXELS:
-            raise ValueError("image too large")
-        if scale == 1 and n_px > MAX_NOISE_PIXELS:
+        if n_px > (MAX_NOISE_PIXELS if scale == 1 else MAX_SCALE_PIXELS):
             raise ValueError("image too large")
         x = np.asarray(im, np.float32) / 255.0
         t0 = time.perf_counter()
@@ -231,8 +257,6 @@ class Waifu2xWebService:
         logger.info("web: converted %dx%d in %.2fs", im.size[0], im.size[1],
                     time.perf_counter() - t0)
         out = Image.fromarray(pil_io.quantize(y, 8))
-        if scale == 1 and self.scale != 1:
-            out = out.resize(im.size, Image.LANCZOS)
         buf = io.BytesIO()
         out.save(buf, format=image_format.upper())
         data = buf.getvalue()
@@ -322,14 +346,9 @@ def make_handler(service: Waifu2xWebService):
             w = int(q.get("w", ["0"])[0])
             h = int(q.get("h", ["0"])[0])
             tta = int(q.get("tta", ["0"])[0])
-            if "scale" in q and int(q["scale"][0]) != service.scale:
-                raise ValueError(
-                    f"server model is {service.scale}x "
-                    f"(requested {q['scale'][0]}x); see /api/tile/info")
-            if "noise" in q and int(q["noise"][0]) != service.noise_level:
-                raise ValueError(
-                    f"server model noise level is {service.noise_level} "
-                    f"(requested {q['noise'][0]}); see /api/tile/info")
+            service.check_conversion(
+                int(q["noise"][0]) if "noise" in q else None,
+                int(q["scale"][0]) if "scale" in q else None)
             if not (0 < h <= 1024 and 0 < w <= 1024):
                 raise ValueError("bad tile size")
             length = int(self.headers.get("Content-Length", 0))
@@ -374,8 +393,9 @@ def make_handler(service: Waifu2xWebService):
                     self._send(400, b"no image")
                     return
                 style = fields.get("style", "art")
-                noise = int(fields.get("noise", -1))
-                scale = int(fields.get("scale", 2))
+                # a field the request leaves out names the model's own value
+                noise = int(fields.get("noise", service.noise_level))
+                scale = int(fields.get("scale", service.scale))
                 fmt = fields.get("format", "png")
                 if fmt not in ("png", "webp"):
                     fmt = "png"

@@ -40,6 +40,7 @@ for a shifted grid, the kernel run with the other shift mode must fail.
 K6 (K4 in image layout) has K4's.  The probes' tolerances are stated
 beside their tests.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ round at the same points of the network but not always in the same order
 (flax rounds a matmul and then its bias add), so the bound is the JAX
 package's own bf16 error against its fp32 run.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

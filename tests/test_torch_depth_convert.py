@@ -12,6 +12,7 @@ small configs (ViT 64 wide, 2 blocks; BEiT 64 wide, 4 heads; DepthPro at
 tile 128), seeded with ``torch.manual_seed``; inputs are seeded numpy.
 Outputs fp32 (JAX's bf16 casts resolved to fp32) to 1e-4.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import sys
 
 import numpy as np

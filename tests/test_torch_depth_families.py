@@ -22,6 +22,7 @@ input): the port's RMS error against JAX's fp32 output no larger than
 JAX's own bf16 RMS error (x 1.1 where the two round the same points in
 another order, as tests/test_torch_depth.py).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

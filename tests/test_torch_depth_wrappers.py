@@ -18,6 +18,7 @@ are ruled by a few pixels and their ratio moves with the seeded input
 0.47-1.32x; DepthPro over eight single frames 0.91-1.14x, mean 0.99, and
 over two-frame batches 0.99-1.08x, the higher with TTA).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

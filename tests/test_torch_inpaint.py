@@ -14,6 +14,7 @@ run ``MLBWInpaint`` hold the port to the JAX classes with that one
 function replaced by the same steps in the port's order, built from the
 JAX package's own resize, sigmoid and morphology.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,7 @@ nunif_tpu_torch through the whole frame path, against the JAX package's
 tests/test_torch_inpaint.py, whose header explains the hole mask's
 deliberate divergence and the fixtures shared here).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import torch
 

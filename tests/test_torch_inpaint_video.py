@@ -11,6 +11,7 @@ fp32 to 1e-4.  ``MLBWInpaintVideo`` is held to the JAX class with the hole
 mask in the port's order, as tests/test_torch_inpaint.py does for
 ``MLBWInpaint`` (the JAX ``postprocess_hole_mask`` masks every pixel).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -1,5 +1,6 @@
 """nunif_tpu_torch checkpoints, weight layout and tile grid against the JAX
 package, plus the port's import isolation."""
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import ast
 import os
 import pathlib

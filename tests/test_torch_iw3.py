@@ -15,6 +15,7 @@ runs resolve JAX's ``jnp.bfloat16`` to fp32 in those three modules only
 and set the port's ``dtypes.IMAGE_DTYPE`` to fp32 (``fp32``); the port's
 depth network takes its compute dtype from ``DepthAnythingModel(dtype=...)``.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import types
 
 import numpy as np

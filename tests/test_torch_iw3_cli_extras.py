@@ -11,6 +11,7 @@ do.  The
 comparisons against JAX run both in fp32 (the port's depth model built
 fp32, ``patch_fp32``): uint8 >= 50 dB.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import os
 
 import numpy as np

@@ -10,6 +10,7 @@ frames >= 50 dB; bf16 nets: the port's error against JAX's fp32 output
 no larger than JAX's own bf16 error (max abs; slack 1.0); the quantiles,
 the crop slices, the PNG samples and the YAML text exactly.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import math
 import types
 

@@ -9,6 +9,7 @@ Both packages get the same seeded weights drawn with numpy in flax layout
 ``shaped_flax_params``), fp32 throughout (``patch_fp32``).  Frames >= 50
 dB, depth and convergences to 1e-4.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import types
 
 import numpy as np

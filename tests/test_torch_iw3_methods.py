@@ -12,6 +12,7 @@ Inputs and weights are drawn with numpy and given to both packages
 differ).  The warps run through K3's plain twin, as everything does on the
 CPU.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

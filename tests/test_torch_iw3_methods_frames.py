@@ -10,6 +10,7 @@ the same seeded weights, fp32 (both packages' hard-coded bf16 image casts
 resolved to fp32); every comparison first checks that >= 10% of the left
 eye's pixels moved.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

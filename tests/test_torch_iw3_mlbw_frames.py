@@ -4,6 +4,7 @@
 half-SBS, fp32, uint8 PSNR >= 50 dB (the check and its fixtures:
 tests/test_torch_iw3_methods_frames.py).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import pytest
 
 from test_torch_iw3_methods_frames import (  # noqa: F401  (fixtures)

@@ -4,6 +4,7 @@ dilation (the whole path: tests/test_torch_iw3.py).
 
 Inputs and weights are drawn with numpy and given to both packages.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,7 @@ Two behaviours diverge from the JAX processor on purpose:
   streaming caches) as well as the EMA; the JAX processor resets only the
   EMA.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

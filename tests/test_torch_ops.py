@@ -5,6 +5,7 @@ Pallas kernels run in interpret mode on the CPU, as the JAX package's own
 kernel tests run them; the port runs its plain PyTorch twins, which the
 kernel wrappers take for CPU tensors.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ the last test here records the reference's behaviour.
 The non-sRGB profile is built inside the test: lcms's sRGB with its
 parametric tone curve replaced by a linear one (gamma 1).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import io
 import struct
 

@@ -10,6 +10,7 @@ compilation cache; the fixture puts both settings back at once, since
 other test files share the process.  Inputs are made with numpy from a
 seed, as the tools draw them (uniform bf16, int8 in [-127, 127)).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import functools
 import importlib.util
 import pathlib

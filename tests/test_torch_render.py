@@ -6,6 +6,7 @@ Both packages get the same seeded "tamed" weights (numpy), as in
 tests/test_torch_swin_unet.py: at default random init swin_unet is chaotic
 and a comparison would compare noise.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

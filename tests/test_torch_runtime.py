@@ -9,6 +9,7 @@ Each repair is a behaviour the port has and the JAX package does not:
 The bundled turbo checkpoints load (tests/test_torch_waifu2x_image.py holds
 them and the rest of the image path against the JAX package).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import math
 
 import numpy as np
@@ -94,8 +95,9 @@ def test_convert_and_render(model_dir):
 
 def test_convert_unported_options_raise(model_dir):
     """Bad options raise; TTA and a non-blank alpha, which raised before
-    they were ported, now run."""
-    w2x = Waifu2x(str(model_dir), device="cpu")
+    they were ported, now run (under FP32_POLICY: the test is about the
+    options, and bf16 convs are slow on the CPU)."""
+    w2x = Waifu2x(str(model_dir), policy=FP32_POLICY, device="cpu")
     x = np.zeros((20, 20, 3), np.float32)
     rgb, alpha = w2x.convert(x, method="scale", tta=True, tile_size=64)
     assert rgb.shape == (40, 40, 3) and alpha is None

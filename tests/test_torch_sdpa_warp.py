@@ -7,6 +7,7 @@ runs off the TPU, and the Pallas kernel in interpret mode (as
 ``tests/test_iw3_warp.py`` runs it).  The attention twin is held against
 JAX ``sdpa``, which off the TPU is ``_xla_sdpa``.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib
 
 import numpy as np

@@ -11,6 +11,7 @@ where the JAX detector ignores ``max_fps``.  Clips are lossless (utvideo,
 gbrp, .mkv) at 8 fps, whose pts both packages' retimers place exactly
 (tests/test_torch_video.py).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import os
 
 import numpy as np

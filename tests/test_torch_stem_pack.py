@@ -7,6 +7,7 @@ held to its documented index formula, the module's cache to its key, and
 the twin, which the wrapper takes for CPU tensors with or without a packed
 argument, to the JAX package's Pallas kernel in interpret mode.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

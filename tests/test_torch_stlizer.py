@@ -14,6 +14,7 @@ of the gather inside the envelope (tests/test_stlizer.py's bound: the bf16
 taps and the bilinear of a bilinear); ``LightOutpaintV1`` to 1e-4; video
 frames (lossless files) >= 50 dB.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ formula, unpacking it gives back the bf16 weights, the block module's cache
 to its key, and the twin fed with the weights read back from the pack to the
 JAX package's K1 / K5 Pallas kernels in interpret mode.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

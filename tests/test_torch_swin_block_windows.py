@@ -16,6 +16,7 @@ so single elements land one bf16 step apart either way.  The bound is
 JAX's bf16 error, RMS within 10% and max within one bf16 step of the
 largest output.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

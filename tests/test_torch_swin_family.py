@@ -8,6 +8,7 @@ Both packages get the same seeded "tamed" weights (numpy, see
 wiring rather than noise.  Models whose JAX class fixes ``base_dim`` (1x, 8x,
 downscaled) run at their full width of 96; the others at 32.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

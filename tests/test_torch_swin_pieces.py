@@ -18,6 +18,7 @@ of an fp32 sum taken in another order and its consequences: max abs error
 2^-6 (two bf16 steps at the outputs' O(2) magnitude) for bf16 variants and
 2^-5 for int8 ones, whose flipped xq moves a whole row's sums.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import functools
 import importlib.util
 import pathlib

@@ -7,6 +7,7 @@ the fc2 / attn.proj / to_image kernels are scaled down and the head bias
 lifted (``tamed_flax_params``), which keeps the output inside (0, 1).
 JAX parameters come from the port's flax-layout arrays, not from a JAX init.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

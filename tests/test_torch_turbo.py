@@ -8,6 +8,7 @@ round at the same points, conv then bias add, but sum in another order).
 An untrained turbo (zero second convs and tail, the JAX init) is the catrom
 upscale, held to a float64 numpy catrom to 1e-6.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ fp32 to 1e-4 (the JAX wrappers' bf16 casts resolved to fp32); bf16: the
 port's RMS error against JAX's fp32 output within 1.1x JAX's own bf16
 error, as tests/test_torch_depth.py holds Depth-Anything.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

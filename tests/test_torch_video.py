@@ -17,6 +17,7 @@ file's 1 ms pts, or i / 30 in floating point) duplicate one frame and drop
 a later one; the port's counts a pts within ``TICK_EPS`` of a tick as on
 it, and emits each frame once.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import os
 import threading
 import time

@@ -15,6 +15,7 @@ noise cannot equal ``jax.random``'s).  Decoded frames >= 50 dB.  One
 divergence on purpose: ``--depth 16`` reads a 16-bit source at 16 bits
 and the JAX CLI divides those samples by 255.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import os
 
 import numpy as np

@@ -7,6 +7,7 @@ Where the JAX package draws noise from ``jax.random``, both packages get the
 same numpy noise.  Tensors are held to 1e-6 (pure elementwise maths) or
 1e-4 (a model in fp32); uint8 frames to 50 dB.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import os
 import struct
 import zlib

@@ -16,6 +16,7 @@ step of the output (JAX's scale-only LayerNorm returns fp32 for a bf16
 input and so runs the rest of a v2 / wgmlp block in fp32, the port stays
 in bf16).
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

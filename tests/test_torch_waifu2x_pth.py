@@ -10,6 +10,7 @@ summed in another order).  The JAX model runs on the port's ``.nztm``
 cache of a ``.pth`` (written beside it, read back on the next load).
 swin_unet_v2 and wgmlp at base 32, swin_unet_2x at base 48.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import os
 
 import numpy as np
@@ -155,9 +156,10 @@ def test_port_cache_loads_in_jax_and_renders_the_same(case, tmp_path):
 
 
 def test_supported_names_are_jax_waifu2x_rows():
-    """The port imports every waifu2x name the JAX importer takes."""
-    assert supported_torch_models() == sorted(
-        n for n in jax_supported() if n.startswith("waifu2x."))
+    """The port imports every waifu2x name the JAX importer takes (the
+    other rows: tests/test_torch_pth_rows.py)."""
+    assert [n for n in supported_torch_models() if n.startswith("waifu2x.")] \
+        == sorted(n for n in jax_supported() if n.startswith("waifu2x."))
 
 
 def test_pth_without_envelope_or_importer_raises(tmp_path):

@@ -11,13 +11,19 @@ render in bf16, summing in other orders).  Two reference faults are not
 copied, each with a ``*_diverges_from_jax`` guard: the hub's silent
 fallback to the bundled models, and the web server's noise level taken
 from the flag only; a third guard holds the port's result cache keyed on
-the model, which the JAX server's is not.
+the model, which the JAX server's is not.  Two faults of the JAX server
+are repaired: its cache writers of one key share a temporary file, so
+concurrent puts raise, and ``POST /api`` renders its one model whatever
+noise level or scale the request names.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import argparse
 import io
 import json
 import logging
+import os
 import threading
+import types
 import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
@@ -490,3 +496,76 @@ def test_web_cache_dir_default_follows_tmpdir(monkeypatch, tmp_path):
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     args = web.create_parser().parse_args([])
     assert args.cache_dir == str(tmp_path / "waifu2x_web_cache")
+
+
+def test_api_noise_mismatch_diverges_from_jax(servers):
+    """A request for noise 3 (or scale 4) to a server whose model is the
+    scale2x one: the JAX server answers 200 with the scale2x render; the
+    port answers 400, as its tile API does, and renders nothing.  A request
+    that names the model's own conversion, or none, still renders."""
+    data = png_bytes(16, 16, seed=11)
+    for bad in (dict(noise="3", scale="2"), dict(noise="-1", scale="4"),
+                dict(scale="1")):
+        port, jax_ = both(servers, post_image(data, **bad))
+        assert jax_[0] == 200, bad
+        assert port[0] == 400 and b"see /api/tile/info" in port[2], bad
+    for ok in (dict(noise="-1", scale="2"), {}):
+        assert_same_image_reply(*both(servers, post_image(data, **ok)))
+
+
+def _barrier_os(barrier):
+    """An ``os`` whose ``replace`` first waits for the other writer, so two
+    puts of one key reach their replace together."""
+    def replace(src, dst):
+        barrier.wait(timeout=30)
+        return os.replace(src, dst)
+    proxy = types.SimpleNamespace(**{k: getattr(os, k) for k in dir(os)
+                                     if not k.startswith("__")})
+    proxy.replace = replace
+    return proxy
+
+
+def test_disk_cache_concurrent_put_diverges_from_jax(monkeypatch, tmp_path):
+    """Two threads put one key and reach the rename together: in the JAX
+    cache both wrote the one ``<key>.tmp`` and the second rename raises
+    FileNotFoundError; in the port each has its own temporary file and
+    both succeed.  Then eight threads put one key 25 times each with
+    payloads of other lengths: no call raises, the entry reads back whole
+    (one payload, not a mix) and no temporary file is left."""
+    errors = {}
+    for pkg, mod in (("jax", jweb), ("port", web)):
+        cache = mod.DiskCache(str(tmp_path / pkg))
+        monkeypatch.setattr(mod, "os", _barrier_os(threading.Barrier(2)))
+        errors[pkg] = []
+
+        def put(i, cache=cache, errs=errors[pkg]):
+            try:
+                cache.put("k", bytes([i]) * 100_000)
+            except OSError as e:
+                errs.append(type(e).__name__)
+        threads = [threading.Thread(target=put, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        monkeypatch.setattr(mod, "os", os)
+    assert errors == {"jax": ["FileNotFoundError"], "port": []}
+
+    cache = web.DiskCache(str(tmp_path / "stress"))
+    payloads = [bytes([i]) * (50_000 + 997 * i) for i in range(8)]
+    failed = []
+
+    def hammer(i):
+        for _ in range(25):
+            try:
+                cache.put("one key", payloads[i])
+            except Exception as e:  # noqa: BLE001
+                failed.append(repr(e))
+    threads = [threading.Thread(target=hammer, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not failed
+    assert cache.get("one key") in payloads
+    assert os.listdir(tmp_path / "stress") == [os.path.basename(cache._path("one key"))]

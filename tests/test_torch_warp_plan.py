@@ -10,6 +10,7 @@ card.  On the card (this file imports no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_warp_plan.py
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 import pathlib
 import re

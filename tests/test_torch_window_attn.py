@@ -14,6 +14,7 @@ bf16 tests hold the port's bf16 output to JAX's (fp32) output within the
 port's own bf16-vs-fp32 error, and assert JAX's dtype, so that a change of
 the reference is noticed.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

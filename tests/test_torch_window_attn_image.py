@@ -7,6 +7,7 @@ JAX Pallas kernel runs in interpret mode, the port its plain twin (the K6
 wrapper takes it for CPU tensors).  Tolerance: fp32 2e-5, the JAX
 package's own bound for its window-attention kernels.
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import numpy as np
 import pytest
 import torch

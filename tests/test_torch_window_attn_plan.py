@@ -13,6 +13,7 @@ columns a block stages), and the wrappers' bias check runs.  On the card:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_window_attn_plan.py
 """
+import torch_threads  # noqa: F401  (one xdist worker's share of the cores)
 import importlib.util
 import pathlib
 import re
