@@ -169,7 +169,32 @@ written by the port:
   CLI's defaults and swin_unet_2x (K1 14, K2 1 a frame); K3 in
   SuperPoint's two-pass warp on (8, 1080, 1920, 3) fp32 against its twin
   and the gather, timed beside its bytes bound and ``F.grid_sample``;
-  ``find_transform`` on the card; the HDR tone map against the CPU.
+  ``find_transform`` on the card; the HDR tone map against the CPU;
+- imagenet ("imagenet"): swin_t at batch 64, 224 px, bf16, from a
+  ``.nztm`` of seeded weights: exactly 12 K4 launches a forward, the
+  logits against the same forward on K4's twin (K4's bf16 tolerance) with
+  the top-1 agreement, images a second (min and median of 5 forwards after
+  a warm one); vgg11 at batch 64 in bf16 (finite logits, images a second)
+  and at batch 2 in fp32 against the port's fp32 forward on the CPU;
+- the entry points ("entry points"): ``python -m nunif_tpu_torch.waifu2x``
+  and ``python -m nunif_tpu_torch.iw3`` in child processes (seeded
+  swin_unet_2x; Any_V2_S + row_flow_v3), each output equal to
+  ``cli.main``'s; ``python -m nunif_tpu_torch.cli.i2i`` on a swin_unet_2x
+  ``.nztm`` and a 1080p PNG, its K1 / K2 launches counted in the child
+  (14 / 1 a forward pass) and its PNG against the renderer;
+  ``count_parameters``, ``merge_model`` and ``show_train_args`` on that
+  file;
+- export ("export"): swin_unet_2x exported at tile 256, batch 4 (a
+  ``torch.export`` program whose graph calls K1 and K2 as custom ops),
+  loaded and run on the card in a child that imports only
+  ``nunif_tpu_torch.models.export``: K1 14, K2 1 launches, output equal to
+  the eager model's;
+- the GUI ("gui"): an in-process ``GuiService`` with seeded slots
+  (swin_unet_2x; Any_V2_S + row_flow_v3), a waifu2x job and an iw3 job on
+  a 1080p PNG over HTTP with progress read from ``/api/progress``: each
+  PNG equal to the direct ``Waifu2x.convert`` / ``process_image`` call,
+  the launches of each job exact (K1 14 / K2 1 a forward pass; K7 12, K3
+  1), the job's decode / render / encode seconds.
 
 Every kernel is timed with CUDA events in turns (plain, kernel, library,
 library, kernel, plain) beside its twin and, where one PyTorch call computes
@@ -243,7 +268,7 @@ T4_RTOL = 1e-3
 # dim 32): (C, H = W, shift); then one window-8 shape (C, H = W, shift,
 # batch).  swin_t's stages hold 2, 2, 6 and 2 blocks, half of them shifted,
 # except the 7x7 stage, which drops its shift (shift 3 there is a kernel
-# check only); swin_t is not ported, so no forward pass runs here.
+# check only); the "imagenet" phase runs the forward pass.
 SWIN_T = ((96, 56, 0), (96, 56, 3), (192, 28, 0), (192, 28, 3),
           (384, 14, 0), (384, 14, 3), (768, 7, 0), (768, 7, 3))
 SWIN_T_BATCH = 64
@@ -258,8 +283,11 @@ def fail(msg: str):
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def sh(cmd) -> str:
@@ -3190,6 +3218,12 @@ def torch_sync():
         torch.cuda.synchronize()
 
 
+def torch_empty_cache():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def video_phase(torch, dev, k3, k7, kernels, smi, hw=(1080, 1920), cli_extra=(),
                 libav=None, resolution=None):
     """The "video" phase (see the module docstring); k3 / k7 are the
@@ -3963,6 +3997,515 @@ def profile_frame(torch, program, frame, top=12, share_of=None):
     return total / 1e3
 
 
+# ---- imagenet, entry points, export and the GUI (the module entry points,
+# the generic CLI tools, model export and the browser GUI)
+
+SWIN_T_K4 = 12  # K4 launches a swin_t forward: one a block, 2 + 2 + 6 + 2
+IMAGENET_BATCH, IMAGENET_HW = 64, 224
+IMAGENET_RUNS = 5  # timed forwards after a warm one
+# vgg11 on the card in fp32 (TF32 off) against the port's fp32 forward on
+# the CPU: cuDNN's convolutions and the 25088-long fc0 sum in another order
+VGG_REL_ATOL = 1e-3  # of the largest |logit|
+# the child that runs a module as ``python -m`` does (runpy, as __main__)
+# and prints the kernel counters of its run as the last line
+RUN_COUNTED = """
+import json, runpy, sys
+from nunif_tpu_torch.ops import conv3x3, swin_attention, sdpa
+from nunif_tpu_torch.modules import grid_sample
+module = sys.argv[1]
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    if e.code:
+        raise
+print(json.dumps({
+    "stem_conv3x3": conv3x3.stem_conv3x3.launches,
+    "fused_swin_block_image": swin_attention.fused_swin_block_image.launches,
+    "fused_window_attention": swin_attention.fused_window_attention.launches,
+    "sdpa": sdpa.sdpa.launches,
+    "warp_x_bounded": grid_sample.warp_x_bounded.launches}))
+"""
+# the export phase's child: loads the program with nothing of the port but
+# models.export, runs it on the card, prints counts and times
+EXPORT_CHILD = """
+import json, sys, time
+import numpy as np, torch
+from nunif_tpu_torch.models.export import ExportedModel
+from nunif_tpu_torch.ops import conv3x3, swin_attention
+path, x_path, y_path = sys.argv[1:4]
+m = ExportedModel(path)
+x = torch.from_numpy(np.load(x_path)).to(m.device)
+sync = torch.cuda.synchronize if m.device.type == "cuda" else (lambda: None)
+m(x)
+sync()
+conv3x3.stem_conv3x3.launches = 0
+swin_attention.fused_swin_block_image.launches = 0
+y = m(x)
+sync()
+counts = {"stem_conv3x3": conv3x3.stem_conv3x3.launches,
+          "fused_swin_block_image": swin_attention.fused_swin_block_image.launches}
+ms = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    m(x)
+    sync()
+    ms.append((time.perf_counter() - t0) * 1e3)
+np.save(y_path, y.cpu().numpy())
+loaded = sorted(n for n in sys.modules if n.startswith("nunif_tpu_torch."))
+print(json.dumps({"launches": counts, "ms": ms, "modules": loaded,
+                  "kernel_ops": sorted(set(str(n.target).split(".")[1]
+                      for n in m.exported.graph.nodes
+                      if str(n.target).startswith("nunif_tpu_torch.")))}))
+"""
+EXPORT_TILE, EXPORT_BATCH = 256, 4
+W2X_ENTRY_HW = (540, 960)  # the module entry points' image (out: 1080p)
+I2I_HW = GUI_HW = (1080, 1920)
+
+
+def spawn(args):
+    """Start a child process from the repository root."""
+    return subprocess.Popen(args, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish(proc, what, timeout=600):
+    """A spawned child's stdout, or fail with its stderr's end."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode:
+        fail(f"{what}: rc {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def child(args, what, timeout=600):
+    """Run a child process from the repository root: its stdout."""
+    return finish(spawn(args), what, timeout)
+
+
+def timed_runs(torch, fn, runs):
+    """Wall ms of ``runs`` calls of fn() each ended by a synchronise, after
+    a warm call."""
+    fn()
+    torch_sync()
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch_sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def imagenet_phase(torch, dev, k4, smi, work_dir):
+    """swin_t at batch 64, 224 px, bf16, from a .nztm of seeded weights:
+    K4's launches a forward (exactly 12), the logits against the same
+    forward with K4's twin at K4's bf16 tolerance and the top-1 agreement,
+    images a second (min and median of 5 forwards after a warm one); vgg11
+    at batch 64 in bf16 (finite logits, images a second) and at batch 2 in
+    fp32 against the port's fp32 forward on the CPU."""
+    from nunif_tpu_torch.imagenet.models import SwinT, VGG11
+    from nunif_tpu_torch.models import from_flax, load_model, save_model
+    out = {}
+    cpu_model = SwinT()
+    from_flax(cpu_model, serving_flax(cpu_model, seed=5))
+    path = os.path.join(work_dir, "swin_t.nztm")
+    save_model(cpu_model, path)
+    del cpu_model
+    model, meta = load_model(path, device=dev)
+    if meta["name"] != "imagenet.swin_t":
+        fail(f"swin_t checkpoint meta {meta['name']}")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.rand((IMAGENET_BATCH, IMAGENET_HW, IMAGENET_HW, 3), generator=gen,
+                   device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        k4.fused_window_attention.launches = 0
+        y = model(x)
+        torch_sync()
+        launches = k4.fused_window_attention.launches
+        if launches != SWIN_T_K4:
+            fail(f"swin_t forward launched K4 {launches} times, not {SWIN_T_K4}")
+        if tuple(y.shape) != (IMAGENET_BATCH, 1000) or not bool(y.isfinite().all()):
+            fail(f"swin_t logits {tuple(y.shape)} not finite")
+        with twins((k4, "fused_window_attention")):
+            y_twin = model(x)
+        err, rel_l2 = check_close(y, y_twin, K4_TOL["bfloat16"],
+                                  "swin_t logits, K4 against its twin")
+        top1 = float((y.float().argmax(-1) == y_twin.float().argmax(-1)).float().mean())
+        ms = timed_runs(torch, lambda: model(x), IMAGENET_RUNS)
+    ips = [IMAGENET_BATCH * 1e3 / t for t in ms]
+    out["swin_t"] = dict(batch=IMAGENET_BATCH, hw=IMAGENET_HW, dtype="bfloat16",
+                         k4_launches=launches, max_abs_err_vs_twin=err,
+                         rel_l2_vs_twin=rel_l2, top1_agreement=top1,
+                         logit_absmax=float(y.float().abs().max()),
+                         forward_ms=ms, images_per_s_max=max(ips),
+                         images_per_s_median=statistics.median(ips))
+    print(f"swin_t batch {IMAGENET_BATCH} x {IMAGENET_HW} bf16: K4 {launches} a "
+          f"forward; vs K4's twin max abs err {err:.3g} rel-L2 {rel_l2:.3g}, "
+          f"top-1 agreement {top1:.4f}; forward median "
+          f"{statistics.median(ms):.2f} ms (min {min(ms):.2f}): "
+          f"{statistics.median(ips):.1f} images/s median, {max(ips):.1f} best "
+          f"({smi})", flush=True)
+    del model, x, y, y_twin
+    torch_empty_cache()
+
+    cpu_vgg = VGG11()
+    from_flax(cpu_vgg, vgg_flax(cpu_vgg, seed=6))
+    cpu_vgg.eval().requires_grad_(False)
+    vgg = VGG11()
+    vgg.load_state_dict(cpu_vgg.state_dict())
+    vgg = vgg.to(dev).eval().requires_grad_(False)
+    x = torch.rand((IMAGENET_BATCH, IMAGENET_HW, IMAGENET_HW, 3), generator=gen,
+                   device=dev)
+    with torch.inference_mode():
+        xb = x.to(torch.bfloat16)
+        yb = vgg(xb)
+        torch_sync()
+        if tuple(yb.shape) != (IMAGENET_BATCH, 1000) or not bool(yb.isfinite().all()):
+            fail(f"vgg11 bf16 logits {tuple(yb.shape)} not finite")
+        ms_v = timed_runs(torch, lambda: vgg(xb), IMAGENET_RUNS)
+        y2 = vgg(x[:2]).cpu()
+        want = cpu_vgg(x[:2].cpu())
+    scale = float(want.abs().max())
+    verr = float((y2 - want).abs().max())
+    if not verr <= VGG_REL_ATOL * scale:
+        fail(f"vgg11 fp32 on the card vs the CPU: max abs err {verr} > "
+             f"{VGG_REL_ATOL} x {scale}")
+    ips_v = [IMAGENET_BATCH * 1e3 / t for t in ms_v]
+    out["vgg11"] = dict(batch=IMAGENET_BATCH, forward_ms_bf16=ms_v,
+                        images_per_s_median=statistics.median(ips_v),
+                        images_per_s_max=max(ips_v), fp32_max_abs_err_vs_cpu=verr,
+                        logit_absmax=scale)
+    print(f"vgg11 batch {IMAGENET_BATCH} bf16: forward median "
+          f"{statistics.median(ms_v):.2f} ms ({statistics.median(ips_v):.1f} "
+          f"images/s); fp32 batch 2 vs CPU max abs err {verr:.3g} (|logit| <= "
+          f"{scale:.3g}, limit {VGG_REL_ATOL} of it) ({smi})", flush=True)
+    del vgg, cpu_vgg, x, xb, yb
+    torch_empty_cache()
+    return out
+
+
+def vgg_flax(model, seed):
+    """Seeded VGG11 weights: He-normal kernels (so the logits stay O(1)
+    through 11 layers), running variances in [0.5, 2), the rest small."""
+    from nunif_tpu_torch.models import to_flax
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, ref in to_flax(model).items():
+        if key.endswith("kernel"):
+            a = rng.standard_normal(ref.shape) * np.sqrt(2.0 / np.prod(ref.shape[:-1]))
+        elif key.endswith("/var"):
+            a = rng.uniform(0.5, 2.0, ref.shape)
+        else:
+            a = rng.normal(0.0, 0.1, ref.shape) + key.endswith("scale")
+        flat[key] = np.asarray(a, np.float32)
+    return flat
+
+
+def seeded_w2x_dir(torch, work_dir):
+    """A model directory whose ``scale2x.nztm`` is a tamed swin_unet_2x."""
+    from nunif_tpu_torch.models import from_flax, save_model
+    from nunif_tpu_torch.waifu2x.models.swin_unet import (SwinUNet2x,
+                                                          tamed_flax_params)
+    d = os.path.join(work_dir, "w2x_models")
+    os.makedirs(d, exist_ok=True)
+    m = SwinUNet2x()
+    from_flax(m, tamed_flax_params(m, seed=0))
+    save_model(m, os.path.join(d, "scale2x.nztm"), train_kwargs={"seed": 0})
+    return d
+
+
+def render_forwards(model, hw, tile_size, batch_size):
+    """Forward passes of a TiledRenderer render of an hw image."""
+    from nunif_tpu_torch.utils.tiling import TiledRenderer, make_tile_config
+    r = TiledRenderer(model)
+    tile_hw = r._tile_hw(tile_size)
+    cfg = make_tile_config(hw[0], hw[1], model.i2i_scale, model.i2i_offset,
+                           tile_hw, model.i2i_blend_size)
+    batch = int(batch_size or model.i2i_default_batch_size)
+    return -(-cfg.n_tiles // batch)
+
+
+def entry_points_phase(torch, dev, k1, k2, smi, work_dir):
+    """``python -m nunif_tpu_torch.waifu2x`` and ``... .iw3`` (seeded
+    checkpoints, --device cuda) against ``cli.main`` on the same input;
+    ``python -m nunif_tpu_torch.cli.i2i`` on a swin_unet_2x .nztm and a
+    1080p PNG with its K1 / K2 launches (exact: 14 / 1 a forward pass);
+    count_parameters, merge_model and show_train_args on that file."""
+    from PIL import Image
+    from nunif_tpu_torch.cli import count_parameters, merge_model, show_train_args
+    from nunif_tpu_torch.iw3 import cli as iw3_cli_mod
+    from nunif_tpu_torch.models import load_model, read_checkpoint
+    from nunif_tpu_torch.waifu2x import cli as w2x_cli
+    out = {}
+    d = seeded_w2x_dir(torch, work_dir)
+    swin_file = os.path.join(d, "scale2x.nztm")
+    src = os.path.join(work_dir, "entry_in.png")
+    Image.fromarray(structured_frame(*W2X_ENTRY_HW, 30)).save(src)
+
+    def same_png(a, b, what):
+        with Image.open(a) as ia, Image.open(b) as ib:
+            pa, pb = np.asarray(ia), np.asarray(ib)
+        if pa.shape != pb.shape or not np.array_equal(pa, pb):
+            fail(f"{what}: python -m output {pa.shape} differs from cli.main's "
+                 f"{pb.shape} (max diff {np.abs(pa.astype(int) - pb).max()})")
+        return pa.shape
+
+    # the three children (start-up is most of their time) run at once,
+    # beside the in-process calls they are held against
+    w2x_argv = ["-i", src, "--method", "scale", "--model-dir", d,
+                "--device", dev.type]
+    iw3_dir = os.path.join(work_dir, "iw3_models")
+    os.makedirs(iw3_dir, exist_ok=True)
+    iw3_models(torch, dev, iw3_dir)
+    iw3_argv = ["-i", src, "--half-sbs", "--device", dev.type,
+                "--depth-checkpoint", os.path.join(iw3_dir, "depth_any_v2_s.nztm"),
+                "--stereo-checkpoint", os.path.join(iw3_dir, "row_flow_v3.nztm")]
+    big = os.path.join(work_dir, "i2i_in.png")
+    Image.fromarray(structured_frame(*I2I_HW, 31)).save(big)
+    t0 = time.perf_counter()
+    procs = {
+        "waifu2x": spawn([sys.executable, "-m", "nunif_tpu_torch.waifu2x",
+                          *w2x_argv, "-o", os.path.join(work_dir, "waifu2x_m.png")]),
+        "iw3": spawn([sys.executable, "-m", "nunif_tpu_torch.iw3", *iw3_argv,
+                      "-o", os.path.join(work_dir, "iw3_m.png")]),
+        "i2i": spawn([sys.executable, "-c", RUN_COUNTED, "nunif_tpu_torch.cli.i2i",
+                      "-m", swin_file, "-i", big, "-o",
+                      os.path.join(work_dir, "i2i.png"), "--device", dev.type])}
+    w2x_cli.main(w2x_argv + ["-o", os.path.join(work_dir, "waifu2x_c.png")])
+    iw3_cli_mod.main(iw3_argv + ["-o", os.path.join(work_dir, "iw3_c.png")])
+    stdout = {k: finish(p, f"python -m ({k})") for k, p in procs.items()}
+    children_s = time.perf_counter() - t0
+    for app in ("waifu2x", "iw3"):
+        out[app] = {"out_shape": list(same_png(
+            os.path.join(work_dir, f"{app}_m.png"),
+            os.path.join(work_dir, f"{app}_c.png"), app))}
+    counts = json.loads(stdout["i2i"].strip().splitlines()[-1])
+    model, _meta = load_model(swin_file, device=dev)
+    forwards = render_forwards(model, I2I_HW, None, None)
+    want = {"stem_conv3x3": forwards, "fused_swin_block_image": 14 * forwards}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"i2i launches {counts}, expected {want}")
+    from nunif_tpu_torch.utils.pil_io import load_image
+    from nunif_tpu_torch.utils.tiling import TiledRenderer
+    x, _ = load_image(big)
+    ref = TiledRenderer(model).render(torch.from_numpy(x[..., :3]).to(dev))
+    ref = (ref.clamp(0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+    with Image.open(os.path.join(work_dir, "i2i.png")) as im:
+        got_px = np.array(im)
+    p = uint8_psnr(torch.from_numpy(got_px), torch.from_numpy(ref))
+    if got_px.shape != (2 * I2I_HW[0], 2 * I2I_HW[1], 3) or p < FRAME_PSNR_MIN:
+        fail(f"i2i output {got_px.shape}, PSNR {p} against the renderer")
+    out["i2i"] = {"launches": counts, "forwards": forwards,
+                  "psnr_vs_renderer": p}
+    out["children_wall_s"] = children_s
+    print(f"i2i 1080p -> 4K (python -m, swin_unet_2x): launches {got} "
+          f"({forwards} forward passes); PSNR vs the renderer {p:.2f} dB "
+          f"({smi})", flush=True)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        count_parameters.main(["-m", swin_file, "--device", dev.type])
+        show_train_args.main(["-m", swin_file])
+    text = buf.getvalue()
+    total = sum(a.size for a in read_checkpoint(swin_file)[1].values())
+    if not text.startswith(f"waifu2x.swin_unet_2x: {total:,} parameters") \
+            or '"train_kwargs": {\n    "seed": 0\n  }' not in text:
+        fail(f"count_parameters / show_train_args printed {text[:300]!r}")
+    merged = os.path.join(work_dir, "merged.nztm")
+    with contextlib.redirect_stderr(io.StringIO()):
+        merge_model.main(["-i", swin_file, swin_file, "-o", merged])
+    a, b = read_checkpoint(swin_file)[1], read_checkpoint(merged)[1]
+    if sorted(a) != sorted(b) or not all(np.array_equal(a[k], b[k]) for k in a):
+        fail("merge_model of a file with itself changed its parameters")
+    out["tools"] = {"parameters": total}
+    print(f"entry points: python -m waifu2x / iw3 equal to cli.main; the "
+          f"three children {children_s:.1f} s at once, start-up included; "
+          f"count_parameters {total:,}, show_train_args, merge_model ran",
+          flush=True)
+    del model
+    torch_empty_cache()
+    return out, d
+
+
+def export_phase(torch, dev, k1, k2, smi, work_dir, w2x_dir):
+    """swin_unet_2x exported at tile 256, batch 4 (bf16, weights in
+    params.npz), loaded and run on the card in a child process that imports
+    only ``nunif_tpu_torch.models.export``: its K1 / K2 launches (14 / 1)
+    and its output against the eager model's, which must be equal."""
+    from nunif_tpu_torch.models import load_model
+    from nunif_tpu_torch.models.export import export_model, kernel_ops
+    model, _meta = load_model(os.path.join(w2x_dir, "scale2x.nztm"), device=dev)
+    path = os.path.join(work_dir, "swin_unet_2x.pt2")
+    shape = (EXPORT_BATCH, EXPORT_TILE, EXPORT_TILE, 3)
+    t0 = time.perf_counter()
+    program = export_model(model, path, shape)
+    export_s = time.perf_counter() - t0
+    ops = kernel_ops(program)
+    if ops != ["stem_conv3x3"] + ["fused_swin_block_image"] * 14:
+        fail(f"exported graph's kernel ops {ops}")
+    # each kernel node reads its packed weights from the program's inputs
+    # (layouts.pt2 makes them at load), so a call packs nothing
+    packs = [n.args[11] if "swin" in str(n.target) else n.args[3]
+             for n in program.graph.nodes
+             if str(n.target).startswith("nunif_tpu_torch.")]
+    if not all(p and all(a.op == "placeholder" for a in p) for p in packs):
+        fail("the exported program packs its kernels' weights on every call")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.rand(shape, generator=gen, device=dev)
+    np.save(os.path.join(work_dir, "export_x.npy"), x.cpu().numpy())
+    res = json.loads(child(
+        [sys.executable, "-c", EXPORT_CHILD, path,
+         os.path.join(work_dir, "export_x.npy"),
+         os.path.join(work_dir, "export_y.npy")], "exported program"
+    ).strip().splitlines()[-1])
+    if any(n.split(".")[1] in ("waifu2x", "iw3", "imagenet") for n in res["modules"]):
+        fail(f"the export child imported model modules: {res['modules']}")
+    if res["launches"] != {"stem_conv3x3": 1, "fused_swin_block_image": 14}:
+        fail(f"exported program launches {res['launches']}")
+    with torch.inference_mode():
+        k1.fused_swin_block_image.launches = k2.stem_conv3x3.launches = 0
+        want = model(x.to(torch.bfloat16)).float()
+        torch_sync()
+        eager_launches = (k2.stem_conv3x3.launches,
+                          k1.fused_swin_block_image.launches)
+        eager_ms = timed_runs(torch, lambda: model(x.to(torch.bfloat16)).float(), 5)
+    got = torch.from_numpy(np.load(os.path.join(work_dir, "export_y.npy"))).to(dev)
+    diff = float((got - want).abs().max())
+    if tuple(got.shape) != tuple(want.shape) or diff != 0.0:
+        fail(f"exported program vs eager: shape {tuple(got.shape)} / "
+             f"{tuple(want.shape)}, max abs diff {diff}")
+    out = {"export_s": export_s, "launches": res["launches"],
+           "eager_launches": eager_launches, "max_abs_diff_vs_eager": diff,
+           "program_ms": res["ms"], "eager_ms": eager_ms,
+           "kernel_ops": res["kernel_ops"],
+           "file_bytes": os.path.getsize(path)}
+    print(f"export swin_unet_2x {shape} bf16: traced and saved in {export_s:.1f} s "
+          f"({out['file_bytes']} bytes); the child's run launched "
+          f"{res['launches']}; vs eager max abs diff {diff}; program median "
+          f"{statistics.median(res['ms']):.2f} ms, eager "
+          f"{statistics.median(eager_ms):.2f} ms a batch ({smi})", flush=True)
+    del model, program, x, got, want
+    torch_empty_cache()
+    return out
+
+
+def gui_phase(torch, dev, k1, k2, k3, k7, smi, work_dir, w2x_dir):
+    """An in-process ``GuiService`` on the card with seeded slots
+    (swin_unet_2x for waifu2x; Any_V2_S and row_flow_v3 for iw3), served on
+    127.0.0.1: a waifu2x job and an iw3 job on a 1080p PNG over HTTP, the
+    progress read from /api/progress, each result PNG equal to the direct
+    ``Waifu2x.convert`` / ``process_image`` call on the decoded image, the
+    kernels' launches a job and its decode / render / encode split."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from PIL import Image
+    from nunif_tpu_torch.gui import server
+    from nunif_tpu_torch.iw3.composition import StereoFormat
+    from nunif_tpu_torch.iw3.pipeline import StereoConfig, process_image
+    from nunif_tpu_torch.waifu2x.hub import Waifu2xImageModel
+    os.environ["NUNIF_TPU_GUI_DIR"] = os.path.join(work_dir, "gui_settings")
+    service = server.GuiService(lang="en", device=dev)
+    service._w2x = Waifu2xImageModel(model_dir=w2x_dir, device=dev)
+    iw3_dir = os.path.join(work_dir, "iw3_models")
+    dm, flow = iw3_models(torch, dev, iw3_dir)
+    service._iw3 = ("Any_V2_S", dm)
+    service._side["row_flow_v3"] = flow
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(service))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    kernels = {"stem_conv3x3": k2.stem_conv3x3,
+               "fused_swin_block_image": k1.fused_swin_block_image,
+               "sdpa": k7.sdpa, "warp_x_bounded": k3.warp_x_bounded}
+    png = png_bytes(structured_frame(*GUI_HW, 40))
+    x = torch.from_numpy(np.asarray(Image.open(io.BytesIO(png)).convert("RGB"),
+                                    np.float32) / 255.0).to(dev)
+    b = "guiboundary"
+
+    def run_job(kind, fields):
+        body = b"".join(
+            [f"--{b}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
+             f"{v}\r\n".encode() for k, v in fields.items()]
+            + [f"--{b}\r\nContent-Disposition: form-data; name=\"file\"; "
+               f"filename=\"in.png\"\r\nContent-Type: image/png\r\n\r\n".encode(),
+               png, f"\r\n--{b}--\r\n".encode()])
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"{url}/api/{kind}", data=body,
+            headers={"Content-Type": f"multipart/form-data; boundary={b}"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            job_id = json.loads(r.read())["job_id"]
+        events = []
+        with urllib.request.urlopen(f"{url}/api/progress?job={job_id}",
+                                    timeout=600) as r:
+            for line in r:
+                if line.startswith(b"data: "):
+                    events.append(json.loads(line[6:]))
+                    if events[-1]["done"]:
+                        break
+        with urllib.request.urlopen(f"{url}/api/result/{job_id}", timeout=600) as r:
+            status, result = r.status, r.read()
+        wall = time.perf_counter() - t0
+        torch_sync()
+        launches = {name: k.launches for name, k in kernels.items()}
+        if status != 200 or events[-1].get("error") or not events[-1]["done"]:
+            fail(f"gui {kind} job: status {status}, last event {events[-1]}")
+        px = np.asarray(Image.open(io.BytesIO(result)))
+        return px, launches, wall, service.get_job(job_id).times, events
+
+    out = {}
+    try:
+        for run in range(2):  # the first warms the slots
+            px, launches, wall, times, events = run_job(
+                "waifu2x", {"method": "scale", "noise_level": "0"})
+        with torch.inference_mode():
+            want = service._w2x.w2x.convert(x, None, method="scale")[0]
+        want = server.quantize_u8(want.cpu().numpy())
+        if px.shape != want.shape or not np.array_equal(px, want):
+            fail(f"gui waifu2x PNG {px.shape} differs from Waifu2x.convert "
+                 f"{want.shape}")
+        model = service._w2x.w2x.load_model("scale", None)[0]
+        fw = render_forwards(model, GUI_HW, None, None)
+        expect = {"stem_conv3x3": fw, "fused_swin_block_image": 14 * fw,
+                  "sdpa": 0, "warp_x_bounded": 0}
+        if launches != expect:
+            fail(f"gui waifu2x job launches {launches}, expected {expect}")
+        out["waifu2x"] = {"launches": launches, "wall_s": wall, "times_s": times,
+                          "progress": [e["desc"] for e in events]}
+        for run in range(2):
+            px, launches, wall, times, events = run_job(
+                "iw3", {"method": "row_flow_v3", "divergence": "2.0",
+                        "convergence": "0.5", "stereo_format": "half_sbs",
+                        "depth_model": "Any_V2_S"})
+        cfg = StereoConfig(method="row_flow_v3", divergence=2.0, convergence=0.5,
+                           format=StereoFormat.from_name("half_sbs"))
+        want = process_image(x, cfg, dm, side_model=flow)
+        want = server.quantize_u8(want.float().cpu().numpy())
+        if px.shape != want.shape or not np.array_equal(px, want):
+            fail(f"gui iw3 PNG {px.shape} differs from process_image {want.shape}")
+        expect = {"stem_conv3x3": 0, "fused_swin_block_image": 0, "sdpa": 12,
+                  "warp_x_bounded": 1}
+        if launches != expect:
+            fail(f"gui iw3 job launches {launches}, expected {expect}")
+        out["iw3"] = {"launches": launches, "wall_s": wall, "times_s": times,
+                      "progress": [e["desc"] for e in events]}
+    finally:
+        srv.shutdown()
+    for kind, r in out.items():
+        print(f"gui {kind} job 1080p PNG over HTTP: launches {r['launches']}; "
+              f"wall {r['wall_s']:.3f} s = " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in r["times_s"].items())
+              + f" + HTTP and queueing; PNG equal to the direct call ({smi})",
+              flush=True)
+    del service, dm, flow
+    torch_empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4539,6 +5082,28 @@ def main() -> int:
     print(f"video: {smi}; " + json.dumps(video), flush=True)
     video_launches = video_run_launches(video)
 
+    # 18. imagenet swin_t (12 K4 a forward) and vgg11 at batch 64, 224 px
+    new_dir = tempfile.TemporaryDirectory()
+    phase("imagenet")
+    imagenet = imagenet_phase(torch, dev, k4, smi, new_dir.name)
+    print(f"imagenet: {smi}; " + json.dumps(imagenet), flush=True)
+
+    # 19. python -m of both CLIs and of i2i (K1 / K2 counted), the tools
+    phase("entry points")
+    entry, w2x_dir = entry_points_phase(torch, dev, k1, k2, smi, new_dir.name)
+    print(f"entry points: {smi}; " + json.dumps(entry), flush=True)
+
+    # 20. swin_unet_2x exported, run in a child that imports only the loader
+    phase("export")
+    exported = export_phase(torch, dev, k1, k2, smi, new_dir.name, w2x_dir)
+    print(f"export: {smi}; " + json.dumps(exported), flush=True)
+
+    # 21. the browser GUI's waifu2x and iw3 jobs on a 1080p PNG over HTTP
+    phase("gui")
+    gui = gui_phase(torch, dev, k1, k2, k3, k7, smi, new_dir.name, w2x_dir)
+    print(f"gui: {smi}; " + json.dumps(gui), flush=True)
+    new_dir.cleanup()
+
     k1_bf16 = [r for r in k1_rows if r["dtype"] == "bfloat16"]
     # launches per frame of each K1 main-path shape; swin4's first block
     # (C = 192, with skip) is counted at the timed shape without skip
@@ -4610,8 +5175,8 @@ def main() -> int:
     t2_main = next(r for r in t2_runs if (r["C"], r["name"]) == (96, "P4"))
 
     def wide(label):
-        """K4 or K6 at the window-7 / window-8 shapes: kernel checks only,
-        since swin_t is not ported."""
+        """K4 or K6 at the window-7 / window-8 shapes (swin_t's stages
+        and one window-8 shape), each checked and timed alone."""
         return [dict((k, r[k]) for k in (
             "C", "HW", "window", "batch", "shift", "max_abs_err", "ms", "ms_b2b",
             "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share"))
@@ -4640,6 +5205,11 @@ def main() -> int:
          "video_launches": {run: n["stem_conv3x3"] for run, n in video_launches.items()},
          # each "waifu2x serving" server: its 4 requests, a tile, a TTA tile
          "serving_launches": serving_counts(serving, "stem_conv3x3"),
+         # python -m cli.i2i on a 1080p PNG, the exported program's batch,
+         # the GUI's waifu2x job on a 1080p PNG
+         "i2i_launches": entry["i2i"]["launches"]["stem_conv3x3"],
+         "export_launches": exported["launches"]["stem_conv3x3"],
+         "gui_launches": gui["waifu2x"]["launches"]["stem_conv3x3"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": k2_sum("ms"), "plain_ms": k2_sum("plain_ms"),
          "bound_ms": k2_sum("bound_ms"),
@@ -4651,6 +5221,9 @@ def main() -> int:
          "launches": launches["fused_swin_block_image"],
          "video_launches": {run: n["fused_swin_block_image"] for run, n in video_launches.items()},
          "serving_launches": serving_counts(serving, "fused_swin_block_image"),
+         "i2i_launches": entry["i2i"]["launches"]["fused_swin_block_image"],
+         "export_launches": exported["launches"]["fused_swin_block_image"],
+         "gui_launches": gui["waifu2x"]["launches"]["fused_swin_block_image"],
          "max_abs_err": max(r["max_abs_err"] for r in k1_bf16),
          "ms": k1_sum("ms"), "plain_ms": k1_sum("plain_ms"),
          "bound_ms": k1_sum("bound_ms"),
@@ -4677,6 +5250,8 @@ def main() -> int:
          # each "video" phase run; SuperPoint's two-pass warp at 1080p
          "video_launches": {run: n["warp_x_bounded"] for run, n in video_launches.items()},
          "two_pass": video["two_pass"],
+         # the GUI's iw3 job on a 1080p PNG
+         "gui_launches": gui["iw3"]["launches"]["warp_x_bounded"],
          "ms": k3_tm["kernel"], "plain_ms": k3_tm["plain"],
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": k3_tm["library"]},
@@ -4690,6 +5265,11 @@ def main() -> int:
          "bound_by": bound_by(k4_bf16, lambda r: K4_FRAME[
              (r["C"], r["H"], r["W"], r["shift"])]),
          "library_ms": k4_sum("library_ms"), "windows_7_8": wide("K4"),
+         # imagenet swin_t at batch 64 x 224 px, bf16: one forward's
+         # launches, its time and images a second
+         "swin_t_launches": imagenet["swin_t"]["k4_launches"],
+         "swin_t_forward_ms": imagenet["swin_t"]["forward_ms"],
+         "swin_t_images_per_s_median": imagenet["swin_t"]["images_per_s_median"],
          **window_extras(k4_bf16, k4_sum)},
         {"name": "sdpa", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/flash_attn.cu",
@@ -4725,6 +5305,7 @@ def main() -> int:
          # the desktop stream's shape: one frame, strided views
          "desktop_per_launch": k7_rows[1373, "strided", 1, 6],
          "video_launches": {run: n["sdpa"] for run, n in video_launches.items()},
+         "gui_launches": gui["iw3"]["launches"]["sdpa"],
          "depth_pro_tiles_per_launch": k7_rows[577, "strided", 35, 16],
          "zoe_any_per_launch": k7_rows[1401, "strided", IW3_BATCH, 16]},
         {"name": "fused_swin_block", "route": "cuda",

@@ -16,22 +16,12 @@ import os
 import shutil
 import sys
 
+from ..utils.files import listdir_images
+
 logger = logging.getLogger("nunif_tpu_torch.cliqa")
 
-# the image suffixes the JAX CLI lists (its training dataset's)
-IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
 ARCHS = {"jpeg": "cliqa.jpeg_quality", "noise": "cliqa.grain_noise_level",
          "resize": "cliqa.scale_factor"}
-
-
-def listdir_images(d):
-    """Image files under ``d``, recursively, sorted within each directory."""
-    out = []
-    for root, _dirs, files in os.walk(d):
-        for f in sorted(files):
-            if os.path.splitext(f)[1].lower() in IMAGE_EXTS:
-                out.append(os.path.join(root, f))
-    return out
 
 
 def create_parser():

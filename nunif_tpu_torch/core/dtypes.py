@@ -28,11 +28,12 @@ def cast_param(p: torch.Tensor, dtype: torch.dtype,
     weight in ``torch.channels_last``, so that cuDNN does not relayout it
     on every call).  Outside autograd the cast is made once per weight load
     (cached on the parameter, keyed by its storage and version), not on
-    every call."""
+    every call.  Under ``torch.export`` the cast is traced, not cached."""
     if p.dtype == dtype and (memory_format is None
                              or p.is_contiguous(memory_format=memory_format)):
         return p
-    if torch.is_grad_enabled() and p.requires_grad:
+    if (torch.is_grad_enabled() and p.requires_grad) \
+            or torch.compiler.is_compiling():
         p = p.to(dtype)
         return p if memory_format is None else p.contiguous(
             memory_format=memory_format)

@@ -63,6 +63,11 @@ class I2IBaseModel(Model):
         raise ValueError(f"no valid tile size >= {tile_size} for {type(self)}")
 
 
+class SoftmaxBaseModel(Model):
+    """Classification contract (``nunif_tpu/models/model.py:232``):
+    subclasses take ``num_classes`` and return logits."""
+
+
 # flax's lecun_normal draws a normal truncated at +-2 std and divides the
 # std by this factor so that the truncated draw keeps variance 1/fan_in
 _TRUNC_STD_CORRECTION = 0.87962566103423978
@@ -82,7 +87,8 @@ def _truncated_normal(shape, std: float, generator: torch.Generator):
 def init_flax_default(module: nn.Module, generator: torch.Generator):
     """Initialise like the JAX package's flax modules, by flax leaf name:
     lecun_normal kernels, zero biases and class tokens, unit LayerNorm
-    scales, 1e-5 LayerScale gammas (BEiT's ``gamma_1`` / ``gamma_2``: 0.1),
+    scales, zero means and unit variances of FrozenBatchNorm's running
+    statistics, 1e-5 LayerScale gammas (BEiT's ``gamma_1`` / ``gamma_2``: 0.1),
     N(0, 0.02) position embeddings, waifu2x's source residual at its
     nearest-neighbour kernel and a zero scale, truncated_normal(0.02)
     relative-position tables, truncated_normal(0.01) mask tokens, the
@@ -97,7 +103,7 @@ def init_flax_default(module: nn.Module, generator: torch.Generator):
         leaf = key.rsplit("/", 1)[-1]
         owner = module.get_submodule(name.rpartition(".")[0])
         if leaf in ("bias", "cls_token", "q_bias", "v_bias", "bn_bias",
-                    "scale_bias"):
+                    "scale_bias", "mean"):
             p.zero_()
         elif leaf == "resampling":
             p.copy_(owner.initial_resampling())
@@ -107,7 +113,7 @@ def init_flax_default(module: nn.Module, generator: torch.Generator):
             fan_in = p.shape[0] if leaf == "qkv_kernel" else owner.fan_in
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
             p.copy_(_truncated_normal(p.shape, std, generator))
-        elif leaf in ("scale", "proj_spatial_bias", "bn_scale"):
+        elif leaf in ("scale", "proj_spatial_bias", "bn_scale", "var"):
             p.fill_(1.0)
         elif leaf == "mask_bias":
             p.copy_(_truncated_normal(p.shape, 0.01, generator))

@@ -1,8 +1,8 @@
 """Upstream PyTorch state dicts -> the flax-named parameter tree that
 ``models.flax_params`` loads (the port's own copy of the converters of
 ``nunif_tpu/models/torch_convert.py``: depth, the iw3 stereo and inpaint
-nets, DepthAA, U2NETP, cliqa, stlizer's outpaint net and waifu2x; the
-port does not import it).
+nets, DepthAA, U2NETP, cliqa, stlizer's outpaint net, waifu2x and
+imagenet's vgg11_bn; the port does not import it).
 
 Works on numpy arrays or anything with ``.numpy()``.  Layout rules:
   Conv2d           (O, I, kh, kw) -> HWIO (kh, kw, I, O)
@@ -664,6 +664,34 @@ def convert_cunet(sd, scale: int = 1):
         "conv_bottom": conv2d(sd, "unet2.conv_bottom"),
     }
     return {"unet1": unet1, "unet2": unet2}
+
+
+def _bn_params(sd, prefix):
+    """torch BatchNorm2d -> FrozenBatchNorm params, running statistics
+    kept."""
+    return {"scale": _np(sd[_key(prefix, "weight")]),
+            "bias": _np(sd[_key(prefix, "bias")]),
+            "mean": _np(sd[_key(prefix, "running_mean")]),
+            "var": _np(sd[_key(prefix, "running_var")])}
+
+
+# torchvision vgg11_bn ``features`` indices of the conv / BN pairs
+_VGG11_BN_IDX = ((0, 1), (4, 5), (8, 9), (11, 12), (15, 16), (18, 19),
+                 (22, 23), (25, 26))
+
+
+def convert_vgg11_bn(sd, prefix: str = ""):
+    """torchvision vgg11_bn -> imagenet.VGG11; the reference checkpoint
+    nests it under ``net.`` (pass ``prefix="net"``).  Running BN statistics
+    stay FrozenBatchNorm params, not folded into the convs."""
+    p = (prefix + ".") if prefix else ""
+    out = {}
+    for k, (ci, bi) in enumerate(_VGG11_BN_IDX):
+        out[f"conv{k}"] = conv2d(sd, f"{p}features.{ci}")
+        out[f"bn{k}"] = _bn_params(sd, f"{p}features.{bi}")
+    for j, t in enumerate((0, 3, 6)):
+        out[f"fc{j}"] = linear(sd, f"{p}classifier.{t}")
+    return out
 
 
 def flatten(tree, prefix: str = "") -> dict:

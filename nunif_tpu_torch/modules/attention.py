@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.dtypes import cast_param
-from ..ops import swin_attention as _kernels
+from ..ops import _build, swin_attention as _kernels
 from .norm import LayerNorm
 from .permute import (window_partition2, window_partition3, window_reverse2,
                       window_reverse3)
@@ -109,15 +109,23 @@ class ShiftedWindowAttention(nn.Module):
         self._rel_key = None
         self._rel_bias = None
 
+    def kernel_layout(self, dtype=None) -> list:
+        """[the (heads, N, N) fp32 bias that K4 / K6 read]."""
+        return [expand_relative_bias(
+            self.relative_position_bias_table.detach().float(), self.window_size)]
+
     def relative_bias(self) -> torch.Tensor:
         """(heads, N, N) fp32 bias, gathered again only when the table's
-        storage or version changes (a weight load)."""
+        storage or version changes (a weight load).  Under ``torch.export``
+        the buffer that ``models/export.py`` registered, else gathered in
+        the trace."""
+        if torch.compiler.is_compiling():
+            return (_build.frozen_layout(self) or self.kernel_layout())[0]
         t = self.relative_position_bias_table
         key = (t.data_ptr(), t.device, t._version)
         if key != self._rel_key:
             with torch.no_grad():
-                self._rel_bias = expand_relative_bias(
-                    t.detach().float(), self.window_size)
+                self._rel_bias = self.kernel_layout()[0]
             self._rel_key = key
         return self._rel_bias
 
@@ -199,15 +207,27 @@ class SwinTransformerBlock(nn.Module):
                 m.fc1.weight.t(), m.fc1.bias, m.fc2.weight.t(), m.fc2.bias,
                 a.relative_bias())
 
+    def kernel_layout(self, dtype: torch.dtype) -> list:
+        """K1 / K5's form of the weights for x of ``dtype``
+        (``pack_weights``, as ``packed_list``); [] for a block with a norm,
+        which runs K4."""
+        if self.norm != "none":
+            return []
+        return _kernels.packed_list(_kernels.pack_weights(
+            *(w.detach() for w in self._weights()), dtype))
+
     def packed_weights(self, dtype: torch.dtype):
         """K1's form of the weights for x of ``dtype``, packed again only
-        when a parameter's storage or version changes (a weight load)."""
+        when a parameter's storage or version changes (a weight load).
+        Under ``torch.export`` the buffers that ``models/export.py``
+        registered, or None: the kernel's op then packs them."""
+        if torch.compiler.is_compiling():
+            return _kernels.packed_of(_build.frozen_layout(self))
         key = (dtype,) + tuple((p.data_ptr(), p.device, p._version)
                                for p in self.parameters())
         if key != self._packed_key:
             with torch.no_grad():
-                self._packed = _kernels.pack_weights(
-                    *(w.detach() for w in self._weights()), dtype)
+                self._packed = _kernels.packed_of(self.kernel_layout(dtype))
             self._packed_key = key
         return self._packed
 

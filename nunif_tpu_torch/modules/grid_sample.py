@@ -133,6 +133,11 @@ def warp_x_bounded(x, delta_px, max_shift: int):
     ``dtypes.IMAGE_DTYPE``, which must be bf16 on CUDA (the kernel rounds
     its taps to bf16).  Returns x's dtype.
     """
+    if torch.compiler.is_compiling():
+        raise NotImplementedError(
+            "warp_x_bounded: kernel K3 is not a torch.library op, so "
+            "torch.export cannot record it (models/export.py); no exported "
+            "model reaches it")
     if x.device.type == "cpu":
         return warp_x_bounded_plain(x, delta_px, max_shift)
     if x.device.type != "cuda":

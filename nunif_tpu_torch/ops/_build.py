@@ -195,6 +195,19 @@ def wgmma_weight_layout(w, nb):
             .permute(3, 0, 4, 1, 5, 2).contiguous())
 
 
+LAYOUT_BUFFER = "kernel_layout"
+
+
+def frozen_layout(module):
+    """The kernel-layout tensors that ``models/export.py`` registered on
+    ``module`` as the buffers ``kernel_layout0``, ``kernel_layout1``, ...
+    for a trace, in order; None when there are none."""
+    out = []
+    while (t := module._buffers.get(f"{LAYOUT_BUFFER}{len(out)}")) is not None:
+        out.append(t)
+    return out or None
+
+
 def stream_ptr(device) -> int:
     """The current stream's raw handle on ``device``, through PyTorch's own
     accessor (~7 us cheaper a call than ``current_stream().cuda_stream``,

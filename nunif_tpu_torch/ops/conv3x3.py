@@ -18,9 +18,14 @@ packs on every call.  In fp32 the kernel reads the plain (9 Cin, Cout)
 matrix.
 
 ``stem_conv3x3`` takes its plain twin only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises.  It calls the custom op
+``torch.ops.nunif_tpu_torch.stem_conv3x3`` (CPU kernel: the twin; CUDA
+kernel: the launch; a fake kernel for shapes), which ``torch.export``
+records as one node.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -96,11 +101,23 @@ def stem_conv3x3(x, kernel, bias, *, crop=0, lrelu_slope=None, packed=None):
     the kernel reads it in place of ``kernel`` and ``bias``, and the CPU
     twin ignores it.
     """
-    if x.device.type == "cpu":
-        return stem_conv3x3_plain(x, kernel, bias, crop=crop,
-                                  lrelu_slope=lrelu_slope)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem_conv3x3: unsupported device {x.device}")
+    return _stem_conv3x3_op(x, kernel, bias, [] if packed is None
+                            else list(packed), crop, lrelu_slope)
+
+
+@torch.library.custom_op("nunif_tpu_torch::stem_conv3x3", mutates_args=(),
+                         device_types="cpu")
+def _stem_conv3x3_op(x: torch.Tensor, kernel: torch.Tensor,
+                     bias: torch.Tensor, packed: list[torch.Tensor],
+                     crop: int, lrelu_slope: Optional[float]) -> torch.Tensor:
+    return stem_conv3x3_plain(x, kernel, bias, crop=crop,
+                              lrelu_slope=lrelu_slope)
+
+
+@_stem_conv3x3_op.register_kernel("cuda")
+def _stem_conv3x3_cuda(x, kernel, bias, packed, crop, lrelu_slope):
     code = _build.dtype_code(x.dtype)
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"stem_conv3x3: x must be contiguous NHWC, got "
@@ -118,7 +135,7 @@ def stem_conv3x3(x, kernel, bias, *, crop=0, lrelu_slope=None, packed=None):
     ho, wo = H - 2 - 2 * crop, W - 2 - 2 * crop
     if crop < 0 or ho <= 0 or wo <= 0:
         raise ValueError(f"stem_conv3x3: {H}x{W} too small for crop {crop}")
-    if packed is None:
+    if not packed:
         packed = (pack_stem_weights(kernel, x.dtype),
                   bias.detach().float().contiguous())
     wmat, b = packed
@@ -143,6 +160,12 @@ def stem_conv3x3(x, kernel, bias, *, crop=0, lrelu_slope=None, packed=None):
     _build.check(rc, "stem_conv3x3")
     stem_conv3x3.launches += 1
     return out
+
+
+@_stem_conv3x3_op.register_fake
+def _(x, kernel, bias, packed, crop, lrelu_slope):
+    b, h, w, _cin = x.shape
+    return x.new_empty((b, h - 2 - 2 * crop, w - 2 - 2 * crop, kernel.shape[3]))
 
 
 stem_conv3x3.launches = 0

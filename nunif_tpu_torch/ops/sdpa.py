@@ -53,6 +53,10 @@ def sdpa(q, k, v, *, scale=None):
     view of a (B, N, H, d) contiguous tensor, the layout the out projection
     reads.
     """
+    if torch.compiler.is_compiling():
+        raise NotImplementedError(
+            "sdpa: kernel K7 is not a torch.library op, so torch.export "
+            "cannot record it (models/export.py); no exported model reaches it")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":

@@ -35,12 +35,17 @@ Replaces ``nunif_tpu/ops/swin_attention.py:fused_window_attention_image``
 
 Each kernel's header notes what bounds it on the H100 and what its design
 does about that.  The wrappers take their plain twins only for CPU
-tensors; for a CUDA tensor they launch the kernel or raise.
+tensors; for a CUDA tensor they launch the kernel or raise.  Each wrapper
+calls a ``torch.library.custom_op`` (``torch.ops.nunif_tpu_torch.*``)
+whose CPU kernel is the twin and whose CUDA kernel is the launch, with a
+fake kernel for shapes: ``torch.export`` records the op, so an exported
+program (``models/export.py``) runs the hand kernel on the card and the
+twin on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -217,6 +222,27 @@ def _block_weights(what, x, C, weights, packed, *, num_heads, window, shift):
     return packed
 
 
+def _check_device(what, x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def packed_list(packed) -> list:
+    """``PackedBlockWeights`` as the custom ops take it: the four matrices,
+    the four biases and the bias table, or [] for none."""
+    if packed is None:
+        return []
+    return [*packed.mats, *packed.biases, packed.rel_bias]
+
+
+def packed_of(tensors):
+    """``packed_list``'s inverse (None for [] or None)."""
+    if not tensors:
+        return None
+    return PackedBlockWeights(tensors[0].dtype, tuple(tensors[:4]),
+                              tuple(tensors[4:8]), tensors[8])
+
+
 def _packed_args(packed):
     """(wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, rel_bias) pointers."""
     (wq, wp, w1, w2), (bq, bp, b1, b2) = packed.mats, packed.biases
@@ -237,15 +263,34 @@ def fused_swin_block_image(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
     ``pack_weights`` on these weights and x's dtype, saves the per-call cast
     and re-arrangement.
     """
-    what = "fused_swin_block_image"
     if skip is not None and shift:
         raise ValueError("skip fusion applies to unshifted blocks only")
-    if x.device.type == "cpu":
-        return swin_block_image_plain(
-            x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, rel_bias,
-            num_heads=num_heads, window=window, shift=shift, skip=skip)
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
+    _check_device("fused_swin_block_image", x)
+    return _swin_block_image_op(
+        x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, rel_bias, skip,
+        packed_list(packed), num_heads, window, shift)
+
+
+@torch.library.custom_op("nunif_tpu_torch::fused_swin_block_image",
+                         mutates_args=(), device_types="cpu")
+def _swin_block_image_op(
+        x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+        wproj: torch.Tensor, bproj: torch.Tensor, wfc1: torch.Tensor,
+        bfc1: torch.Tensor, wfc2: torch.Tensor, bfc2: torch.Tensor,
+        rel_bias: torch.Tensor, skip: Optional[torch.Tensor],
+        packed: list[torch.Tensor], num_heads: int, window: int,
+        shift: int) -> torch.Tensor:
+    return swin_block_image_plain(
+        x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2, rel_bias,
+        num_heads=num_heads, window=window, shift=shift, skip=skip)
+
+
+@_swin_block_image_op.register_kernel("cuda")
+def _swin_block_image_cuda(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
+                           bfc2, rel_bias, skip, packed, num_heads, window,
+                           shift):
+    what = "fused_swin_block_image"
+    packed = packed_of(packed)
     code = _build.dtype_code(x.dtype)
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous NHWC, "
@@ -274,6 +319,11 @@ def fused_swin_block_image(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
     _build.check(rc, what)
     fused_swin_block_image.launches += 1
     return out
+
+
+@_swin_block_image_op.register_fake
+def _(x, *args):
+    return torch.empty_like(x)
 
 
 fused_swin_block_image.launches = 0
@@ -313,17 +363,36 @@ def fused_swin_block(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
     unpadded image masked.  Weights, ``bias`` (heads, N, N) and ``packed``
     as for ``fused_swin_block_image``.
     """
-    what = "fused_swin_block"
-    kw = dict(num_heads=num_heads, window=window, shift=shift, n_wh=n_wh,
-              n_ww=n_ww, shift_mode=shift_mode)
     if shift_mode not in SHIFT_MODES:
-        raise ValueError(f"{what}: shift_mode {shift_mode!r} not in "
-                         f"{SHIFT_MODES}")
-    if x.device.type == "cpu":
-        return swin_block_plain(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
-                                bfc2, bias, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
+        raise ValueError(f"fused_swin_block: shift_mode {shift_mode!r} not "
+                         f"in {SHIFT_MODES}")
+    _check_device("fused_swin_block", x)
+    return _swin_block_op(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
+                          bfc2, bias, packed_list(packed), num_heads, window,
+                          shift, n_wh, n_ww, shift_mode)
+
+
+@torch.library.custom_op("nunif_tpu_torch::fused_swin_block",
+                         mutates_args=(), device_types="cpu")
+def _swin_block_op(
+        x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+        wproj: torch.Tensor, bproj: torch.Tensor, wfc1: torch.Tensor,
+        bfc1: torch.Tensor, wfc2: torch.Tensor, bfc2: torch.Tensor,
+        bias: torch.Tensor, packed: list[torch.Tensor], num_heads: int,
+        window: int, shift: int, n_wh: int, n_ww: int,
+        shift_mode: str) -> torch.Tensor:
+    return swin_block_plain(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
+                            bfc2, bias, num_heads=num_heads, window=window,
+                            shift=shift, n_wh=n_wh, n_ww=n_ww,
+                            shift_mode=shift_mode)
+
+
+@_swin_block_op.register_kernel("cuda")
+def _swin_block_cuda(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
+                     bias, packed, num_heads, window, shift, n_wh, n_ww,
+                     shift_mode):
+    what = "fused_swin_block"
+    packed = packed_of(packed)
     code = _build.dtype_code(x.dtype)
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{what}: x must be a contiguous (nw, N, C), got "
@@ -348,6 +417,11 @@ def fused_swin_block(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
     _build.check(rc, what)
     fused_swin_block.launches += 1
     return out
+
+
+@_swin_block_op.register_fake
+def _(x, *args):
+    return torch.empty_like(x)
 
 
 fused_swin_block.launches = 0
@@ -414,12 +488,23 @@ def fused_window_attention(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
     On CUDA: bf16 or fp32, contiguous 16-byte aligned qkv, N <= 64 (window
     8) and a head dim that is a multiple of 16 and at most 64.
     """
-    kw = dict(num_heads=num_heads, window=window, shift=shift, n_wh=n_wh,
-              n_ww=n_ww)
-    if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, bias, **kw)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_window_attention: unsupported device {qkv.device}")
+    _check_device("fused_window_attention", qkv)
+    return _window_attention_op(qkv, bias, num_heads, window, shift, n_wh,
+                                n_ww)
+
+
+@torch.library.custom_op("nunif_tpu_torch::fused_window_attention",
+                         mutates_args=(), device_types="cpu")
+def _window_attention_op(qkv: torch.Tensor, bias: torch.Tensor,
+                         num_heads: int, window: int, shift: int, n_wh: int,
+                         n_ww: int) -> torch.Tensor:
+    return window_attention_plain(qkv, bias, num_heads=num_heads,
+                                  window=window, shift=shift, n_wh=n_wh,
+                                  n_ww=n_ww)
+
+
+@_window_attention_op.register_kernel("cuda")
+def _window_attention_cuda(qkv, bias, num_heads, window, shift, n_wh, n_ww):
     code = _build.dtype_code(qkv.dtype)
     if qkv.dim() != 3 or not qkv.is_contiguous():
         raise ValueError(f"fused_window_attention: qkv must be a contiguous "
@@ -454,6 +539,12 @@ def fused_window_attention(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
     return out
 
 
+@_window_attention_op.register_fake
+def _(qkv, *args):
+    nw, n, c3 = qkv.shape
+    return qkv.new_empty((nw, n, c3 // 3))
+
+
 fused_window_attention.launches = 0
 
 
@@ -476,12 +567,22 @@ def fused_window_attention_image(qkv, bias, *, num_heads, window, shift):
     On CUDA: K4's limits (bf16 or fp32, contiguous 16-byte aligned qkv,
     N <= 64, head dim a multiple of 16 and at most 64).
     """
+    _check_device("fused_window_attention_image", qkv)
+    return _window_attention_image_op(qkv, bias, num_heads, window, shift)
+
+
+@torch.library.custom_op("nunif_tpu_torch::fused_window_attention_image",
+                         mutates_args=(), device_types="cpu")
+def _window_attention_image_op(qkv: torch.Tensor, bias: torch.Tensor,
+                               num_heads: int, window: int,
+                               shift: int) -> torch.Tensor:
+    return window_attention_image_plain(qkv, bias, num_heads=num_heads,
+                                        window=window, shift=shift)
+
+
+@_window_attention_image_op.register_kernel("cuda")
+def _window_attention_image_cuda(qkv, bias, num_heads, window, shift):
     what = "fused_window_attention_image"
-    kw = dict(num_heads=num_heads, window=window, shift=shift)
-    if qkv.device.type == "cpu":
-        return window_attention_image_plain(qkv, bias, **kw)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {qkv.device}")
     code = _build.dtype_code(qkv.dtype)
     if qkv.dim() != 4 or not qkv.is_contiguous():
         raise ValueError(f"{what}: qkv must be a contiguous (B, H, W, 3C), "
@@ -511,6 +612,12 @@ def fused_window_attention_image(qkv, bias, *, num_heads, window, shift):
     _build.check(rc, what)
     fused_window_attention_image.launches += 1
     return out
+
+
+@_window_attention_image_op.register_fake
+def _(qkv, *args):
+    b, h, w, c3 = qkv.shape
+    return qkv.new_empty((b, h, w, c3 // 3))
 
 
 fused_window_attention_image.launches = 0

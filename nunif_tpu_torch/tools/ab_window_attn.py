@@ -11,8 +11,10 @@ its ``build/``), in the order A B B A.  Prints, for each run, ms a shape,
 the K4 frame sum (launches a frame times ms), and the medians by tree of
 the K4, K6, K1 and K5 frame sums and of each shape, with the share of the
 shape's least time (bytes over 3.35 TB/s: qkv read once, the output and
-the bias once); the host time of one K4 call (the wrapper's checks, the
-tensor maps and the launch, at one window); and whether every output (a
+the bias once); the host time of one K4, K1 and K2 call (the wrapper's
+checks, its dispatch, the tensor maps and the launch, at one window or
+one 8x8 tile), with autograd on and under ``torch.inference_mode`` (as
+the renderer calls them); and whether every output (a
 sha1 of each) and ``ab_swin_block.bitwise_digests`` are the same in both
 trees.  Exits 1 if an output differs between the trees.
 
@@ -56,12 +58,14 @@ def _sha1(torch, y) -> str:
 
 def child(root: str) -> dict:
     """Time K4 / K6 (and K1 / K5) of the tree at ``root`` at every shape;
-    {key: {"ms", "sha1"}}, the host time of a K4 call and the digests."""
+    {key: {"ms", "sha1"}}, the host time of a K4, K1 and K2 call and the
+    digests."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
     from nunif_tpu_torch.modules.attention import expand_relative_bias
     from nunif_tpu_torch.modules.permute import window_partition2
+    from nunif_tpu_torch.ops import conv3x3 as k2
     from nunif_tpu_torch.ops import swin_attention as k4
     from nunif_tpu_torch.tools import ab_swin_block, time_ms
     assert k4.__file__ == os.path.join(root, "nunif_tpu_torch", "ops",
@@ -92,21 +96,41 @@ def child(root: str) -> dict:
             qkv, bias, num_heads=heads, window=ws, shift=shift), bound_ms=least)
         del qkv, qw
         torch.cuda.empty_cache()
-    # host time of one call: one window, so the enqueue bounds the loop
+    # host time of one call: one window (K2: one 8x8 tile), so the enqueue
+    # bounds the loop
+    def host_us(call):
+        call()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(500):
+                call()
+            host.append((time.perf_counter() - t0) / 500 * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(host)
+
     qkv = torch.zeros((1, 36, 3 * 192), device="cuda", dtype=torch.bfloat16)
     bias = torch.zeros((HEADS, 36, 36), device="cuda")
-    call = lambda: k4.fused_window_attention(  # noqa: E731
-        qkv, bias, num_heads=HEADS, window=6, shift=3, n_wh=1, n_ww=1)
-    call()
-    torch.cuda.synchronize()
-    host = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(500):
-            call()
-        host.append((time.perf_counter() - t0) / 500 * 1e6)
-        torch.cuda.synchronize()
-    out["host_us"] = statistics.median(host)
+    weights = ab_swin_block.block_weights(torch, rng, 96)
+    x1 = torch.zeros((1, 6, 6, 96), device="cuda", dtype=torch.bfloat16)
+    packed1 = k4.pack_weights(*weights, torch.bfloat16)
+    x2 = torch.zeros((1, 10, 10, 48), device="cuda", dtype=torch.bfloat16)
+    kern = torch.zeros((3, 3, 48, 96), device="cuda")
+    b2 = torch.zeros((96,), device="cuda")
+    packed2 = (k2.pack_stem_weights(kern, torch.bfloat16), b2)
+    calls = {
+        "K4": lambda: k4.fused_window_attention(
+            qkv, bias, num_heads=HEADS, window=6, shift=3, n_wh=1, n_ww=1),
+        "K1": lambda: k4.fused_swin_block_image(
+            x1, *weights, num_heads=6, window=6, shift=0, packed=packed1),
+        "K2": lambda: k2.stem_conv3x3(
+            x2, kern, b2, crop=0, lrelu_slope=0.1, packed=packed2)}
+    out["host_us"] = {k: host_us(call) for k, call in calls.items()}
+    # as the renderer and the model runtimes call them
+    with torch.inference_mode():
+        out["host_us"].update({f"{k} inference": host_us(call)
+                               for k, call in calls.items()})
     # K1 / K5 at the 2x frame's shapes
     for c, h, w, shift, with_skip in ab_swin_block.SHAPES:
         weights = ab_swin_block.block_weights(torch, rng, c)
@@ -152,8 +176,10 @@ def main(root_a: str, root_b: str) -> int:
         print(f"{label}: frame sums, median of {len(mine)}: " + ", ".join(
             f"{k} {statistics.median(v):.3f} ms {[round(x, 3) for x in v]}"
             for k, v in sums.items()))
-        print(f"{label}: host time a K4 call "
-              f"{statistics.median(s['host_us'] for s in mine):.1f} us")
+        print(f"{label}: host time a call, median of {len(mine)}: " + ", ".join(
+            f"{k} {statistics.median(s['host_us'][k] for s in mine):.1f} us"
+            for k in ("K4", "K1", "K2", "K4 inference", "K1 inference",
+                      "K2 inference")))
     keys = [k for k, v in runs[0][1].items() if isinstance(v, dict) and "ms" in v]
     for key in keys:
         if "bound_ms" not in runs[0][1][key]:

@@ -31,9 +31,11 @@ import torch
 
 from ..core.device import resolve_device
 from ..modules.resize import resize_matrix
+from ..utils.files import listdir_images
 
 logger = logging.getLogger("nunif_tpu_torch.waifu2x")
 
+# the JAX package's suffixes and TIFF
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp", ".tif", ".tiff")
 # JPEG qualities of the evaluation noise per style and noise level (the
 # reference's jpeg_noise settings)
@@ -41,16 +43,6 @@ EVAL_QUALITY = {
     "art": {0: [90], 1: [75], 2: [53, 46], 3: [53, 46]},
     "photo": {0: [90], 1: [80], 2: [60, 90], 3: [60, 90]},
 }
-
-
-def listdir_images(d):
-    """Image files under ``d``, recursively, sorted within each directory."""
-    out = []
-    for root, _dirs, files in os.walk(d):
-        for f in sorted(files):
-            if os.path.splitext(f)[1].lower() in IMAGE_EXTS:
-                out.append(os.path.join(root, f))
-    return out
 
 
 def add_jpeg_noise(im, quality: int, subsampling: str):
@@ -84,7 +76,7 @@ def y_psnr(a, b):
 
 def iter_images(d):
     from ..utils.pil_io import load_image
-    for f in listdir_images(d):
+    for f in listdir_images(d, IMAGE_EXTS):
         x, _ = load_image(f)
         yield f, x[..., :3]
 

@@ -25,7 +25,7 @@ from ...modules.attention import SwinTransformerBlocks
 from ...modules.conv import leaky_relu
 from ...modules.permute import pixel_shuffle
 from ...modules.resize import resize
-from ...ops import conv3x3 as _k2
+from ...ops import _build, conv3x3 as _k2
 
 
 def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -64,17 +64,24 @@ class Im2ColConv3x3(nn.Module):
         self._packed_key = None
         self._packed = None
 
+    def kernel_layout(self, dtype: torch.dtype) -> list:
+        """K2's form of the weights for x of ``dtype``: the packed kernel
+        and the fp32 bias."""
+        return [_k2.pack_stem_weights(self.weight.permute(2, 3, 1, 0), dtype),
+                self.bias.detach().float().contiguous()]
+
     def packed_weights(self, dtype: torch.dtype):
-        """K2's form of the weights for x of ``dtype`` (the packed kernel
-        and the fp32 bias), packed again only when a parameter's storage or
-        version changes (a weight load)."""
+        """``kernel_layout``, made again only when a parameter's storage or
+        version changes (a weight load).  Under ``torch.export`` the buffers
+        that ``models/export.py`` registered, or None: the kernel's op then
+        packs them."""
+        if torch.compiler.is_compiling():
+            return _build.frozen_layout(self)
         key = (dtype,) + tuple((p.data_ptr(), p.device, p._version)
                                for p in (self.weight, self.bias))
         if key != self._packed_key:
             with torch.no_grad():
-                self._packed = (
-                    _k2.pack_stem_weights(self.weight.permute(2, 3, 1, 0), dtype),
-                    self.bias.detach().float().contiguous())
+                self._packed = tuple(self.kernel_layout(dtype))
             self._packed_key = key
         return self._packed
 

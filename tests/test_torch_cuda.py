@@ -1043,3 +1043,32 @@ def test_swin_pieces_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="bias"):
         probes.swin_pieces(x, *wts[:8], wts[8][:36], *wts[9:], G=2, rh=1,
                            cw=2, pieces=4)
+
+
+@pytest.mark.parametrize("bake", [True, False])
+def test_export_reads_kernel_layouts(cuda, tmp_path, bake):
+    """swin_unet_2x exported on the card: every K1 / K2 node of the graph
+    reads its packed weights from the program's inputs (baked: its
+    constants; unbaked: ``layouts.pt2``'s output at load), so a call packs
+    nothing; the loaded program's output equals the eager model's."""
+    from nunif_tpu_torch.models import create_model, from_flax
+    from nunif_tpu_torch.models.export import ExportedModel, export_model
+    from nunif_tpu_torch.waifu2x.models.swin_unet import tamed_flax_params
+    model = create_model("waifu2x.swin_unet_2x")
+    from_flax(model, tamed_flax_params(model, seed=0))
+    model = model.to(cuda).eval().requires_grad_(False)
+    shape = (2, 64, 64, 3)
+    program = export_model(model, str(tmp_path / "m.pt2"), shape,
+                           bake_params=bake)
+    packs = [n.args[11] if "swin" in str(n.target) else n.args[3]
+             for n in program.graph.nodes
+             if str(n.target).startswith("nunif_tpu_torch.")]
+    assert len(packs) == 15
+    assert all(len(p) in (2, 9) and all(a.op == "placeholder" for a in p)
+               for p in packs)
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                   device=cuda)
+    got = ExportedModel(str(tmp_path / "m.pt2"))(x)
+    with torch.no_grad():
+        want = model(x.to(torch.bfloat16)).float()
+    assert torch.equal(got, want)
