@@ -194,7 +194,25 @@ written by the port:
   a 1080p PNG over HTTP with progress read from ``/api/progress``: each
   PNG equal to the direct ``Waifu2x.convert`` / ``process_image`` call,
   the launches of each job exact (K1 14 / K2 1 a forward pass; K7 12, K3
-  1), the job's decode / render / encode seconds.
+  1), the job's decode / render / encode seconds;
+- waifu2x training ("waifu2x training"): swin_unet_2x at base 96 (the
+  tamed seeded weights, the relative-position tables at std 1) on
+  one synthetic batch of 16 x 112^2 from the port's dataset (seed 71),
+  loss ``lbp``: the loss and every parameter's gradient through K1 / K2
+  (forward launches read from the counters, K1 14 and K2 1, none in the
+  backward, which is the twins' VJP) against the twin path, each tensor's
+  relative error held to the twin path's own bf16-vs-fp32 error, with the
+  zero-bias control failing that check; the parameters after one Adam step
+  on both paths; the kernels' weight packs remade after the step equal to
+  fresh ones; then ``python -m nunif_tpu_torch.train waifu2x`` at its
+  defaults (320 synthetic samples, 2 epochs) in a child process: finite
+  losses, the eval Y-PSNR, steps and samples a second, the share of the
+  wall spent waiting on the host data pipeline, peak memory, and its
+  exported ``.nztm`` loaded and rendered through ``TiledRenderer`` on K1 /
+  K2; then the same command with ``--resume`` from a checkpoint at the
+  tamed weights, whose eval Y-PSNR must rise from the first epoch to the
+  second and whose exported model's frame must hold to the twins' at
+  FRAME_PSNR_MIN.
 
 Every kernel is timed with CUDA events in turns (plain, kernel, library,
 library, kernel, plain) beside its twin and, where one PyTorch call computes
@@ -987,9 +1005,12 @@ def iw3_temporal_phase(torch, dev, model_dir, k3, k7):
               f"{'' if len(pairs) == 1 else 's'} PSNR {psnr:.2f} dB; peak memory "
               f"{peak:.2f} GiB", flush=True)
         print(f"iw3 temporal ({case}) profile:", flush=True)
+        # one session: a run records up to ~31k kernels, and where a session
+        # dropped records its retries have dropped them too, each retry a
+        # whole run under the profiler (the smoke's time limit)
         device = profile_frame(torch, lambda f: temporal_run(torch, models, case, f),
                                frames, top=10,
-                               share_of=("K7 flash_attn", "flash"))
+                               share_of=("K7 flash_attn", "flash"), tries=1)
         rows[case] = dict(ms=med * 1e3, runs_ms=[v * 1e3 for v in run_s], fps=n / med,
                           frames=n, counts=counts, launches=launches, moved=moved,
                           psnr=psnr, psnr_twins="K3" if len(pairs) == 1 else "K3 K7",
@@ -3960,15 +3981,15 @@ def profiled(torch, program, frame, tries=3):
     return None
 
 
-def profile_frame(torch, program, frame, top=12, share_of=None):
+def profile_frame(torch, program, frame, top=12, share_of=None, tries=3):
     """torch.profiler over one frame (a complete session, ``profiled``):
     the device time (sum over kernels), the top ops by the device time of
     the kernels they launch, and the top kernels by name (the port's own
     kernels, launched through ctypes, belong to no op and show only there);
     with ``share_of`` (label, name part), the device time and share of the
     kernels whose name holds the part.  None, and "not measured", where no
-    session was complete."""
-    session = profiled(torch, program, frame)
+    session of ``tries`` was complete."""
+    session = profiled(torch, program, frame, tries)
     if session is None:
         print("profile: not measured (every profiler session dropped records)",
               flush=True)
@@ -4503,6 +4524,328 @@ def gui_phase(torch, dev, k1, k2, k3, k7, smi, work_dir, w2x_dir):
               flush=True)
     del service, dm, flow
     torch_empty_cache()
+    return out
+
+
+# the "waifu2x training" phase: the CLI's defaults (swin_unet_2x at base
+# 96, tile find_valid_tile_size(104) = 112, batch 16, loss lbp, adam)
+TRAIN_BASE, TRAIN_TILE, TRAIN_BATCH, TRAIN_SEED = 96, 112, 16, 71
+TRAIN_LR = 1e-4
+TRAIN_CLI_SAMPLES, TRAIN_CLI_EPOCHS = 320, 2
+TRAIN_RENDER_HW = (540, 960)
+
+
+def train_grads(torch, model, x, y, loss_fn, dtype, k1, k2):
+    """(loss, {name: gradient}, forward launches, backward launches, fwd +
+    bwd ms) of one training forward of x in ``dtype`` and the backward of
+    the loss on its fp32 output."""
+    counted = ((k1, "fused_swin_block_image"), (k2, "stem_conv3x3"))
+    for p in model.parameters():
+        p.grad = None
+    for mod, name in counted:
+        getattr(mod, name).launches = 0
+    torch_sync()
+    t0 = time.perf_counter()
+    pred = model(x.to(dtype), train=True)
+    torch_sync()
+    fwd = {name: getattr(mod, name).launches for mod, name in counted}
+    loss = loss_fn(pred.float(), y)
+    loss.backward()
+    torch_sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    bwd = {name: getattr(mod, name).launches - fwd[name]
+           for mod, name in counted}
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    return float(loss.detach()), grads, fwd, bwd, ms
+
+
+def grad_errors(torch, got, want):
+    """{name: (relative L2 error, cosine)} of two gradient dicts."""
+    out = {}
+    for n, w in want.items():
+        g = got[n]
+        wn = float(w.norm())
+        rel = float((g - w).norm()) / wn if wn else float((g - w).norm())
+        cos = float((g * w).sum()) / max(float(g.norm()) * wn, 1e-30)
+        out[n] = (rel, cos)
+    return out
+
+
+def train_step_check(torch, dev, k1, k2):
+    """Part (a) of the training phase: kernel path against twin path on
+    one batch, the zero-bias control, one Adam step on each path, the packs
+    remade after it."""
+    import random
+    from nunif_tpu_torch.models import from_flax
+    from nunif_tpu_torch.ops.swin_attention import packed_list
+    from nunif_tpu_torch.training.optimizers import create_optimizer
+    from nunif_tpu_torch.training.schedules import constant_lr
+    from nunif_tpu_torch.waifu2x.models.swin_unet import (SwinUNet2x,
+                                                          tamed_flax_params)
+    from nunif_tpu_torch.waifu2x.training.dataset import Waifu2xDataset
+    from nunif_tpu_torch.waifu2x.training.trainer import create_criterion
+
+    # the tamed weights: from flax's init the network is chaotic, and its
+    # own bf16 gradients are off its fp32 ones by ~100% (cosines below 0),
+    # so no bound drawn from that error could tell a fault from noise
+    model = SwinUNet2x(base_dim=TRAIN_BASE)
+    from_flax(model, tamed_flax_params(model, seed=0))
+    model.to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED)
+    tables = [m.relative_position_bias_table for m in model.modules()
+              if hasattr(m, "relative_position_bias_table")]
+    with torch.no_grad():
+        # std 1, as the kernel checks draw them: at 0.02 a kernel without
+        # the bias would stay within bf16's error
+        for t in tables:
+            t.normal_(0.0, 1.0, generator=gen)
+    model.requires_grad_(True)
+    n_params = sum(p.numel() for p in model.parameters())
+    random.seed(TRAIN_SEED)
+    ds = Waifu2xDataset(None, model_offset=model.i2i_offset, scale_factor=2,
+                        tile_size=TRAIN_TILE, synthetic_p=1.0,
+                        num_samples=TRAIN_BATCH, training=True, seed=TRAIN_SEED)
+    batch = next(iter(ds.batches(TRAIN_BATCH, n_threads=1)))
+    x = torch.from_numpy(batch["x"]).to(dev)
+    y = torch.from_numpy(batch["y"]).to(dev)
+    loss_fn = create_criterion("lbp")
+    pairs = ((k1, "fused_swin_block_image"), (k2, "stem_conv3x3"))
+    bf16 = torch.bfloat16
+
+    loss_k, g_k, fwd, bwd, ms_k = train_grads(torch, model, x, y, loss_fn,
+                                              bf16, k1, k2)
+    loss_k2, g_k2, _f, _b, ms_k2 = train_grads(torch, model, x, y, loss_fn,
+                                               bf16, k1, k2)
+    with twins(*pairs):
+        loss_t, g_t, fwd_t, _b, ms_t = train_grads(torch, model, x, y,
+                                                   loss_fn, bf16, k1, k2)
+        loss_32, g_32, _f, _b, ms_32 = train_grads(torch, model, x, y,
+                                                   loss_fn, torch.float32,
+                                                   k1, k2)
+    print(f"train step: swin_unet_2x base {TRAIN_BASE} ({n_params} "
+          f"parameters), batch {TRAIN_BATCH} x {TRAIN_TILE}^2, loss lbp; "
+          f"loss kernel path {loss_k:.6f} (again {loss_k2:.6f}), twin path "
+          f"{loss_t:.6f}, twin fp32 {loss_32:.6f}; launches forward {fwd} "
+          f"backward {bwd}; fwd+bwd ms kernel {ms_k:.1f} / {ms_k2:.1f}, "
+          f"twin {ms_t:.1f}, twin fp32 {ms_32:.1f}", flush=True)
+    if fwd != {"fused_swin_block_image": 14, "stem_conv3x3": 1} or \
+            bwd != {"fused_swin_block_image": 0, "stem_conv3x3": 0}:
+        fail(f"training forward launches {fwd}, backward {bwd}: expected "
+             "K1 14 / K2 1 a forward and none in the backward")
+    if fwd_t != {"fused_swin_block_image": 0, "stem_conv3x3": 0}:
+        fail(f"twin path launched kernels: {fwd_t}")
+    if not all(np.isfinite(v) for v in (loss_k, loss_t, loss_32)):
+        fail(f"non-finite loss: {loss_k} {loss_t} {loss_32}")
+    if not all(bool(g.isfinite().all()) for g in g_k.values()):
+        fail("non-finite gradient on the kernel path")
+
+    # the bound of each tensor: the twin path's own bf16 error against its
+    # fp32 gradient (the kernels differ from the twins by bf16 roundings)
+    own = grad_errors(torch, g_t, g_32)
+    err = grad_errors(torch, g_k, g_t)
+    ratio = {n: err[n][0] / max(own[n][0], 1e-30) for n in err}
+    worst = max(ratio, key=ratio.get)
+    worst_rel = max(err, key=lambda n: err[n][0])
+    worst_cos = min(err, key=lambda n: err[n][1])
+    print(f"train grads kernel vs twin: worst rel / own bf16 error "
+          f"{ratio[worst]:.3f} ({worst}: rel {err[worst][0]:.3g}, own "
+          f"{own[worst][0]:.3g}); worst rel {err[worst_rel][0]:.3g} "
+          f"({worst_rel}); worst cosine {err[worst_cos][1]:.6f} "
+          f"({worst_cos}); loss rel diff {abs(loss_k - loss_t) / abs(loss_t):.3g}",
+          flush=True)
+    if ratio[worst] > 1.0:
+        fail(f"kernel-path gradient of {worst} off the twin path by "
+             f"{err[worst][0]:.3g} relative, beyond the twin's own bf16 "
+             f"error {own[worst][0]:.3g}")
+
+    # control: the kernel path without the relative bias must fail it
+    saved = [t.detach().clone() for t in tables]
+    with torch.no_grad():
+        for t in tables:
+            t.zero_()
+    _l, g_c, _f, _b, _ms = train_grads(torch, model, x, y, loss_fn, bf16, k1, k2)
+    with torch.no_grad():
+        for t, v in zip(tables, saved):
+            t.copy_(v)
+    ctrl = grad_errors(torch, g_c, g_t)
+    ctrl_ratio = max(ctrl[n][0] / max(own[n][0], 1e-30) for n in ctrl)
+    print(f"train grads zero-bias control: worst rel / own bf16 error "
+          f"{ctrl_ratio:.3f}", flush=True)
+    if ctrl_ratio <= 1.0:
+        fail("the zero-bias kernel path passes the gradient check: the "
+             "check is blind")
+
+    # one Adam step on each path from the same parameters
+    params = dict(model.named_parameters())
+    start = {n: p.detach().clone() for n, p in params.items()}
+    blocks = [m for m in model.modules() if hasattr(m, "packed_weights")]
+    after = {}
+    for name, grads in (("kernel", g_k), ("twin", g_t)):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+        with torch.no_grad():
+            before = [m.packed_weights(bf16) for m in blocks]
+            biases = [m.attn.relative_bias() for m in blocks
+                      if hasattr(m, "attn")]
+        opt = create_optimizer("adam", model, constant_lr(TRAIN_LR))
+        opt.step(grads)
+        after[name] = {n: p.detach().clone() for n, p in params.items()}
+        with torch.no_grad():
+            packs = [m.packed_weights(bf16) for m in blocks]
+            fresh = [m.kernel_layout(bf16) for m in blocks]
+            new_biases = [m.attn.relative_bias() for m in blocks
+                          if hasattr(m, "attn")]
+        for m, a, b, f in zip(blocks, before, packs, fresh):
+            got = packed_list(b) if hasattr(b, "mats") else list(b)
+            if b is a or not all(torch.equal(u, v) for u, v in zip(got, f)):
+                fail(f"{type(m).__name__}: the weight pack after the step is "
+                     "stale or differs from a fresh pack")
+        for m, a, b in zip([m for m in blocks if hasattr(m, "attn")], biases,
+                           new_biases):
+            if b is a or not torch.equal(b, m.attn.kernel_layout()[0]):
+                fail("the gathered relative bias after the step is stale")
+    step = max(float((after["kernel"][n] - start[n]).abs().max()) for n in start)
+    diff = {n: (after["kernel"][n] - after["twin"][n]).abs() for n in start}
+    max_diff = max(float(d.max()) for d in diff.values())
+    share = sum(int((d > 0.1 * TRAIN_LR).sum()) for d in diff.values()) / n_params
+    print(f"train adam step (lr {TRAIN_LR}): largest update {step:.3g}; "
+          f"kernel vs twin parameters max diff {max_diff:.3g}, share beyond "
+          f"0.1 lr {share:.3g}; packs of {len(blocks)} modules remade and "
+          "equal to fresh ones", flush=True)
+    # Adam's first update is lr g / (|g| + eps): two paths differ by at
+    # most 2 lr, where a gradient element changes sign
+    if not 0.5 * TRAIN_LR < step <= 1.001 * TRAIN_LR or \
+            max_diff > 2.002 * TRAIN_LR or share > 0.01:
+        fail(f"adam step: update {step}, max diff {max_diff}, share {share}")
+    out = {"loss_kernel": loss_k, "loss_twin": loss_t, "loss_twin_fp32": loss_32,
+           "forward_launches": fwd, "backward_launches": bwd,
+           "worst_rel_over_own": ratio[worst], "worst_rel": err[worst_rel][0],
+           "worst_cos": err[worst_cos][1], "control_rel_over_own": ctrl_ratio,
+           "adam_max_param_diff": max_diff, "adam_share_beyond": share,
+           "fwd_bwd_ms": {"kernel": [ms_k, ms_k2], "twin": ms_t,
+                          "twin_fp32": ms_32}, "parameters": n_params}
+    del model, g_k, g_k2, g_t, g_32, g_c, after, start
+    torch_empty_cache()
+    return out
+
+
+def train_cli_args(model_dir, extra=()):
+    return ["waifu2x", "--arch", "waifu2x.swin_unet_2x", "--synthetic-p", "1.0",
+            "--num-samples", str(TRAIN_CLI_SAMPLES), "--batch-size",
+            str(TRAIN_BATCH), "--max-epoch", str(TRAIN_CLI_EPOCHS),
+            "--model-dir", model_dir, "--seed", str(TRAIN_SEED), *extra]
+
+
+def tamed_checkpoint(torch, model_dir):
+    """The trainer's checkpoint before its first epoch, at the tamed
+    seeded weights, written through the trainer app the CLI builds: with
+    ``--resume`` the CLI then trains from weights whose output is not
+    chaotic (from flax's init a norm-free swin_unet's pre-clip output has
+    a std in the hundreds).  Returns the eval Y-PSNR of that start on the
+    CLI's eval set, in dB."""
+    from nunif_tpu_torch.models import from_flax
+    from nunif_tpu_torch.train import create_parser
+    from nunif_tpu_torch.waifu2x.models.swin_unet import tamed_flax_params
+    from nunif_tpu_torch.waifu2x.training.trainer import Waifu2xTrainerApp
+    args = create_parser().parse_args(train_cli_args(model_dir))
+    app = Waifu2xTrainerApp(args)
+    from_flax(app.model, tamed_flax_params(app.model, seed=0))
+    app.trainer.save_checkpoint()
+    start = -app.trainer.evaluate(
+        lambda: app.eval_ds.batches(args.batch_size, n_threads=args.num_workers))
+    del app
+    torch_empty_cache()
+    return start
+
+
+def train_cli_run(torch, dev, k1, k2, work_dir, tamed):
+    """Part (b): ``python -m nunif_tpu_torch.train waifu2x`` at its
+    defaults in a child, its epoch lines, and its exported model rendered
+    through TiledRenderer.  ``tamed``: resumed from ``tamed_checkpoint``;
+    its last epoch's eval Y-PSNR must rise above the start's, and its
+    render must hold to the twins' at FRAME_PSNR_MIN."""
+    from nunif_tpu_torch.models import load_model
+    from nunif_tpu_torch.utils.tiling import TiledRenderer
+    model_dir = os.path.join(work_dir, "train_w2x_tamed" if tamed else "train_w2x")
+    start_psnr = tamed_checkpoint(torch, model_dir) if tamed else None
+    t0 = time.perf_counter()
+    out = child([sys.executable, "-m", "nunif_tpu_torch.train",
+                 *train_cli_args(model_dir, ("--resume",) if tamed else ())],
+                "train CLI", timeout=900)
+    wall = time.perf_counter() - t0
+    epochs = [json.loads(line[len("train: "):]) for line in out.splitlines()
+              if line.startswith("train: ")]
+    exported = [json.loads(line[len("exported: "):]) for line in out.splitlines()
+                if line.startswith("exported: ")]
+    if len(epochs) != TRAIN_CLI_EPOCHS or not exported:
+        fail(f"train CLI printed {len(epochs)} epochs: {out[-2000:]}")
+    for e in epochs:
+        if not (np.isfinite(e["train_loss"]) and e["eval_y_psnr"] is not None
+                and np.isfinite(e["eval_y_psnr"])) or e["nan_count"] \
+                or not e["device"].startswith("cuda"):
+            fail(f"train CLI epoch {e}")
+    psnrs = [e["eval_y_psnr"] for e in epochs]
+    if tamed and not psnrs[-1] > start_psnr:
+        fail(f"train CLI from the tamed weights: eval Y-PSNR {psnrs} dB did "
+             f"not rise above the start's {start_psnr} dB")
+    files = exported[0]["files"]
+    if "waifu2x_swin_unet_2x.nztm" not in files:
+        fail(f"train CLI exported {files}")
+    model, meta = load_model(os.path.join(model_dir, "waifu2x_swin_unet_2x.nztm"),
+                             device=dev)
+    h, w = TRAIN_RENDER_HW
+    frame = torch.from_numpy(structured_frame(h, w, 3)).to(dev)
+    program = TiledRenderer(model).frame_program(h, w)
+    k1.fused_swin_block_image.launches = k2.stem_conv3x3.launches = 0
+    y = program(frame)
+    torch_sync()
+    launches = {"fused_swin_block_image": k1.fused_swin_block_image.launches,
+                "stem_conv3x3": k2.stem_conv3x3.launches}
+    if tuple(y.shape) != (2 * h, 2 * w, 3) or y.dtype != torch.uint8 \
+            or not launches["stem_conv3x3"] \
+            or launches["fused_swin_block_image"] != 14 * launches["stem_conv3x3"]:
+        fail(f"render of the trained model: {tuple(y.shape)} {y.dtype}, "
+             f"launches {launches}")
+    res = {"epochs": epochs, "wall_s": wall, "best_eval_y_psnr":
+           exported[0]["best_eval_y_psnr"], "render_launches": launches,
+           "train_kwargs_seed": meta["train_kwargs"]["seed"],
+           "start_eval_y_psnr": start_psnr}
+    if tamed:
+        # from flax's init the trained net is chaotic and its bf16 frame is
+        # no closer to the twins' than noise: only the tamed run is held
+        psnr, _same = render_twin_psnr(torch, program, frame, y, (
+            (k2, "stem_conv3x3"), (k1, "fused_swin_block_image")))
+        if psnr < FRAME_PSNR_MIN:
+            fail(f"render of the model trained from the tamed weights: PSNR "
+                 f"vs twins {psnr:.2f} dB < {FRAME_PSNR_MIN}")
+        res["render_psnr_vs_twins"] = psnr
+    del model, program
+    torch_empty_cache()
+    return res
+
+
+def training_phase(torch, dev, k1, k2, smi, work_dir):
+    step = train_step_check(torch, dev, k1, k2)
+    out = {"step": step}
+    for start, tamed in (("flax init", False), ("tamed", True)):
+        cli = out["cli_tamed" if tamed else "cli"] = train_cli_run(
+            torch, dev, k1, k2, work_dir, tamed)
+        last = cli["epochs"][-1]
+        held = (f", vs twins {cli['render_psnr_vs_twins']:.2f} dB; eval "
+                f"Y-PSNR at the start {cli['start_eval_y_psnr']:.3f} dB"
+                if tamed else "")
+        print(f"train CLI from {start} ({smi}): {TRAIN_CLI_EPOCHS} epochs of "
+              f"{TRAIN_CLI_SAMPLES} samples in {cli['wall_s']:.1f} s wall; last "
+              f"epoch {last['steps_per_second']:.3f} steps/s, "
+              f"{last['samples_per_second']:.2f} samples/s, data wait "
+              f"{last['data_wait_share']:.3f} of the epoch, peak memory "
+              f"{(last['peak_memory_bytes'] or 0) / 2 ** 30:.2f} GiB; losses "
+              f"{[round(e['train_loss'], 5) for e in cli['epochs']]}, eval Y-PSNR "
+              f"{[round(e['eval_y_psnr'], 3) for e in cli['epochs']]} dB; render "
+              f"launches {cli['render_launches']}{held}", flush=True)
     return out
 
 
@@ -5102,6 +5445,11 @@ def main() -> int:
     phase("gui")
     gui = gui_phase(torch, dev, k1, k2, k3, k7, smi, new_dir.name, w2x_dir)
     print(f"gui: {smi}; " + json.dumps(gui), flush=True)
+
+    # 22. swin_unet_2x trains through K1 / K2 (backward: the twins' VJP)
+    phase("waifu2x training")
+    training = training_phase(torch, dev, k1, k2, smi, new_dir.name)
+    print(f"waifu2x training: {smi}; " + json.dumps(training), flush=True)
     new_dir.cleanup()
 
     k1_bf16 = [r for r in k1_rows if r["dtype"] == "bfloat16"]
@@ -5210,6 +5558,9 @@ def main() -> int:
          "i2i_launches": entry["i2i"]["launches"]["stem_conv3x3"],
          "export_launches": exported["launches"]["stem_conv3x3"],
          "gui_launches": gui["waifu2x"]["launches"]["stem_conv3x3"],
+         # a swin_unet_2x training forward and backward (the twin's VJP)
+         "train_launches": training["step"]["forward_launches"]["stem_conv3x3"],
+         "train_backward_launches": training["step"]["backward_launches"]["stem_conv3x3"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": k2_sum("ms"), "plain_ms": k2_sum("plain_ms"),
          "bound_ms": k2_sum("bound_ms"),
@@ -5224,6 +5575,9 @@ def main() -> int:
          "i2i_launches": entry["i2i"]["launches"]["fused_swin_block_image"],
          "export_launches": exported["launches"]["fused_swin_block_image"],
          "gui_launches": gui["waifu2x"]["launches"]["fused_swin_block_image"],
+         # a swin_unet_2x training forward and backward (the twin's VJP)
+         "train_launches": training["step"]["forward_launches"]["fused_swin_block_image"],
+         "train_backward_launches": training["step"]["backward_launches"]["fused_swin_block_image"],
          "max_abs_err": max(r["max_abs_err"] for r in k1_bf16),
          "ms": k1_sum("ms"), "plain_ms": k1_sum("plain_ms"),
          "bound_ms": k1_sum("bound_ms"),

@@ -118,10 +118,14 @@ class ShiftedWindowAttention(nn.Module):
         """(heads, N, N) fp32 bias, gathered again only when the table's
         storage or version changes (a weight load).  Under ``torch.export``
         the buffer that ``models/export.py`` registered, else gathered in
-        the trace."""
+        the trace.  While autograd records a table that needs a gradient
+        (training), gathered in the graph on every call, so the gradient
+        reaches the table."""
         if torch.compiler.is_compiling():
             return (_build.frozen_layout(self) or self.kernel_layout())[0]
         t = self.relative_position_bias_table
+        if torch.is_grad_enabled() and t.requires_grad:
+            return expand_relative_bias(t.float(), self.window_size)
         key = (t.data_ptr(), t.device, t._version)
         if key != self._rel_key:
             with torch.no_grad():

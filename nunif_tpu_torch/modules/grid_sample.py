@@ -17,7 +17,9 @@ one launch a batch of 8 frames.
 The kernel reads x in its own dtype (fp32 on the path, or bf16), rounds
 its taps to bf16 in registers and writes x's dtype, so no cast pass runs
 around the launch.  ``warp_x_bounded`` takes its plain twin only for CPU
-tensors; for a CUDA tensor it launches the kernel or raises.
+tensors; for a CUDA tensor it launches the kernel or raises, and it
+raises while autograd records an input that needs a gradient (the launch
+has no backward).
 """
 from __future__ import annotations
 
@@ -142,6 +144,7 @@ def warp_x_bounded(x, delta_px, max_shift: int):
         return warp_x_bounded_plain(x, delta_px, max_shift)
     if x.device.type != "cuda":
         raise ValueError(f"warp_x_bounded: unsupported device {x.device}")
+    _build.refuse_grad("warp_x_bounded", x, delta_px)
     return _warp_x_bounded_cuda(x, delta_px, max_shift)
 
 

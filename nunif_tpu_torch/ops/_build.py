@@ -224,3 +224,54 @@ def dtype_code(dtype) -> int:
     if dtype == torch.float32:
         return DTYPE_F32
     raise TypeError(f"kernel takes bfloat16 or float32, not {dtype}")
+
+
+def register_twin_vjp(op, n_tensors, twin):
+    """Give the custom op ``op`` a backward: the vector-Jacobian product of
+    its plain twin, run again under autograd on the op's first
+    ``n_tensors`` arguments (tensors or None).  ``twin(ctx_args, *tensors)``
+    computes the forward from those tensors and ``ctx_args``, the op's
+    remaining non-list arguments as a tuple.  A list argument (the kernels'
+    packed weights, detached copies) and the non-tensor arguments get no
+    gradient: it goes to the raw weights the packs were made from.
+
+    Neither package has a backward kernel, so on the card too the backward
+    is the twin's: the forward stays the kernel's launch (and only it counts
+    a launch), the backward runs plain PyTorch on the card."""
+    import torch
+
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:n_tensors])
+        rest = inputs[n_tensors:]
+        ctx.lists = [len(a) if isinstance(a, list) else None for a in rest]
+        ctx.ctx_args = tuple(a for a in rest if not isinstance(a, list))
+
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:n_tensors]
+        with torch.enable_grad():
+            args = [None if t is None else t.detach().requires_grad_(bool(n))
+                    for t, n in zip(saved, needs)]
+            wrt = [a for a, n in zip(args, needs) if a is not None and n]
+            grads = iter(torch.autograd.grad(twin(ctx.ctx_args, *args), wrt,
+                                             grad) if wrt else ())
+        out = [next(grads) if a is not None and n else None
+               for a, n in zip(args, needs)]
+        return (*out, *([None] * n if n is not None else None
+                        for n in ctx.lists))
+
+    op.register_autograd(backward, setup_context=setup_context)
+
+
+def refuse_grad(what, *tensors):
+    """Raise if autograd is recording and one of ``tensors`` needs a
+    gradient.  For the plain ctypes launches (K3, K7): their output has no
+    ``grad_fn``, so a trainer would lose the gradient silently.  Every
+    inference caller passes frozen inputs."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward; it gets one with the "
+            "trainers that need it (ROADMAP queue 1 item 7). Call it under "
+            "torch.no_grad() or on inputs that need no gradient")

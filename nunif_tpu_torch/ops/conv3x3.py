@@ -21,7 +21,9 @@ matrix.
 tensor it launches the kernel or raises.  It calls the custom op
 ``torch.ops.nunif_tpu_torch.stem_conv3x3`` (CPU kernel: the twin; CUDA
 kernel: the launch; a fake kernel for shapes), which ``torch.export``
-records as one node.
+records as one node.  Its backward is the twin's vector-Jacobian product
+(``_build.register_twin_vjp``) on either device: the JAX package has no
+backward kernel, so neither has the port.
 """
 from __future__ import annotations
 
@@ -167,5 +169,10 @@ def _(x, kernel, bias, packed, crop, lrelu_slope):
     b, h, w, _cin = x.shape
     return x.new_empty((b, h - 2 - 2 * crop, w - 2 - 2 * crop, kernel.shape[3]))
 
+
+_build.register_twin_vjp(
+    _stem_conv3x3_op, 3,
+    lambda a, x, kernel, bias: stem_conv3x3_plain(
+        x, kernel, bias, crop=a[0], lrelu_slope=a[1]))
 
 stem_conv3x3.launches = 0

@@ -12,7 +12,9 @@ block: (8, 6, 1373, 64) bf16 at a 392x686 depth input, 12 launches a batch
 of 8 frames.
 
 ``sdpa`` takes its plain twin ``sdpa_plain`` only for CPU tensors; for a
-CUDA tensor it launches the kernel at every sequence length or raises.
+CUDA tensor it launches the kernel at every sequence length or raises, and
+it raises while autograd records an input that needs a gradient (the
+launch has no backward).
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ def sdpa(q, k, v, *, scale=None):
         return sdpa_plain(q, k, v, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"sdpa: unsupported device {q.device}")
+    _build.refuse_grad("sdpa", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"sdpa: the kernel takes bfloat16, {name} is "

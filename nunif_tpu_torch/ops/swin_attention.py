@@ -40,7 +40,9 @@ calls a ``torch.library.custom_op`` (``torch.ops.nunif_tpu_torch.*``)
 whose CPU kernel is the twin and whose CUDA kernel is the launch, with a
 fake kernel for shapes: ``torch.export`` records the op, so an exported
 program (``models/export.py``) runs the hand kernel on the card and the
-twin on the CPU.
+twin on the CPU.  Each op's backward is its twin's vector-Jacobian product
+(``_build.register_twin_vjp``) on either device: the JAX package has no
+backward kernel, so neither has the port; the forward stays the kernel's.
 """
 from __future__ import annotations
 
@@ -326,6 +328,11 @@ def _(x, *args):
     return torch.empty_like(x)
 
 
+_build.register_twin_vjp(
+    _swin_block_image_op, 11,
+    lambda a, x, *w: swin_block_image_plain(
+        x, *w[:9], skip=w[9], num_heads=a[0], window=a[1], shift=a[2]))
+
 fused_swin_block_image.launches = 0
 
 SHIFT_MODES = ("roll", "pad")
@@ -423,6 +430,12 @@ def _swin_block_cuda(x, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2,
 def _(x, *args):
     return torch.empty_like(x)
 
+
+_build.register_twin_vjp(
+    _swin_block_op, 10,
+    lambda a, x, *w: swin_block_plain(
+        x, *w, num_heads=a[0], window=a[1], shift=a[2], n_wh=a[3], n_ww=a[4],
+        shift_mode=a[5]))
 
 fused_swin_block.launches = 0
 
@@ -545,6 +558,12 @@ def _(qkv, *args):
     return qkv.new_empty((nw, n, c3 // 3))
 
 
+_build.register_twin_vjp(
+    _window_attention_op, 2,
+    lambda a, qkv, bias: window_attention_plain(
+        qkv, bias, num_heads=a[0], window=a[1], shift=a[2], n_wh=a[3],
+        n_ww=a[4]))
+
 fused_window_attention.launches = 0
 
 
@@ -619,5 +638,10 @@ def _(qkv, *args):
     b, h, w, c3 = qkv.shape
     return qkv.new_empty((b, h, w, c3 // 3))
 
+
+_build.register_twin_vjp(
+    _window_attention_image_op, 2,
+    lambda a, qkv, bias: window_attention_image_plain(
+        qkv, bias, num_heads=a[0], window=a[1], shift=a[2]))
 
 fused_window_attention_image.launches = 0

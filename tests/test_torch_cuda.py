@@ -1072,3 +1072,105 @@ def test_export_reads_kernel_layouts(cuda, tmp_path, bake):
     with torch.no_grad():
         want = model(x.to(torch.bfloat16)).float()
     assert torch.equal(got, want)
+
+
+# The custom ops' backward is their twins' vector-Jacobian product, run
+# again on the same inputs: the gradients through a kernel launch must
+# equal autograd's through the twin on the card (the same plain
+# computation, so rtol 1e-5 / atol 1e-6 for the summation order of a
+# rerun), the forward must launch once and the backward never.
+def _grad_case(name, cuda):
+    rng = _rng(31)
+    bf16 = torch.bfloat16
+    if name == "stem_conv3x3":
+        x = _t(rng.normal(0, 0.5, (2, 20, 40, 16)), cuda, bf16)
+        w = _t(rng.normal(0, 0.1, (3, 3, 16, 32)), cuda)
+        b = _t(rng.normal(0, 0.1, (32,)), cuda)
+        kw = dict(crop=2, lrelu_slope=0.1)
+        return (k2, name, k2.stem_conv3x3_plain, (x, w, b), kw)
+    if name in ("fused_swin_block_image", "fused_swin_block"):
+        args = _block_inputs(rng, 32, 2, cuda)
+        if name == "fused_swin_block_image":
+            x = _t(rng.normal(0, 0.5, (2, 12, 18, 32)), cuda, bf16)
+            return (k1, name, k1.swin_block_image_plain, (x, *args),
+                    dict(num_heads=2, window=6, shift=3))
+        x = _t(rng.normal(0, 0.5, (2 * 3 * 4, 36, 32)), cuda, bf16)
+        return (k1, name, k1.swin_block_plain, (x, *args),
+                dict(num_heads=2, window=6, shift=3, n_wh=3, n_ww=4,
+                     shift_mode="pad"))
+    if name == "fused_window_attention":
+        qkv, bias = _k4_inputs(rng, 2 * 2 * 3, 6, 32, 2, cuda, bf16)
+        return (k1, name, k1.window_attention_plain, (qkv, bias),
+                dict(num_heads=2, window=6, shift=3, n_wh=2, n_ww=3))
+    qkv = _t(rng.standard_normal((2, 12, 18, 96)), cuda, bf16)
+    _q, bias = _k4_inputs(rng, 1, 6, 32, 2, cuda, bf16)
+    return (k1, name, k1.window_attention_image_plain, (qkv, bias),
+            dict(num_heads=2, window=6, shift=3))
+
+
+@pytest.mark.parametrize("name", ["stem_conv3x3", "fused_swin_block_image",
+                                  "fused_swin_block", "fused_window_attention",
+                                  "fused_window_attention_image"])
+def test_custom_op_gradients_are_the_twins(cuda, name):
+    mod, name, plain, args, kw = _grad_case(name, cuda)
+    kernel = getattr(mod, name)
+
+    def grads(fn):
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        out = fn(*leaves, **kw)
+        g = torch.randn(out.shape, generator=torch.Generator(cuda).manual_seed(5),
+                        device=cuda).to(out.dtype)
+        before = kernel.launches
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert kernel.launches == before  # the backward launches nothing
+        return out, [a.grad for a in leaves]
+
+    before = kernel.launches
+    out_k, g_k = grads(kernel)
+    assert kernel.launches == before + 1
+    out_t, g_t = grads(plain)
+    assert out_k.grad_fn is not None
+    for a, b in zip(g_k, g_t):
+        assert a is not None and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-5, atol=1e-6)
+
+
+def test_packs_after_an_optimizer_step_are_fresh(cuda):
+    """K1's and K2's weight packs and the gathered bias key on the
+    parameters' versions: after an Adam step of the port's optimizer each
+    module's cached pack is new and equal to a fresh one."""
+    from nunif_tpu_torch.modules.attention import SwinTransformerBlock
+    from nunif_tpu_torch.training.optimizers import create_optimizer
+    from nunif_tpu_torch.waifu2x.models.swin_unet import Im2ColConv3x3
+    from torch import nn
+    torch.manual_seed(0)
+    net = nn.Sequential(Im2ColConv3x3(16, 32, crop=1, lrelu_slope=0.1),
+                        SwinTransformerBlock(32, 2, 6, shift_size=3)).to(cuda)
+    x = _t(_rng(8).normal(0, 0.5, (1, 16, 16, 16)), cuda, torch.bfloat16)
+    net(x).float().square().mean().backward()
+    with torch.no_grad():
+        old = [m.packed_weights(torch.bfloat16) for m in net]
+        old_bias = net[1].attn.relative_bias()
+    opt = create_optimizer("adam", net, lambda step: 1e-2)
+    opt.step({n: p.grad for n, p in net.named_parameters()})
+    with torch.no_grad():
+        new = [m.packed_weights(torch.bfloat16) for m in net]
+        bias = net[1].attn.relative_bias()
+    assert all(a is not b for a, b in zip(old, new)) and bias is not old_bias
+    fresh = [m.kernel_layout(torch.bfloat16) for m in net]
+    for got, want in zip((list(new[0]), k1.packed_list(new[1])), fresh):
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert torch.equal(bias, net[1].attn.kernel_layout()[0])
+
+
+def test_k3_k7_refuse_inputs_that_need_a_gradient(cuda):
+    x = torch.zeros(1, 4, 16, 3, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="queue 1 item 7"):
+        k3.warp_x_bounded(x, torch.zeros(1, 4, 16, device=cuda), 2)
+    q = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="queue 1 item 7"):
+        k7.sdpa(q, q.detach(), q.detach())
+    with torch.no_grad():
+        k7.sdpa(q, q, q)

@@ -166,16 +166,22 @@ def test_permute_ops_match_jax():
 
 def test_block_module_caches_relative_bias_per_weight_load():
     blk = tattn.SwinTransformerBlock(32, 2, 6, shift_size=3)
-    first = blk.attn.relative_bias()
-    assert blk.attn.relative_bias() is first
     with torch.no_grad():
+        first = blk.attn.relative_bias()
+        assert blk.attn.relative_bias() is first
         blk.attn.relative_position_bias_table.add_(1.0)
-    second = blk.attn.relative_bias()
+        second = blk.attn.relative_bias()
     assert second is not first
     torch.testing.assert_close(second, first + 1.0)
     # a LayerNorm block keeps the same cache in its attention module (K4)
     ln = tattn.SwinTransformerBlock(32, 2, 6, norm="layernorm")
-    assert ln.attn.relative_bias() is ln.attn.relative_bias()
+    with torch.no_grad():
+        assert ln.attn.relative_bias() is ln.attn.relative_bias()
+    # while autograd records the trainable table, the gather is in the
+    # graph on every call (the cached one would carry no gradient)
+    third = blk.attn.relative_bias()
+    assert third.requires_grad and third is not blk.attn.relative_bias()
+    torch.testing.assert_close(third.detach(), second)
 
 
 def test_block_module_packs_kernel_weights_per_weight_load():
