@@ -212,7 +212,24 @@ written by the port:
   K2; then the same command with ``--resume`` from a checkpoint at the
   tamed weights, whose eval Y-PSNR must rise from the first epoch to the
   second and whose exported model's frame must hold to the twins' at
-  FRAME_PSNR_MIN.
+  FRAME_PSNR_MIN;
+- feature losses and GAN ("feature losses and GAN"): (a) the input
+  gradient of the DINOv2 pool loss on a fixed 16 x 192^2 bf16 batch
+  (seeded ViT-S trunk) through K7, K7 launched 24 times in the forward and
+  none in the backward (the twin's VJP), against the twin path, held to
+  K7_GRAD_BAR times the twin's own bf16-vs-fp32 error, with the twin at
+  twice the scale as the control that must fail it and K7's rounding
+  written in plain PyTorch beside it; (b, c) a swin_unet_2x training step
+  on ``l1dinov2`` (K1 14, K2 1, K7 24 a forward, none in the backward) and
+  on each other feature-net loss, ms a step; ``python -m
+  nunif_tpu_torch.train waifu2x --loss l1dinov2 --resume`` from the tamed
+  checkpoint for 2 epochs of 160 samples in a child, its ``.nztm`` held to
+  the twins' frame at FRAME_PSNR_MIN; (d) ``train inpaint
+  --discriminator l3c`` and ``ffc`` at their defaults for 24 steps (the
+  adaptive weight 0 during the warmup of 8, inside its clamp after,
+  every metric finite), the trained ``.nztm`` inpainting a 1080p frame
+  and scored by the inpaint benchmark (masked PSNR, LPIPS), and the video
+  net with 12-frame clips.
 
 Every kernel is timed with CUDA events in turns (plain, kernel, library,
 library, kernel, plain) beside its twin and, where one PyTorch call computes
@@ -4761,19 +4778,23 @@ def tamed_checkpoint(torch, model_dir):
     return start
 
 
-def train_cli_run(torch, dev, k1, k2, work_dir, tamed):
+def train_cli_run(torch, dev, k1, k2, work_dir, tamed, extra=(), name=None,
+                  rise=True):
     """Part (b): ``python -m nunif_tpu_torch.train waifu2x`` at its
-    defaults in a child, its epoch lines, and its exported model rendered
-    through TiledRenderer.  ``tamed``: resumed from ``tamed_checkpoint``;
-    its last epoch's eval Y-PSNR must rise above the start's, and its
-    render must hold to the twins' at FRAME_PSNR_MIN."""
+    defaults (plus ``extra`` flags) in a child, its epoch lines, and its
+    exported model rendered through TiledRenderer.  ``tamed``: resumed from
+    ``tamed_checkpoint``; with ``rise`` its last epoch's eval Y-PSNR must
+    rise above the start's, and its render must hold to the twins' at
+    FRAME_PSNR_MIN.  ``name``: the model directory under work_dir."""
     from nunif_tpu_torch.models import load_model
     from nunif_tpu_torch.utils.tiling import TiledRenderer
-    model_dir = os.path.join(work_dir, "train_w2x_tamed" if tamed else "train_w2x")
+    model_dir = os.path.join(work_dir, name or (
+        "train_w2x_tamed" if tamed else "train_w2x"))
     start_psnr = tamed_checkpoint(torch, model_dir) if tamed else None
     t0 = time.perf_counter()
     out = child([sys.executable, "-m", "nunif_tpu_torch.train",
-                 *train_cli_args(model_dir, ("--resume",) if tamed else ())],
+                 *train_cli_args(model_dir, (("--resume",) if tamed else ())
+                                 + tuple(extra))],
                 "train CLI", timeout=900)
     wall = time.perf_counter() - t0
     epochs = [json.loads(line[len("train: "):]) for line in out.splitlines()
@@ -4788,7 +4809,7 @@ def train_cli_run(torch, dev, k1, k2, work_dir, tamed):
                 or not e["device"].startswith("cuda"):
             fail(f"train CLI epoch {e}")
     psnrs = [e["eval_y_psnr"] for e in epochs]
-    if tamed and not psnrs[-1] > start_psnr:
+    if tamed and rise and not psnrs[-1] > start_psnr:
         fail(f"train CLI from the tamed weights: eval Y-PSNR {psnrs} dB did "
              f"not rise above the start's {start_psnr} dB")
     files = exported[0]["files"]
@@ -4846,6 +4867,320 @@ def training_phase(torch, dev, k1, k2, smi, work_dir):
               f"{[round(e['train_loss'], 5) for e in cli['epochs']]}, eval Y-PSNR "
               f"{[round(e['eval_y_psnr'], 3) for e in cli['epochs']]} dB; render "
               f"launches {cli['render_launches']}{held}", flush=True)
+    return out
+
+
+# the "feature losses and GAN" phase: swin_unet_2x's training output at
+# the trainer's defaults is 16 x 192^2, which the DINOv2 loss pads to 196^2
+# (197 tokens a head).  K7's gradient bar is the twin's own bf16-vs-fp32
+# error times K7_GRAD_BAR, the bar of the K1 / K2 gradient check: the pool
+# loss's gradient is a sign where the features meet, and a single bf16
+# rounding of the attention moves it by 0.74 of the whole trunk's bf16
+# error (the kernel's rounding, k7_rounding_model, on the CPU); the control
+# runs the twin at a scale off by K7_SCALE_CONTROL (3.5x the error there)
+FEAT_BATCH, FEAT_HW = 16, 192
+K7_GRAD_BAR, K7_SCALE_CONTROL = 1.0, 2.0
+L1DINO_SAMPLES = 160  # a CLI epoch of 10 steps
+# a training forward of swin_unet_2x on l1dinov2: K1 14 and K2 1 in the
+# generator, K7 12 on the output branch and 12 on the detached target
+L1DINO_FORWARD = {"fused_swin_block_image": 14, "stem_conv3x3": 1, "sdpa": 24}
+OTHER_FEATURE_LOSSES = ("l1lpips", "l1lpips_std_mask", "l1lpips_dct24",
+                        "l1dinov2_10", "yrgb_lbp_dinov2", "l1l4sn", "l1l4sn2",
+                        "l1l4sn_swd")
+# the inpaint GAN CLI at its defaults (batch GAN_BATCH, 128 px): GAN_STEPS
+# steps, the adversarial weight gated off before step GAN_START
+GAN_BATCH, GAN_STEPS, GAN_START = 16, 24, 8
+GAN_RENDER_HW = (1080, 1920)
+GAN_VIDEO_CLIPS = 4
+
+
+def rel_l2(a, b):
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def k7_rounding_model(torch):
+    """sdpa with K7's rounding points in plain PyTorch: the unnormalised
+    probabilities exp(s - max) rounded to q's dtype for P V, the row sum
+    and the division in fp32, the output rounded once (the twin rounds the
+    normalised probabilities)."""
+    def sdpa(q, k, v, scale=None):
+        scale = scale or q.shape[-1] ** -0.5
+        s = torch.einsum("bhnd,bhmd->bhnm", (q * scale).float(), k.float())
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bhnm,bhmd->bhnd", p.to(q.dtype).float(), v.float())
+        return (o / p.sum(-1, keepdim=True)).to(q.dtype)
+    return sdpa
+
+
+def k7_grad_check(torch, dev, k7):
+    """Part (a): the gradient of the DINOv2 pool loss with respect to a
+    fixed bf16 batch of generator outputs through K7 against the twin path
+    (K7's twin on the card), held to K7_GRAD_BAR times the twin's own
+    bf16-vs-fp32 error, with the wrong-scale control failing that bar."""
+    from nunif_tpu_torch.modules import dinov2_loss as D
+    flat = D.seeded_trunk_params("vits", seed=0)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    shape = (FEAT_BATCH, FEAT_HW, FEAT_HW, 3)
+    x = torch.rand(shape, generator=gen, device=dev).to(torch.bfloat16)
+    y = (x.float() + 0.05 * torch.randn(shape, generator=gen, device=dev)).clamp(0, 1)
+    loss16 = D.dinov2_feature_loss("pool", params=flat)
+    loss32 = D.dinov2_feature_loss("pool", params=flat, dtype=torch.float32)
+
+    def grad(fn, inp):
+        xx = inp.detach().clone().requires_grad_(True)
+        k7.sdpa.launches = 0
+        torch_sync()
+        t0 = time.perf_counter()
+        v = fn(xx, y)
+        torch_sync()
+        fwd = k7.sdpa.launches
+        v.backward()
+        torch_sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return float(v), xx.grad.float(), fwd, k7.sdpa.launches - fwd, ms
+
+    grad(loss16, x)  # warm: the trunk moves to the card, cuDNN picks
+    v_k, g_k, fwd, bwd, ms_k = grad(loss16, x)
+    with twins((k7, "sdpa")):
+        v_t, g_t, fwd_t, _b, ms_t = grad(loss16, x)
+        v_32, g_32, _f, _b, _ms = grad(loss32, x.float())
+    saved = k7.sdpa
+    try:
+        k7.sdpa = lambda q, k, v, scale=None: k7.sdpa_plain(
+            q, k, v, scale=(scale or q.shape[-1] ** -0.5) * K7_SCALE_CONTROL)
+        _v, g_c, _f, _b, _ms = grad(loss16, x)
+        k7.sdpa = k7_rounding_model(torch)
+        _v, g_m, _f, _b, _ms = grad(loss16, x)
+    finally:
+        k7.sdpa = saved
+    own = rel_l2(g_t, g_32)
+    ratio = rel_l2(g_k, g_t) / max(own, 1e-30)
+    ctrl = rel_l2(g_c, g_t) / max(own, 1e-30)
+    model_ratio = rel_l2(g_m, g_t) / max(own, 1e-30)
+    own_max = float((g_t - g_32).abs().max())
+    max_ratio = float((g_k - g_t).abs().max()) / max(own_max, 1e-30)
+    print(f"K7 gradient (DINOv2 pool loss, {shape} bf16, seeded trunk): loss "
+          f"kernel {v_k:.6f} twin {v_t:.6f} twin fp32 {v_32:.6f}; K7 launches "
+          f"forward {fwd} backward {bwd}; rel-L2 vs twin / twin's own bf16 "
+          f"error {ratio:.4f} (bar {K7_GRAD_BAR}; own {own:.4g}); max-abs ratio "
+          f"{max_ratio:.4f}; K7's rounding in plain PyTorch {model_ratio:.4f}; "
+          f"scale x{K7_SCALE_CONTROL} control ratio {ctrl:.3f}; "
+          f"fwd+bwd ms kernel {ms_k:.1f} twin {ms_t:.1f}", flush=True)
+    if fwd != 2 * 12 or bwd or fwd_t:
+        fail(f"K7 gradient: launches forward {fwd} backward {bwd} (twin path "
+             f"{fwd_t}); want 24 / 0 / 0")
+    if not all(np.isfinite(v) for v in (v_k, v_t, v_32)) or \
+            not bool(g_k.isfinite().all()) or float(g_k.abs().max()) == 0:
+        fail("K7 gradient: non-finite loss or gradient, or a zero gradient")
+    if ratio > K7_GRAD_BAR:
+        fail(f"K7 gradient off the twin's by {ratio:.3f} of the twin's own bf16 "
+             f"error (bar {K7_GRAD_BAR})")
+    if ctrl <= K7_GRAD_BAR:
+        fail(f"K7 gradient: the wrong-scale control passes ({ctrl:.3f}): the "
+             "check is blind")
+    out = {"loss": [v_k, v_t, v_32], "launches_forward": fwd,
+           "launches_backward": bwd, "rel_over_own": ratio, "own_rel": own,
+           "max_abs_over_own": max_ratio, "control_rel_over_own": ctrl,
+           "rounding_model_rel_over_own": model_ratio,
+           "fwd_bwd_ms": {"kernel": ms_k, "twin": ms_t}}
+    del loss16, loss32, g_k, g_t, g_32, g_c, g_m
+    torch_empty_cache()
+    return out
+
+
+def feature_step_model(torch, dev):
+    """swin_unet_2x at the trainer's width on the tamed weights, and one
+    synthetic batch of the trainer's dataset (x, y on the card)."""
+    import random
+    from nunif_tpu_torch.models import from_flax
+    from nunif_tpu_torch.waifu2x.models.swin_unet import (SwinUNet2x,
+                                                          tamed_flax_params)
+    from nunif_tpu_torch.waifu2x.training.dataset import Waifu2xDataset
+    model = SwinUNet2x(base_dim=TRAIN_BASE)
+    from_flax(model, tamed_flax_params(model, seed=0))
+    model.to(dev).requires_grad_(True)
+    random.seed(TRAIN_SEED)
+    ds = Waifu2xDataset(None, model_offset=model.i2i_offset, scale_factor=2,
+                        tile_size=TRAIN_TILE, synthetic_p=1.0,
+                        num_samples=TRAIN_BATCH, training=True, seed=TRAIN_SEED)
+    batch = next(iter(ds.batches(TRAIN_BATCH, n_threads=1)))
+    return model, (torch.from_numpy(batch["x"]).to(dev),
+                   torch.from_numpy(batch["y"]).to(dev))
+
+
+def feature_step(torch, model, batch, loss_fn, kernels):
+    """One training step's forward (bf16) and backward on ``loss_fn``:
+    (loss, forward launches, backward launches, ms, gradients finite)."""
+    x, y = batch
+    for p in model.parameters():
+        p.grad = None
+    for k in kernels.values():
+        k.launches = 0
+    torch_sync()
+    t0 = time.perf_counter()
+    loss = loss_fn(model(x.to(torch.bfloat16), train=True).float(), y)
+    torch_sync()
+    fwd = {n: k.launches for n, k in kernels.items()}
+    loss.backward()
+    torch_sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    bwd = {n: k.launches - fwd[n] for n, k in kernels.items()}
+    finite = all(bool(p.grad.isfinite().all()) for p in model.parameters()
+                 if p.grad is not None)
+    return float(loss.detach()), fwd, bwd, ms, finite
+
+
+def feature_losses_check(torch, dev, kernels):
+    """Parts (b, in-process) and (c): a swin_unet_2x training step on
+    l1dinov2 with the launches of its forward and backward, then one step
+    on each of the other eight feature-net losses (a warm step first)."""
+    from nunif_tpu_torch.waifu2x.training.trainer import create_criterion
+    model, batch = feature_step_model(torch, dev)
+    out = {}
+    for name in ("l1dinov2",) + OTHER_FEATURE_LOSSES:
+        t0 = time.perf_counter()
+        loss_fn = create_criterion(name)
+        build_s = time.perf_counter() - t0
+        feature_step(torch, model, batch, loss_fn, kernels)
+        loss, fwd, bwd, ms, finite = feature_step(torch, model, batch, loss_fn,
+                                                  kernels)
+        print(f"feature loss {name}: swin_unet_2x step ({TRAIN_BATCH} x "
+              f"{TRAIN_TILE}^2 -> {FEAT_HW}^2, bf16) {ms:.1f} ms, loss {loss:.6f}; "
+              f"launches forward {fwd} backward {bwd}; built in {build_s:.1f} s",
+              flush=True)
+        if not (np.isfinite(loss) and finite):
+            fail(f"feature loss {name}: loss {loss} or a gradient not finite")
+        if name == "l1dinov2" and (fwd != L1DINO_FORWARD
+                                   or any(bwd.values())):
+            fail(f"l1dinov2 training step: launches forward {fwd} backward "
+                 f"{bwd}, want {L1DINO_FORWARD} and none")
+        if any(bwd.values()):
+            fail(f"feature loss {name}: the backward launched {bwd}")
+        out[name] = {"ms": ms, "loss": loss, "forward_launches": fwd,
+                     "backward_launches": bwd, "build_s": build_s}
+        del loss_fn
+    del model, batch
+    torch_empty_cache()
+    return out
+
+
+def gan_cli_run(torch, dev, work_dir, disc, video=False):
+    """Part (d): ``python -m nunif_tpu_torch.train inpaint --discriminator
+    disc`` at its defaults (its entry point, in this process): every step's
+    metrics finite, the adaptive weight 0 before GAN_START and inside
+    [adaptive_min, adaptive_max] x discriminator_weight after; its
+    ``.nztm`` loaded and inpainting a 1080p frame (a 12-frame clip at
+    540p for the video net): finite, in [0, 1], the input kept outside the
+    hole."""
+    import csv
+    from nunif_tpu_torch.models import load_model
+    from nunif_tpu_torch.train import main as train_main
+    from nunif_tpu_torch.training.gan import GANConfig
+    arch = "inpaint.light_video_inpaint_v1" if video else "inpaint.light_inpaint_v1"
+    model_dir = os.path.join(work_dir, f"inpaint_{disc}{'_video' if video else ''}")
+    n = GAN_VIDEO_CLIPS if video else GAN_STEPS * GAN_BATCH
+    start = GAN_VIDEO_CLIPS // 2 if video else GAN_START  # a clip a step
+    argv = ["inpaint", "--arch", arch, "--model-dir", model_dir, "--discriminator",
+            disc, "--num-samples", str(n), "--max-epoch", "1",
+            "--generator-start-step", str(start)]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_main(argv)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(s[len("inpaint_gan: "):]) for s in buf.getvalue().splitlines()
+             if s.startswith("inpaint_gan: ")]
+    if rc or len(lines) != 1:
+        fail(f"inpaint GAN CLI ({disc}): rc {rc}, {buf.getvalue()[-2000:]}")
+    rep = lines[0]
+    with open(os.path.join(model_dir, "gan_steps.csv")) as f:
+        rows = list(csv.DictReader(f))
+    steps = len(rows)
+    metrics = {k: [float(r[k]) for r in rows] for k in ("recon", "gen", "d", "disc_weight")}
+    cfg = GANConfig()
+    lo, hi = cfg.adaptive_min * cfg.discriminator_weight, cfg.adaptive_max * cfg.discriminator_weight
+    want_steps = GAN_VIDEO_CLIPS if video else GAN_STEPS
+    w = metrics["disc_weight"]
+    if steps != want_steps or not all(np.isfinite(v) for m in metrics.values() for v in m) \
+            or not rep["finite"] or not rep["device"].startswith("cuda"):
+        fail(f"inpaint GAN CLI ({disc}): {steps} steps, report {rep}")
+    if any(v != 0.0 for v in w[:start]) or \
+            not all(lo <= v <= hi for v in w[start:]):
+        fail(f"inpaint GAN CLI ({disc}): adaptive weights {w}")
+    model, _meta = load_model(os.path.join(model_dir, arch.replace(".", "_") + ".nztm"),
+                              device=dev)
+    h, wd = (540, 960) if video else GAN_RENDER_HW
+    frames = 12 if video else 1
+    img = torch.from_numpy(np.stack([structured_frame(h, wd, 7 + i)
+                                     for i in range(frames)])).to(dev).float() / 255
+    mask = torch.zeros((frames, h, wd, 1), device=dev)
+    mask[:, h // 4:h // 2, wd // 3:wd // 3 + 48] = 1.0
+    with torch.no_grad():
+        src = img * (1 - mask)
+        t1 = time.perf_counter()
+        out = model(src, mask=mask)
+        torch_sync()
+        render_ms = (time.perf_counter() - t1) * 1e3
+    keep = (mask == 0).expand_as(out)
+    if tuple(out.shape) != tuple(img.shape) or not bool(out.isfinite().all()) \
+            or float(out.min()) < 0 or float(out.max()) > 1 \
+            or not torch.equal(out[keep], src[keep]):
+        fail(f"inpaint GAN CLI ({disc}): the trained net's inpaint {tuple(out.shape)}")
+    bench = None
+    if not video:  # the eval benchmark on the trained file, LPIPS included
+        from nunif_tpu_torch.iw3.training.inpaint.benchmark import benchmark_main
+        bench = benchmark_main(checkpoint=os.path.join(
+            model_dir, arch.replace(".", "_") + ".nztm"), lpips=True, device=str(dev))
+        if not all(np.isfinite(v) for v in bench.values()):
+            fail(f"inpaint benchmark ({disc}): {bench}")
+    res = {"steps": steps, "steps_per_second": rep["steps_per_second"],
+           "benchmark": bench,
+           "samples_per_second": rep["samples_per_second"],
+           "data_wait_share": rep["data_wait_share"],
+           "peak_memory_bytes": rep["peak_memory_bytes"], "wall_s": wall,
+           "last": rep["last"], "start": start,
+           "disc_weight_after_start": [min(w[start:]), max(w[start:])],
+           "render_ms": render_ms, "render_shape": list(out.shape)}
+    del model, img, mask, out, src
+    torch_empty_cache()
+    return res
+
+
+def feature_gan_phase(torch, dev, k1, k2, k7, smi, work_dir):
+    """The "feature losses and GAN" phase: (a) K7's gradient at the DINOv2
+    loss's shape, (b) the l1dinov2 step's launches and its CLI, (c) one step
+    of each other feature-net loss, (d) the inpaint GAN CLI with l3c and
+    ffc, and the video net with l3c."""
+    kernels = {"fused_swin_block_image": k1.fused_swin_block_image,
+               "stem_conv3x3": k2.stem_conv3x3, "sdpa": k7.sdpa}
+    out = {"k7_grad": k7_grad_check(torch, dev, k7)}
+    out["losses"] = feature_losses_check(torch, dev, kernels)
+    cli = out["l1dinov2_cli"] = train_cli_run(
+        torch, dev, k1, k2, work_dir, True, name="train_w2x_l1dinov2",
+        extra=("--loss", "l1dinov2", "--num-samples", str(L1DINO_SAMPLES)),
+        rise=False)
+    last = cli["epochs"][-1]
+    print(f"l1dinov2 CLI from the tamed weights ({smi}): {TRAIN_CLI_EPOCHS} epochs "
+          f"of {L1DINO_SAMPLES} samples in {cli['wall_s']:.1f} s wall; last epoch "
+          f"{last['steps_per_second']:.3f} steps/s, {last['samples_per_second']:.2f} "
+          f"samples/s, data wait {last['data_wait_share']:.3f} of the epoch, peak "
+          f"memory {(last['peak_memory_bytes'] or 0) / 2 ** 30:.2f} GiB; losses "
+          f"{[round(e['train_loss'], 5) for e in cli['epochs']]}, eval Y-PSNR "
+          f"{[round(e['eval_y_psnr'], 3) for e in cli['epochs']]} dB (start "
+          f"{cli['start_eval_y_psnr']:.3f}); render launches "
+          f"{cli['render_launches']}, vs twins {cli['render_psnr_vs_twins']:.2f} dB",
+          flush=True)
+    gan = out["gan"] = {}
+    for disc, video in (("l3c", False), ("ffc", False), ("l3c", True)):
+        label = f"{disc}{' video' if video else ''}"
+        r = gan[label] = gan_cli_run(torch, dev, work_dir, disc, video)
+        print(f"inpaint GAN CLI ({label}, {smi}): {r['steps']} steps, "
+              f"{r['steps_per_second']:.3f} steps/s, {r['samples_per_second']:.2f} "
+              f"samples/s, data wait {r['data_wait_share']:.3f}, peak memory "
+              f"{(r['peak_memory_bytes'] or 0) / 2 ** 30:.2f} GiB, {r['wall_s']:.1f} s "
+              f"wall; last {r['last']}; adaptive weight after step {r['start']} in "
+              f"{r['disc_weight_after_start']}; inpaint {r['render_shape']} in "
+              f"{r['render_ms']:.1f} ms; eval benchmark {r['benchmark']}", flush=True)
     return out
 
 
@@ -5450,6 +5785,12 @@ def main() -> int:
     phase("waifu2x training")
     training = training_phase(torch, dev, k1, k2, smi, new_dir.name)
     print(f"waifu2x training: {smi}; " + json.dumps(training), flush=True)
+
+    # 23. the DINOv2 feature loss trains through K7 (backward: the twin's
+    # VJP); the other feature-net losses; the inpaint GAN step
+    phase("feature losses and GAN")
+    feature_gan = feature_gan_phase(torch, dev, k1, k2, k7, smi, new_dir.name)
+    print(f"feature losses and GAN: {smi}; " + json.dumps(feature_gan), flush=True)
     new_dir.cleanup()
 
     k1_bf16 = [r for r in k1_rows if r["dtype"] == "bfloat16"]
@@ -5661,7 +6002,17 @@ def main() -> int:
          "video_launches": {run: n["sdpa"] for run, n in video_launches.items()},
          "gui_launches": gui["iw3"]["launches"]["sdpa"],
          "depth_pro_tiles_per_launch": k7_rows[577, "strided", 35, 16],
-         "zoe_any_per_launch": k7_rows[1401, "strided", IW3_BATCH, 16]},
+         "zoe_any_per_launch": k7_rows[1401, "strided", IW3_BATCH, 16],
+         # a swin_unet_2x training forward on l1dinov2 (16 x 192^2 -> 197
+         # tokens) and its backward (the twin's VJP); the input gradient
+         # of the DINOv2 loss against the twin path, over the twin's own
+         # bf16 error, and the wrong-scale control's
+         "train_launches": feature_gan["losses"]["l1dinov2"]["forward_launches"]["sdpa"],
+         "train_backward_launches":
+             feature_gan["losses"]["l1dinov2"]["backward_launches"]["sdpa"],
+         "train_grad_rel_over_own": feature_gan["k7_grad"]["rel_over_own"],
+         "train_grad_control_rel_over_own":
+             feature_gan["k7_grad"]["control_rel_over_own"]},
         {"name": "fused_swin_block", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/swin_block.cu",
          "replaces": "nunif_tpu/ops/swin_attention.py:780",

@@ -1,9 +1,9 @@
 """Addons: app modules that register train / training-data commands
 (counterpart of ``nunif_tpu/addon.py``).
 
-Only waifu2x's trainer is ported.  The JAX package's other addons (iw3's
-sbs, inpaint, sod, depth_aa and da3mono trainers, stlizer, cliqa and
-imagenet) wait for ROADMAP queue 1 item 7.
+waifu2x's trainer and iw3's inpaint trainer are ported.  The JAX
+package's other addons (iw3's sbs, sod, depth_aa and da3mono trainers,
+stlizer, cliqa and imagenet) wait for ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import importlib
 
 ADDON_MODULES = [
     "nunif_tpu_torch.waifu2x.training.trainer",
+    "nunif_tpu_torch.iw3.training.inpaint.trainer",
 ]
 
 

@@ -7,11 +7,11 @@ the compute dtype (bf16 by default, the port's policy), the model, fp32
 out.  The hand kernels are ``torch.library`` custom ops
 (``torch.ops.nunif_tpu_torch.*``: K1 ``fused_swin_block_image``, K2
 ``stem_conv3x3``, K4 ``fused_window_attention``, K5 ``fused_swin_block``,
-K6 ``fused_window_attention_image``), so the graph holds the kernel ops
-and not their twins: on the card the program launches the hand kernels,
-on the CPU the twins.  K3 and K7 are not custom ops (no I2I model reaches
-them: the stereo warp and the depth nets' attention run outside the
-exported models); their wrappers raise under ``torch.export``.
+K6 ``fused_window_attention_image``, K7 ``sdpa``), so the graph holds
+the kernel ops and not their twins: on the card the program launches the
+hand kernels, on the CPU the twins.  K3 is not a custom op (no I2I model
+reaches it: the stereo warp runs outside the exported models); its
+wrapper raises under ``torch.export``.
 
 On the card the program reads each layer's weights in its kernel's
 layout (``kernel_layouts``: K1's packed block weights, K2's packed stem,

@@ -38,7 +38,8 @@ _APP_PACKAGES = {"waifu2x": ("nunif_tpu_torch.waifu2x",),
                          "nunif_tpu_torch.utils.transnetv2"),
                  "stlizer": ("nunif_tpu_torch.stlizer.light_outpaint_v1",),
                  "cliqa": ("nunif_tpu_torch.cliqa",),
-                 "imagenet": ("nunif_tpu_torch.imagenet",)}
+                 "imagenet": ("nunif_tpu_torch.imagenet",),
+                 "dino": ("nunif_tpu_torch.dino",)}
 
 
 class NotPortedError(NotImplementedError):

@@ -1,8 +1,9 @@
 """Upstream PyTorch state dicts -> the flax-named parameter tree that
 ``models.flax_params`` loads (the port's own copy of the converters of
 ``nunif_tpu/models/torch_convert.py``: depth, the iw3 stereo and inpaint
-nets, DepthAA, U2NETP, cliqa, stlizer's outpaint net, waifu2x and
-imagenet's vgg11_bn; the port does not import it).
+nets, DepthAA, U2NETP, cliqa, stlizer's outpaint net, waifu2x,
+imagenet's vgg11_bn and LPIPS's VGG16 trunk; the port does not import
+it).
 
 Works on numpy arrays or anything with ``.numpy()``.  Layout rules:
   Conv2d           (O, I, kh, kw) -> HWIO (kh, kw, I, O)
@@ -704,3 +705,14 @@ def flatten(tree, prefix: str = "") -> dict:
         else:
             out[key] = v
     return out
+
+
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def convert_vgg16_features(sd, prefix: str = "features"):
+    """A torchvision ``vgg16`` state dict's ``features`` trunk -> the tree of
+    ``modules.lpips.VGG16Features`` (``conv0`` ... ``conv12``), for LPIPS
+    with the reference's VGG weights (load it under ``net`` of ``LPIPS``)."""
+    return {f"conv{i}": conv2d(sd, f"{prefix}.{t}")
+            for i, t in enumerate(_VGG16_CONV_IDX)}

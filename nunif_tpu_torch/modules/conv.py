@@ -26,10 +26,10 @@ def conv2d(x: torch.Tensor, layer: nn.Conv2d, stride: int = 1,
 
 
 def conv2d_nhwc(x: torch.Tensor, layer: nn.Conv2d, stride: int = 1,
-                dilation: int = 1) -> torch.Tensor:
-    """``conv2d`` (VALID) on an NHWC tensor, NHWC out."""
-    return conv2d(x.permute(0, 3, 1, 2), layer, stride,
-                  dilation=dilation).permute(0, 2, 3, 1)
+                dilation: int = 1, padding=0) -> torch.Tensor:
+    """``conv2d`` on an NHWC tensor (VALID unless ``padding``), NHWC out."""
+    return conv2d(x.permute(0, 3, 1, 2), layer, stride, padding,
+                  dilation).permute(0, 2, 3, 1)
 
 
 class ConvTranspose2dTorch(nn.Module):

@@ -13,8 +13,8 @@ Random-augmented losses (``dctirm``, ``dctir24``) take a
 different numbers, so they agree only on the deterministic path (no
 generator: a fixed 45 degree rotation and a centred translate) and on
 explicit angles and offsets (``rotate_expand``, ``translate_by``).
-The GAN losses are plain functions; the GAN trainer that calls them is not
-ported yet (ROADMAP queue 1 item 7).
+The GAN losses are plain functions that the GAN step
+(``training/gan.py``) calls.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """2-D DFT as two products with cos / sin bases (counterpart of
-``nunif_tpu/modules/spectral.py``: ``dft2`` only, which the FFT losses
-use).
+``nunif_tpu/modules/spectral.py``: ``dft2``, which the FFT losses use, and
+``idft2``, the real part of its inverse, which the FFC discriminator's
+``FourierUnit`` uses).
 
 "ortho" normalization (1 / sqrt(HW)), the convention of the reference's
 ``torch.fft.rfft2(norm="ortho")``.  The JAX package builds the DFT from
@@ -37,3 +38,20 @@ def dft2(x: torch.Tensor):
         torch.einsum("bhvc,hu->buvc", re1, sh)
     scale = 1.0 / float(np.sqrt(h * w))
     return re * scale, im * scale
+
+
+def idft2(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Real part of the inverse of ``dft2``: (re, im) (B, H, W, C) -> (B,
+    H, W, C) fp32, ortho."""
+    _b, h, w, _c = re.shape
+    re, im = re.float(), im.float()
+    cw, sw = (torch.from_numpy(a).to(re.device) for a in _dft_basis(w))
+    ch, sh = (torch.from_numpy(a).to(re.device) for a in _dft_basis(h))
+    # over H with exp(+i a), then over W keeping the real part
+    re1 = torch.einsum("buvc,hu->bhvc", re, ch) - \
+        torch.einsum("buvc,hu->bhvc", im, sh)
+    im1 = torch.einsum("buvc,hu->bhvc", im, ch) + \
+        torch.einsum("buvc,hu->bhvc", re, sh)
+    out = torch.einsum("bhvc,wv->bhwc", re1, cw) - \
+        torch.einsum("bhvc,wv->bhwc", im1, sw)
+    return out * (1.0 / float(np.sqrt(h * w)))

@@ -265,7 +265,7 @@ def register_twin_vjp(op, n_tensors, twin):
 
 def refuse_grad(what, *tensors):
     """Raise if autograd is recording and one of ``tensors`` needs a
-    gradient.  For the plain ctypes launches (K3, K7): their output has no
+    gradient.  For the plain ctypes launch of K3: its output has no
     ``grad_fn``, so a trainer would lose the gradient silently.  Every
     inference caller passes frozen inputs."""
     import torch

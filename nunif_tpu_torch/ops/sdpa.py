@@ -12,9 +12,17 @@ block: (8, 6, 1373, 64) bf16 at a 392x686 depth input, 12 launches a batch
 of 8 frames.
 
 ``sdpa`` takes its plain twin ``sdpa_plain`` only for CPU tensors; for a
-CUDA tensor it launches the kernel at every sequence length or raises, and
-it raises while autograd records an input that needs a gradient (the
-launch has no backward).
+CUDA tensor it launches the kernel at every sequence length or raises.  It
+calls the custom op ``torch.ops.nunif_tpu_torch.sdpa`` (CPU kernel: the
+twin; CUDA kernel: the launch; a fake kernel for shapes), which
+``torch.export`` records as one node.  Its backward is the twin's
+vector-Jacobian product (``_build.register_twin_vjp``) on either device:
+the JAX package cannot differentiate its Pallas call (``_flash`` passes
+forward block sizes only), so it has no backward kernel to port.  On the
+DINOv2 feature loss (``modules/dinov2_loss.py``) the training forward of
+swin_unet_2x's 192^2 output runs it at (16, 6, 197, 64), 24 launches: 12
+on the output branch, which the backward goes through, and 12 on the
+detached target branch.
 """
 from __future__ import annotations
 
@@ -46,26 +54,40 @@ def _check_operand(name, t, b, h, d):
                          f"aligned start, got strides {t.stride()}")
 
 
+def _out_layout(q):
+    """An empty (B, H, N, d) view of a contiguous (B, N, H, d) tensor, the
+    layout the out projection reads."""
+    B, H, N, d = q.shape
+    return torch.empty_strided((B, H, N, d), (N * H * d, d, H * d, 1),
+                               dtype=q.dtype, device=q.device)
+
+
 def sdpa(q, k, v, *, scale=None):
     """softmax(q @ k^T * scale) @ v for q (B, H, N, d), k and v (B, H, M, d).
 
-    Output (B, H, N, d) in q's dtype.  On CUDA: bf16 only and d = 64 (the
-    head dim of DINOv2 ViT-S/B/L); q, k and v may be strided views (e.g.
-    of a (B, N, 3, H, d) qkv projection), and the output is a (B, H, N, d)
-    view of a (B, N, H, d) contiguous tensor, the layout the out projection
-    reads.
+    Output (B, H, N, d) in q's dtype, a view of a (B, N, H, d) contiguous
+    tensor, the layout the out projection reads.  On CUDA: bf16 only and
+    d = 64 (the head dim of DINOv2 ViT-S/B/L); q, k and v may be strided
+    views (e.g. of a (B, N, 3, H, d) qkv projection).
     """
-    if torch.compiler.is_compiling():
-        raise NotImplementedError(
-            "sdpa: kernel K7 is not a torch.library op, so torch.export "
-            "cannot record it (models/export.py); no exported model reaches it")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sdpa: unsupported device {q.device}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return sdpa_plain(q, k, v, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"sdpa: unsupported device {q.device}")
-    _build.refuse_grad("sdpa", q, k, v)
+    return _sdpa_op(q, k, v, float(scale))
+
+
+@torch.library.custom_op("nunif_tpu_torch::sdpa", mutates_args=(),
+                         device_types="cpu")
+def _sdpa_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             scale: float) -> torch.Tensor:
+    out = _out_layout(q)
+    out.copy_(sdpa_plain(q, k, v, scale=scale))
+    return out
+
+
+@_sdpa_op.register_kernel("cuda")
+def _sdpa_cuda(q, k, v, scale):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"sdpa: the kernel takes bfloat16, {name} is "
@@ -83,9 +105,7 @@ def sdpa(q, k, v, *, scale=None):
     M = k.shape[2]
     if v.shape[2] != M:
         raise ValueError(f"sdpa: k has {M} keys, v {v.shape[2]}")
-    # a (B, H, N, d) view of a contiguous (B, N, H, d) tensor
-    out = torch.empty_strided((B, H, N, d), (N * H * d, d, H * d, 1),
-                              dtype=q.dtype, device=q.device)
+    out = _out_layout(q)
     rc = _build.library().nunif_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, N, M, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -94,5 +114,13 @@ def sdpa(q, k, v, *, scale=None):
     sdpa.launches += 1
     return out
 
+
+@_sdpa_op.register_fake
+def _(q, k, v, scale):
+    return _out_layout(q)
+
+
+_build.register_twin_vjp(
+    _sdpa_op, 3, lambda a, q, k, v: sdpa_plain(q, k, v, scale=a[0]))
 
 sdpa.launches = 0

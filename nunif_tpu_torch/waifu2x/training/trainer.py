@@ -9,8 +9,15 @@ bf16, the kernels' dtype (``core/dtypes.BF16_POLICY``: fp32 parameters,
 bf16 compute), and the loss is taken on the fp32 output; swin_unet's
 forward runs K1 and K2, whose backward is their twins' vector-Jacobian
 product (``ops/_build.register_twin_vjp``).  On the CPU it runs fp32, as
-the JAX trainer does on the batch's fp32 values.  GAN mode waits for a
-later slice (ROADMAP queue 1 item 7).
+the JAX trainer does on the batch's fp32 values.
+
+The feature-net losses build their nets once, on the CPU, and move them
+to the loss's device at its first call: ``l1lpips*`` (LPIPS, a VGG16
+trunk: torchvision weights from the ``.pth`` that ``NUNIF_LPIPS_VGG``
+names, else seeded random), ``l1dinov2*`` / ``yrgb_lbp_dinov2`` (the
+DINOv2 ViT-S trunk in bf16, its attention kernel K7, seeded random) and
+``l1l4sn*`` (L4SN, seeded random).  No pretrained feature-net weights are
+in the repository, and nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -29,32 +36,64 @@ from .dataset import Waifu2xDataset
 
 logger = logging.getLogger("nunif_tpu_torch.waifu2x.training")
 
-FEATURE_NET_ITEM = ("ROADMAP queue 1 item 7 (the feature-net losses: "
-                    "LPIPS, DINOv2, L4SN)")
-
-
 def _aux(loss_fn):
     return L.auxiliary_loss((loss_fn, loss_fn), (1.0, 0.5))
 
 
-def _feature_net(name):
-    def make():
-        raise NotImplementedError(
-            f"loss {name!r} needs a feature net that is not ported yet: "
-            f"{FEATURE_NET_ITEM}")
-    return make
+def _lpips_criterion(base_loss, weight, std_mask=False):
+    """base + weight * LPIPS.  The VGG16 trunk converts from the
+    torchvision ``vgg16`` ``.pth`` that ``NUNIF_LPIPS_VGG`` names; without
+    one it is flax's initialisation from seed 0."""
+    from ...models import from_flax
+    from ...models.pth_import import load_torch_checkpoint
+    from ...models.torch_convert import convert_vgg16_features, flatten
+    from ...modules.lpips import LPIPS, lpips_with
+
+    model = LPIPS()
+    vgg_ckpt = os.environ.get("NUNIF_LPIPS_VGG")
+    if vgg_ckpt:
+        _n, _k, sd = load_torch_checkpoint(vgg_ckpt)
+        from_flax(model, flatten({"net": convert_vgg16_features(sd)}))
+    else:
+        logger.warning("LPIPS: seeded random VGG trunk "
+                       "(set NUNIF_LPIPS_VGG=<torchvision vgg16 .pth>)")
+        init_flax_default(model, torch.Generator().manual_seed(0))
+    model.eval().requires_grad_(False)
+    return _on_device(model, lpips_with(model, base_loss, weight=weight,
+                                        std_mask=std_mask))
 
 
-FEATURE_NET_LOSSES = ("l1lpips", "l1lpips_std_mask", "l1lpips_dct24",
-                      "l1dinov2", "l1dinov2_10", "yrgb_lbp_dinov2",
-                      "l1l4sn", "l1l4sn2", "l1l4sn_swd")
+def _l4sn_criterion(base_loss, weight, swd_weight=0.0):
+    """base + weight * the L4SN feature loss (+ the sliced-Wasserstein
+    term), on flax's initialisation from seed 0."""
+    from ...dino.l4sn import L4SNFeature, l4sn_feature_loss
+
+    model = L4SNFeature()
+    logger.warning("L4SN: seeded random feature net (train one with the "
+                   "dino addon for the reference's trained weights)")
+    init_flax_default(model, torch.Generator().manual_seed(0))
+    model.eval().requires_grad_(False)
+
+    def fn(x, y):
+        return base_loss(x, y) + l4sn_feature_loss(
+            model, x, y, weight=weight, swd_weight=swd_weight)
+    return _on_device(model, fn)
+
+
+def _on_device(model, fn):
+    """fn with ``model`` moved to the device of fn's first input."""
+    def wrapped(x, y):
+        if next(model.parameters()).device != x.device:
+            model.to(x.device)
+        return fn(x, y)
+    return wrapped
 
 
 def create_criterion(name: str):
     """The loss of the reference's LOSS_FUNCTIONS table by name (the JAX
     package's full table).  Random-augmented entries are marked
-    ``needs_rng`` and take the trainer's generator; the feature-net
-    entries raise ``NotImplementedError``."""
+    ``needs_rng`` and take the trainer's generator."""
+    from ...modules.dinov2_loss import dinov2_with
     clamp_l1 = lambda: L.clamp_loss_of(L.l1_loss)  # noqa: E731
     alex11 = lambda: L.clamp_loss_of(                       # noqa: E731
         L.luminance_weighted(L.alex11_loss(in_channels=1)))
@@ -89,7 +128,24 @@ def create_criterion(name: str):
         "aux_lbp_ident": lambda: L.auxiliary_loss(
             (L.ylbp_loss(kernel_size=3), L.identity_loss()), (1.0, 1.0)),
         "ident": lambda: L.identity_loss(),
-        **{n: _feature_net(n) for n in FEATURE_NET_LOSSES},
+        "l1lpips": lambda: _lpips_criterion(clamp_l1(), weight=0.4),
+        "l1lpips_std_mask": lambda: _lpips_criterion(
+            clamp_l1(), weight=0.4, std_mask=True),
+        "l1lpips_dct24": lambda: _lpips_criterion(
+            L.weighted_loss(
+                (clamp_l1(),
+                 L.dct_loss_ex(window_size=24, clamp=True, overlap=True)),
+                (1.0, 0.2)),
+            weight=0.4),
+        "l1dinov2": lambda: dinov2_with(clamp_l1(), kind="pool", weight=0.1),
+        "l1dinov2_10": lambda: dinov2_with(clamp_l1(), kind="pool",
+                                           weight=1.0),
+        "yrgb_lbp_dinov2": lambda: dinov2_with(
+            L.yrgb_lbp_loss(kernel_size=3), kind="cosine", weight=2.0),
+        "l1l4sn": lambda: _l4sn_criterion(clamp_l1(), weight=1.0),
+        "l1l4sn2": lambda: _l4sn_criterion(clamp_l1(), weight=2.0),
+        "l1l4sn_swd": lambda: _l4sn_criterion(clamp_l1(), weight=1.0,
+                                              swd_weight=0.1),
     }
     if name not in table:
         raise ValueError(f"unknown loss: {name} (known: {sorted(table)})")

@@ -1,4 +1,4 @@
-"""The backward of the five custom-op kernels (K1, K2, K4, K5, K6) of
+"""The backward of the six custom-op kernels (K1, K2, K4, K5, K6, K7) of
 nunif_tpu_torch against ``jax.grad`` of the JAX package's plain paths, on
 the CPU.
 
@@ -9,7 +9,7 @@ which is what it runs on the CPU.  So the references are those paths:
 the norm-free Swin block (K1; K5 is the port's window path of the same
 block, ``NUNIF_TPU_SWIN_IMG=0``), the im2col stem conv (K2) and
 ``ShiftedWindowAttention(fused=False)`` on windows (K4) and on the image
-(K6).  Weights and inputs are drawn with numpy and carried across; the
+(K6), and the JAX ``sdpa`` off the TPU (K7: its ``_xla_sdpa``).  Weights and inputs are drawn with numpy and carried across; the
 relative-position tables at std 1 (the init's 0.02 would hide a dropped
 bias), an upstream gradient drawn the same way.
 
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from nunif_tpu.models import unflatten_params
 from nunif_tpu.modules import attention as jattn
+from nunif_tpu.ops import sdpa as jsdpa
 from nunif_tpu.ops.conv3x3 import stem_conv3x3 as jax_stem_conv3x3
 from nunif_tpu.waifu2x.models.swin_unet import Im2ColConv3x3 as JaxIm2Col
 
@@ -34,6 +35,7 @@ from nunif_tpu_torch.models import from_flax
 from nunif_tpu_torch.models.flax_params import _to_flax_layout, flax_keys
 from nunif_tpu_torch.modules import attention as tattn
 from nunif_tpu_torch.ops import _build
+from nunif_tpu_torch.ops import sdpa as k7
 from nunif_tpu_torch.ops import conv3x3 as k2
 from nunif_tpu_torch.waifu2x.models.swin_unet import Im2ColConv3x3
 
@@ -225,12 +227,53 @@ def test_ops_keep_no_graph_without_grad():
 
 
 def test_refuse_grad_guard():
-    """K3 and K7's launches have no backward: on the card their wrappers
-    call ``refuse_grad``, which raises while autograd records an input
-    that needs a gradient and lets frozen inputs and no_grad through."""
+    """K3's launch has no backward: on the card its wrapper calls
+    ``refuse_grad``, which raises while autograd records an input that
+    needs a gradient and lets frozen inputs and no_grad through.  K7 is a
+    custom op with the twin's VJP: its output carries a ``grad_fn``."""
     x = torch.zeros(2, requires_grad=True)
     with pytest.raises(RuntimeError, match="queue 1 item 7"):
         _build.refuse_grad("warp_x_bounded", x, torch.zeros(2))
-    _build.refuse_grad("sdpa", x.detach(), None)
+    _build.refuse_grad("warp_x_bounded", x.detach(), None)
     with torch.no_grad():
-        _build.refuse_grad("sdpa", x, x)
+        _build.refuse_grad("warp_x_bounded", x, x)
+    q = torch.randn(1, 2, 5, 64, requires_grad=True)
+    out = k7.sdpa(q, q.detach(), q.detach())
+    assert "nunif_tpu_torch_sdpa" in type(out.grad_fn).__name__
+    with torch.no_grad():
+        assert k7.sdpa(q, q, q).grad_fn is None
+
+
+def _qkv_views(rng, b=2, n=19, m=19, heads=3, d=64):
+    """q, k, v as the DINOv2 trunk passes them: strided (B, H, N, d) views
+    of a (B, N, 3, H, d) projection (k and v of m tokens)."""
+    qkv = rng.standard_normal((b, max(n, m), 3, heads, d)).astype(np.float32)
+    return qkv, lambda t: [t[:, :n, 0].permute(0, 2, 1, 3), t[:, :m, 1].permute(0, 2, 1, 3),
+                          t[:, :m, 2].permute(0, 2, 1, 3)]
+
+
+@pytest.mark.parametrize("nm", [(19, 19), (7, 12)])
+def test_sdpa_vjp_matches_jax_grad(nm):
+    """K7's op: its backward (the twin's VJP) equals plain autograd through
+    ``sdpa_plain`` exactly and ``jax.grad`` of the JAX ``sdpa`` (its plain
+    path off the TPU) within the file's tolerance, on strided views."""
+    rng = np.random.default_rng(12)
+    n, m = nm
+    qkv, views = _qkv_views(rng, n=n, m=m)
+    g = rng.standard_normal((2, 3, n, 64)).astype(np.float32)
+    scale = 0.11
+    t = torch.from_numpy(qkv).requires_grad_(True)
+    out = k7.sdpa(*views(t), scale=scale)
+    (out * torch.from_numpy(g)).sum().backward()
+    got = t.grad.clone()
+    t.grad = None
+    (k7.sdpa_plain(*views(t), scale=scale) * torch.from_numpy(g)).sum().backward()
+    assert torch.equal(got, t.grad)
+    assert out.stride() == (n * 3 * 64, 64, 3 * 64, 1)   # (B, N, H, d) memory
+
+    def f(a):
+        q, kk, v = (a[:, :n, 0].transpose(0, 2, 1, 3), a[:, :m, 1].transpose(0, 2, 1, 3),
+                    a[:, :m, 2].transpose(0, 2, 1, 3))
+        return jnp.sum(jsdpa.sdpa(q, kk, v, scale=scale) * g)
+    want = jax.grad(f)(jnp.asarray(qkv))
+    _close(got.numpy(), np.asarray(want))

@@ -1165,12 +1165,36 @@ def test_packs_after_an_optimizer_step_are_fresh(cuda):
 
 
 def test_k3_k7_refuse_inputs_that_need_a_gradient(cuda):
+    """K3 still refuses an input that needs a gradient; K7 (a custom op
+    since its backward came) takes it and records its node."""
     x = torch.zeros(1, 4, 16, 3, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="queue 1 item 7"):
         k3.warp_x_bounded(x, torch.zeros(1, 4, 16, device=cuda), 2)
     q = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16,
                     requires_grad=True)
-    with pytest.raises(RuntimeError, match="queue 1 item 7"):
-        k7.sdpa(q, q.detach(), q.detach())
+    assert k7.sdpa(q, q.detach(), q.detach()).grad_fn is not None
     with torch.no_grad():
         k7.sdpa(q, q, q)
+
+
+def test_k7_op_gradient_is_the_twins(cuda):
+    """K7's backward on the card is the twin's VJP on the saved inputs: the
+    gradients equal plain autograd through ``sdpa_plain`` bit for bit, at
+    the DINOv2 loss's shape on strided views of a qkv projection; the
+    forward launches the kernel once and the backward launches nothing."""
+    rng = _rng(13)
+    base = _t(rng.standard_normal((16, 197, 3, 6, 64)), cuda, torch.bfloat16)
+    g = _t(rng.standard_normal((16, 6, 197, 64)), cuda, torch.bfloat16)
+    grads = []
+    for fn in (k7.sdpa, k7.sdpa_plain):
+        qkv = base.clone().requires_grad_(True)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        before = k7.sdpa.launches
+        out = fn(q, k, v)
+        fwd = k7.sdpa.launches - before
+        (out.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert k7.sdpa.launches - before == fwd == (fn is k7.sdpa)
+        grads.append(qkv.grad)
+    assert torch.equal(grads[0], grads[1])
+    assert float(grads[0].float().abs().max()) > 0

@@ -251,8 +251,9 @@ def test_export_helper_ops_match_jax(tmp_path):
 
 @pytest.mark.parametrize("kernel", ["sdpa", "warp_x_bounded"])
 def test_export_refuses_k3_k7(kernel):
-    """K3 and K7 are no custom ops: tracing them raises, it does not
-    record their twins."""
+    """K3 is no custom op: tracing it raises, it does not record its twin.
+    K7 is one (since it got its backward): the graph holds the op itself,
+    not its twin's einsums."""
     from nunif_tpu_torch.modules.grid_sample import warp_x_bounded
     from nunif_tpu_torch.ops.sdpa import sdpa
 
@@ -261,5 +262,12 @@ def test_export_refuses_k3_k7(kernel):
             if kernel == "sdpa":
                 return sdpa(x, x, x)
             return warp_x_bounded(x, x[..., 0], 4)
+    x = torch.rand(1, 2, 8, 64)
+    if kernel == "sdpa":
+        ep = torch.export.export(M(), (x,))
+        calls = [n.target for n in ep.graph.nodes if n.op == "call_function"]
+        assert calls == [torch.ops.nunif_tpu_torch.sdpa.default]
+        np.testing.assert_array_equal(ep.module()(x).numpy(), M()(x).numpy())
+        return
     with pytest.raises(Exception, match="not a torch.library op"):
-        torch.export.export(M(), (torch.rand(1, 2, 8, 64),))
+        torch.export.export(M(), (x,))

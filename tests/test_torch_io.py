@@ -97,18 +97,19 @@ def test_load_model_defaults_to_the_card(small, tmp_path, monkeypatch):
 
 
 def test_unported_architecture_raises(tmp_path):
-    """A checkpoint of an architecture the port lacks (here a training
-    discriminator) raises ``NotPortedError``; the bundled turbo_2x
-    checkpoints load."""
+    """A checkpoint of an architecture the port lacks (here iw3's DA3 mono
+    disparity net; the training discriminators are ported since GAN mode
+    came) raises ``NotPortedError``; the bundled turbo_2x checkpoints
+    load."""
     import json
     import zipfile
-    path = str(tmp_path / "l3_discriminator.nztm")
+    path = str(tmp_path / "da3mono_disparity.nztm")
     with zipfile.ZipFile(path, "w") as zf:
         zf.writestr("__meta__.json", json.dumps(
-            {"nunif_tpu_model": 1, "name": "waifu2x.l3_discriminator",
+            {"nunif_tpu_model": 1, "name": "iw3.da3mono_disparity",
              "kwargs": {}}))
     with pytest.raises(NotPortedError,
-                       match="waifu2x.l3_discriminator.*not ported"):
+                       match="iw3.da3mono_disparity.*not ported"):
         load_model(path, device="cpu")
     bundled = REPO / "models" / "waifu2x" / "turbo" / "scale2x.nztm"
     model, meta = load_model(str(bundled), device="cpu")

@@ -1,6 +1,7 @@
 """The port's losses (``nunif_tpu_torch/modules/losses.py``) and the
 waifu2x loss table (``waifu2x/training/trainer.py:create_criterion``)
-against the JAX package, on the CPU.
+against the JAX package, on the CPU (the feature-net entries:
+``test_torch_feature_losses.py``).
 
 Every entry of the table that needs no feature net, and its gradient with
 respect to the prediction, is held to JAX in fp32 on numpy-seeded inputs
@@ -74,19 +75,21 @@ def test_criterion_and_gradient_match_jax(name):
 
 
 def test_loss_table_matches_jax():
-    """Both tables hold the same names; the feature-net entries raise and
-    name the ROADMAP item that ports them; the rng entries are marked."""
+    """Both tables hold the same names; those this file computes are the
+    table but its nine feature-net entries (held in
+    ``test_torch_feature_losses.py``), which the port builds now (no name
+    refuses); the rng entries are marked."""
     def names(mod):
         with pytest.raises(ValueError) as e:
             mod.create_criterion("bogus")
         return set(eval(str(e.value).split("known: ", 1)[1].rstrip(")")))
     assert names(ttrainer) == names(jtrainer)
     assert set(ttrainer.DEFAULT_LOSSES.items()) == set(jtrainer.DEFAULT_LOSSES.items())
-    for name in ttrainer.FEATURE_NET_LOSSES:
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            ttrainer.create_criterion(name)
-    computed = names(ttrainer) - set(ttrainer.FEATURE_NET_LOSSES)
-    assert computed == set(TABLE + AUX)
+    assert not hasattr(ttrainer, "FEATURE_NET_LOSSES")
+    feature_net = {"l1lpips", "l1lpips_std_mask", "l1lpips_dct24", "l1dinov2",
+                   "l1dinov2_10", "yrgb_lbp_dinov2", "l1l4sn", "l1l4sn2",
+                   "l1l4sn_swd"}
+    assert names(ttrainer) - feature_net == set(TABLE + AUX)
     for name in ("dctirm", "dctir24"):
         assert ttrainer.create_criterion(name).needs_rng
         assert jtrainer.create_criterion(name).needs_rng

@@ -131,9 +131,9 @@ def test_bundled_turbo_dir_is_not_ported_yet(tmp_path):
     import zipfile
     with zipfile.ZipFile(tmp_path / "scale2x.nztm", "w") as zf:
         zf.writestr("__meta__.json", json.dumps(
-            {"nunif_tpu_model": 1, "name": "waifu2x.l3_discriminator",
+            {"nunif_tpu_model": 1, "name": "iw3.da3mono_disparity",
              "kwargs": {}}))
-    with pytest.raises(NotPortedError, match="l3_discriminator.*not ported"):
+    with pytest.raises(NotPortedError, match="da3mono_disparity.*not ported"):
         Waifu2x(str(tmp_path), device="cpu").convert(
             np.zeros((8, 8, 3), np.float32), method="scale")
 

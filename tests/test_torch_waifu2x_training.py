@@ -285,7 +285,8 @@ def test_cli_flags_match_jax():
     assert _flags(t_ctd.create_default_parser(), ttrainer.register_create_training_data) \
         == _flags(jctd.create_default_parser(), jtrainer.register_create_training_data)
     assert [m.__name__ for m, _fn in load_addons("train")] == \
-        ["nunif_tpu_torch.waifu2x.training.trainer"]
+        ["nunif_tpu_torch.waifu2x.training.trainer",
+         "nunif_tpu_torch.iw3.training.inpaint.trainer"]
     args = t_train.create_parser().parse_args(["waifu2x", "--model-dir", "m"])
     assert (args.arch, args.size, args.batch_size, args.optimizer, args.device) == \
         ("waifu2x.swin_unet_2x", 104, 16, "adam", "cuda")
