@@ -229,7 +229,28 @@ written by the port:
   adaptive weight 0 during the warmup of 8, inside its clamp after,
   every metric finite), the trained ``.nztm`` inpainting a 1080p frame
   and scored by the inpaint benchmark (masked PSNR, LPIPS), and the video
-  net with 12-frame clips.
+  net with 12-frame clips;
+- the other trainers ("trainers"): (a) swin_t from a ``.nztm`` of seeded
+  weights, one training step on a fixed 16 x 224^2 batch with seeded
+  labels (cross-entropy on the fp32 logits): K4 12 launches in the
+  forward and none in the backward (the twin's VJP), each parameter's
+  gradient against the twin path held to K4_GRAD_BAR times the twin's own
+  bf16-vs-fp32 error (K4's rounding in plain PyTorch beside it), the twin
+  at twice the score scale as the control that must fail it, fwd + bwd ms
+  and peak memory of both paths; (b)
+  ``train imagenet`` at its defaults for one epoch on a seeded
+  class-folder tree, swin_t then vgg11: K4's launches, steps and samples a
+  second, the data-wait share, peak memory, each ``.nztm`` loaded on the
+  card with the trainer's last eval accuracy, vgg11's calibrated
+  BatchNorm statistics against a float64 recomputation over the same
+  batches; (c) ``create_training_data sbs`` and ``train sbs`` for
+  row_flow_v3 (resumed from the shaped seeded weights) and mlbw_l2, then
+  the trained row_flow_v3 ``.nztm`` on the iw3 1080p batch (K3, K7, >=
+  FRAME_PSNR_MIN against the twins); (d) one short epoch of ``sod``,
+  ``depth_aa``, ``da3mono`` (and its benchmark), ``stlizer_outpaint`` and
+  ``cliqa --kind jpeg``, each ``.nztm`` loaded; (e) the mask-threshold
+  sweep of a seeded ``sbs.mask_mlbw_l2`` over 4 seeded 540p pairs, each
+  IoU finite and in [0, 1].
 
 Every kernel is timed with CUDA events in turns (plain, kernel, library,
 library, kernel, plain) beside its twin and, where one PyTorch call computes
@@ -443,9 +464,10 @@ def iw3_frames(torch, dev, n, h, w, seed):
     return (f.clamp(0, 1) * 255 + 0.5).to(torch.uint8)
 
 
-def iw3_models(torch, dev, model_dir):
+def iw3_models(torch, dev, model_dir, flow_path=None):
     """Write shaped seeded weights to .nztm and load them back through the
-    port's loaders: (depth model, row_flow_v3), on the card."""
+    port's loaders: (depth model, row_flow_v3), on the card; ``flow_path``:
+    row_flow_v3 from that .nztm instead."""
     from nunif_tpu_torch.iw3.depth import create_depth_model
     from nunif_tpu_torch.iw3.depth.depth_anything import (
         DepthAnything, shaped_flax_params as depth_params)
@@ -455,24 +477,26 @@ def iw3_models(torch, dev, model_dir):
     depth = DepthAnything(encoder="vits")
     from_flax(depth, depth_params(depth, seed=0))
     save_model(depth, os.path.join(model_dir, "depth_any_v2_s.nztm"))
-    flow = RowFlowV3()
-    from_flax(flow, flow_params(flow, seed=1))
-    save_model(flow, os.path.join(model_dir, "row_flow_v3.nztm"))
+    if flow_path is None:
+        flow = RowFlowV3()
+        from_flax(flow, flow_params(flow, seed=1))
+        flow_path = os.path.join(model_dir, "row_flow_v3.nztm")
+        save_model(flow, flow_path)
     dm = create_depth_model("Any_V2_S", device=dev).load(
         checkpoint=os.path.join(model_dir, "depth_any_v2_s.nztm"))
-    flow, _meta = load_model(os.path.join(model_dir, "row_flow_v3.nztm"),
-                             device=dev)
+    flow, _meta = load_model(flow_path, device=dev)
     return dm, flow
 
 
-def iw3_batch(torch, dev, model_dir, k3, k7):
+def iw3_batch(torch, dev, model_dir, k3, k7, flow_path=None):
     """8 uint8 1080p frames -> half-SBS through Iw3FrameProcessor: launch
     counts, non-degeneracy, median time of 3 batches after a warm one,
-    and PSNR against the same batch through the twins."""
+    and PSNR against the same batch through the twins; ``flow_path``: a
+    row_flow_v3 .nztm to run in place of the seeded one."""
     from nunif_tpu_torch.iw3.composition import StereoFormat
     from nunif_tpu_torch.iw3.pipeline import StereoConfig, apply_divergence
     from nunif_tpu_torch.iw3.video import Iw3FrameProcessor
-    dm, flow = iw3_models(torch, dev, model_dir)
+    dm, flow = iw3_models(torch, dev, model_dir, flow_path)
     cfg = StereoConfig(method="row_flow_v3", divergence=2.0, convergence=0.5,
                        format=StereoFormat(half_sbs=True))
     proc = Iw3FrameProcessor(cfg, dm, flow, edge_dilation=2)
@@ -4552,11 +4576,11 @@ TRAIN_CLI_SAMPLES, TRAIN_CLI_EPOCHS = 320, 2
 TRAIN_RENDER_HW = (540, 960)
 
 
-def train_grads(torch, model, x, y, loss_fn, dtype, k1, k2):
+def train_grads(torch, model, x, y, loss_fn, dtype, counted):
     """(loss, {name: gradient}, forward launches, backward launches, fwd +
     bwd ms) of one training forward of x in ``dtype`` and the backward of
-    the loss on its fp32 output."""
-    counted = ((k1, "fused_swin_block_image"), (k2, "stem_conv3x3"))
+    the loss on its fp32 output; ``counted``: the (module, kernel name)
+    pairs whose launches are read."""
     for p in model.parameters():
         p.grad = None
     for mod, name in counted:
@@ -4632,15 +4656,15 @@ def train_step_check(torch, dev, k1, k2):
     bf16 = torch.bfloat16
 
     loss_k, g_k, fwd, bwd, ms_k = train_grads(torch, model, x, y, loss_fn,
-                                              bf16, k1, k2)
+                                              bf16, pairs)
     loss_k2, g_k2, _f, _b, ms_k2 = train_grads(torch, model, x, y, loss_fn,
-                                               bf16, k1, k2)
+                                               bf16, pairs)
     with twins(*pairs):
         loss_t, g_t, fwd_t, _b, ms_t = train_grads(torch, model, x, y,
-                                                   loss_fn, bf16, k1, k2)
+                                                   loss_fn, bf16, pairs)
         loss_32, g_32, _f, _b, ms_32 = train_grads(torch, model, x, y,
                                                    loss_fn, torch.float32,
-                                                   k1, k2)
+                                                   pairs)
     print(f"train step: swin_unet_2x base {TRAIN_BASE} ({n_params} "
           f"parameters), batch {TRAIN_BATCH} x {TRAIN_TILE}^2, loss lbp; "
           f"loss kernel path {loss_k:.6f} (again {loss_k2:.6f}), twin path "
@@ -4682,7 +4706,7 @@ def train_step_check(torch, dev, k1, k2):
     with torch.no_grad():
         for t in tables:
             t.zero_()
-    _l, g_c, _f, _b, _ms = train_grads(torch, model, x, y, loss_fn, bf16, k1, k2)
+    _l, g_c, _f, _b, _ms = train_grads(torch, model, x, y, loss_fn, bf16, pairs)
     with torch.no_grad():
         for t, v in zip(tables, saved):
             t.copy_(v)
@@ -5181,6 +5205,474 @@ def feature_gan_phase(torch, dev, k1, k2, k7, smi, work_dir):
               f"wall; last {r['last']}; adaptive weight after step {r['start']} in "
               f"{r['disc_weight_after_start']}; inpaint {r['render_shape']} in "
               f"{r['render_ms']:.1f} ms; eval benchmark {r['benchmark']}", flush=True)
+    return out
+
+
+# the "trainers" phase: swin_t's training step at the trainer's defaults
+# (batch 16 x 224^2, bf16), K4 12 a forward and none in the backward; each
+# gradient tensor held to K4_GRAD_BAR x the twin's own bf16 error, with the
+# twin at 2x the score scale as the control.  The bar of PR 24 / 25, 1.0,
+# sits at the noise floor of swin_t's relative-bias tables: their gradient
+# sums dL/dlogit over every window, so one bf16 rounding of a probability
+# that an fp32 difference flips moves it by the whole net's bf16 error.
+# k4_rounding_model, which differs from the twin only in fp32 roundings,
+# reaches 1.02 there on the CPU and the kernel 1.049 on the card; the
+# control reads 11.  Then each new trainer's CLI for one short epoch
+# (TRAINER_STEPS steps of 16)
+K4_GRAD_BAR = 1.5
+SWIN_T_TRAIN_BATCH = 16
+TRAINER_STEPS = 4
+TRAINER_CLASSES, TRAINER_IMAGES, TRAINER_EVAL_IMAGES = 4, 32, 8
+SWEEP_PAIRS, SWEEP_HW = 4, (540, 960)
+
+
+def run_train_cli(argv, what, dev):
+    """``python -m nunif_tpu_torch.train`` ``argv`` on ``dev`` in this
+    process: (its ``train:`` lines, wall s)."""
+    from nunif_tpu_torch.train import main as train_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_main([*argv, "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    lines = [json.loads(s[len("train: "):]) for s in buf.getvalue().splitlines()
+             if s.startswith("train: ")]
+    if rc or not lines:
+        fail(f"{what}: rc {rc}, {buf.getvalue()[-2000:]}")
+    for e in lines:
+        if not (np.isfinite(e["train_loss"]) and e["eval_score"] is not None
+                and np.isfinite(e["eval_score"])) or e["nan_count"] \
+                or e["device"].split(":")[0] != dev.type:
+            fail(f"{what}: epoch {e}")
+    return lines, wall
+
+
+def window_attention_scaled(k4, scale):
+    """K4's twin with the scores scaled by ``scale`` (q times scale): the
+    gradient check's control."""
+    def fn(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
+        c = qkv.shape[-1] // 3
+        qkv = qkv.clone()
+        qkv[..., :c] = qkv[..., :c] * scale
+        return k4.window_attention_plain(qkv, bias, num_heads=num_heads,
+                                         window=window, shift=shift,
+                                         n_wh=n_wh, n_ww=n_ww)
+    return fn
+
+
+def k4_rounding_model(torch, k4):
+    """K4's forward at its rounding points in plain PyTorch, with the
+    twin's VJP as backward (as the op's): the logit s scale + bias rounded
+    once (the kernel's fused multiply-add), the exponential rounded once
+    from float64 (the kernel's ``__expf`` is within 2 ulp), the
+    normalised probabilities rounded to qkv's dtype, fp32 P V rounded
+    once.  It differs from the twin only in fp32 roundings, so its
+    gradients' distance from the twin path's is the floor of what any fp32
+    evaluation of the same attention reaches."""
+    from nunif_tpu_torch.modules.attention import shifted_window_mask
+
+    def forward(qkv, bias, num_heads, window, shift, n_wh, n_ww):
+        dt = qkv.dtype
+        nw, n, c3 = qkv.shape
+        c = c3 // 3
+        hd = c // num_heads
+        q, k, v = qkv.double().reshape(nw, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+        s = (q @ k.transpose(-1, -2)).float().double() * (hd ** -0.5) + bias.double()[None]
+        if shift:
+            mask = torch.from_numpy(shifted_window_mask(
+                n_wh * window, n_ww * window, window, shift)).to(qkv.device)
+            s = (s.reshape(-1, n_wh * n_ww, num_heads, n, n) + mask[None, :, None]
+                 ).reshape(nw, num_heads, n, n)
+        s = s.float()
+        e = torch.exp((s - s.amax(-1, keepdim=True)).double()).float()
+        p = (e * (1.0 / e.sum(-1, keepdim=True))).to(dt).float()
+        out = (p @ v.float()).to(dt)
+        return out.transpose(1, 2).reshape(nw, n, c)
+
+    class Model(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, qkv, bias, kw):
+            ctx.save_for_backward(qkv, bias)
+            ctx.kw = kw
+            return forward(qkv, bias, **kw)
+
+        @staticmethod
+        def backward(ctx, grad):
+            qkv, bias = ctx.saved_tensors
+            with torch.enable_grad():
+                a = qkv.detach().requires_grad_(True)
+                b = bias.detach().requires_grad_(ctx.needs_input_grad[1])
+                wrt = [a, b] if ctx.needs_input_grad[1] else [a]
+                gs = torch.autograd.grad(k4.window_attention_plain(a, b, **ctx.kw),
+                                         wrt, grad)
+            return gs[0], (gs[1] if len(gs) > 1 else None), None
+
+    def fn(qkv, bias, *, num_heads, window, shift, n_wh, n_ww):
+        return Model.apply(qkv, bias, dict(num_heads=num_heads, window=window,
+                                           shift=shift, n_wh=n_wh, n_ww=n_ww))
+    return fn
+
+
+def swin_t_train_check(torch, dev, k4, smi, work_dir):
+    """Part (a): swin_t from a .nztm of seeded weights, one fixed batch of
+    16 x 224^2 with seeded labels, cross-entropy on the fp32 logits: K4's
+    launches in the forward and the backward, each parameter gradient of
+    the K4 path against the twin path within K4_GRAD_BAR x the twin's own
+    bf16-vs-fp32 error, the 2x-scale control failing it, fwd + bwd ms and
+    peak memory of each path."""
+    import torch.nn.functional as F
+    from nunif_tpu_torch.imagenet.models import SwinT
+    from nunif_tpu_torch.models import from_flax, load_model, save_model
+    cpu_model = SwinT()
+    from_flax(cpu_model, serving_flax(cpu_model, seed=5))
+    path = os.path.join(work_dir, "swin_t_train.nztm")
+    save_model(cpu_model, path)
+    del cpu_model
+    model, _meta = load_model(path, device=dev)
+    model.requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x = torch.rand((SWIN_T_TRAIN_BATCH, IMAGENET_HW, IMAGENET_HW, 3),
+                   generator=gen, device=dev)
+    y = torch.randint(0, 1000, (SWIN_T_TRAIN_BATCH,), generator=gen, device=dev)
+    pairs = ((k4, "fused_window_attention"),)
+    bf16 = torch.bfloat16
+
+    cuda = dev.type == "cuda"
+
+    def step(dtype):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        out = train_grads(torch, model, x, y, F.cross_entropy, dtype, pairs)
+        torch_sync()
+        return out + (torch.cuda.max_memory_allocated(dev) if cuda else 0,)
+
+    step(bf16)  # warm: cuDNN and cuBLAS pick their kernels
+    loss_k, g_k, fwd, bwd, ms_k, mem_k = step(bf16)
+    _l, _g, _f, _b, ms_k2, _m = step(bf16)
+    with twins(*pairs):
+        step(bf16)
+        loss_t, g_t, fwd_t, _b, ms_t, mem_t = step(bf16)
+        loss_32, g_32, _f, _b, ms_32, _m = step(torch.float32)
+    saved = k4.fused_window_attention
+    try:
+        k4.fused_window_attention = window_attention_scaled(k4, K7_SCALE_CONTROL)
+        _l, g_c, _f, _b, _ms, _m = step(bf16)
+        k4.fused_window_attention = k4_rounding_model(torch, k4)
+        _l, g_m, _f, _b, _ms, _m = step(bf16)
+    finally:
+        k4.fused_window_attention = saved
+    own = grad_errors(torch, g_t, g_32)
+
+    def over_own(g):
+        err = grad_errors(torch, g, g_t)
+        return err, {n: err[n][0] / max(own[n][0], 1e-30) for n in err}
+    err, ratio = over_own(g_k)
+    _e, ctrl_ratio = over_own(g_c)
+    _e, model_ratio = over_own(g_m)
+    worst = max(ratio, key=ratio.get)
+    worst_ctrl = max(ctrl_ratio, key=ctrl_ratio.get)
+    worst_model = max(model_ratio, key=model_ratio.get)
+    top = sorted(ratio, key=ratio.get, reverse=True)[:4]
+    print("swin_t grads, the largest ratios to the twin's own bf16 error: "
+          + "; ".join(f"{n}: kernel {ratio[n]:.4f}, rounding model "
+                      f"{model_ratio[n]:.4f}" for n in top)
+          + f"; the rounding model's worst {model_ratio[worst_model]:.4f} "
+          f"({worst_model})", flush=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"swin_t train step ({smi}): batch {SWIN_T_TRAIN_BATCH} x "
+          f"{IMAGENET_HW}^2 bf16, {n_params} parameters, cross-entropy; loss "
+          f"kernel path {loss_k:.6f}, twin {loss_t:.6f}, twin fp32 {loss_32:.6f}; "
+          f"K4 launches forward {fwd} backward {bwd} (twin path {fwd_t}); "
+          f"worst rel / own bf16 error {ratio[worst]:.4f} ({worst}: rel "
+          f"{err[worst][0]:.4g}, own {own[worst][0]:.4g}; bar {K4_GRAD_BAR}); "
+          f"control (scores x{K7_SCALE_CONTROL}) worst {ctrl_ratio[worst_ctrl]:.3f} "
+          f"({worst_ctrl}); fwd+bwd ms kernel {ms_k:.1f} / {ms_k2:.1f}, twin "
+          f"{ms_t:.1f}, twin fp32 {ms_32:.1f}; peak memory kernel "
+          f"{mem_k / 2 ** 30:.2f} GiB, twin {mem_t / 2 ** 30:.2f} GiB", flush=True)
+    if fwd != {"fused_window_attention": SWIN_T_K4} or \
+            bwd != {"fused_window_attention": 0} or \
+            fwd_t != {"fused_window_attention": 0}:
+        fail(f"swin_t training step: K4 launches forward {fwd} backward {bwd}, "
+             f"twin path {fwd_t}; want {SWIN_T_K4} / 0 / 0")
+    if not all(np.isfinite(v) for v in (loss_k, loss_t, loss_32)) or \
+            not all(bool(g.isfinite().all()) for g in g_k.values()):
+        fail("swin_t training step: a non-finite loss or gradient")
+    if ratio[worst] > K4_GRAD_BAR:
+        fail(f"swin_t gradient of {worst} off the twin path by {err[worst][0]:.4g} "
+             f"relative, beyond {K4_GRAD_BAR} x the twin's own bf16 error "
+             f"{own[worst][0]:.4g}")
+    if ctrl_ratio[worst_ctrl] <= K4_GRAD_BAR:
+        fail(f"swin_t gradient: the x{K7_SCALE_CONTROL} control passes "
+             f"({ctrl_ratio[worst_ctrl]:.3f}): the check is blind")
+    out = {"loss": [loss_k, loss_t, loss_32], "forward_launches": fwd,
+           "backward_launches": bwd, "worst_rel_over_own": ratio[worst],
+           "worst_tensor": worst, "control_rel_over_own": ctrl_ratio[worst_ctrl],
+           "rounding_model_rel_over_own": model_ratio[worst_model],
+           "rounding_model_at_worst": model_ratio[worst],
+           "fwd_bwd_ms": {"kernel": [ms_k, ms_k2], "twin": ms_t, "twin_fp32": ms_32},
+           "peak_memory_bytes": {"kernel": mem_k, "twin": mem_t},
+           "parameters": n_params}
+    del model, g_k, g_t, g_32, g_c, g_m, x, y
+    torch_empty_cache()
+    return out
+
+
+def image_folder_tree(root):
+    """train/ (TRAINER_CLASSES classes x TRAINER_IMAGES) and eval/ (x
+    TRAINER_EVAL_IMAGES) of seeded 256^2 PNGs."""
+    from PIL import Image
+    for split, n in (("train", TRAINER_IMAGES), ("eval", TRAINER_EVAL_IMAGES)):
+        for c in range(TRAINER_CLASSES):
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(n):
+                Image.fromarray(structured_frame(256, 256, 1000 * c + i + (
+                    500 if split == "eval" else 0))).save(os.path.join(d, f"{i}.png"))
+
+
+def imagenet_eval_accuracy(torch, dev, model, root, dtype):
+    """Mean of the eval set's per-batch top-1 accuracies (batches of 16),
+    as the trainer's eval takes it."""
+    from nunif_tpu_torch.imagenet.training import ImageFolderDataset
+    ds = ImageFolderDataset(os.path.join(root, "eval"), size=IMAGENET_HW,
+                            training=False)
+    hits = []
+    with torch.no_grad():
+        for b in ds.batches(SWIN_T_TRAIN_BATCH):
+            logits = model(torch.from_numpy(b["x"]).to(dev, dtype)).float()
+            y = torch.from_numpy(b["y"]).to(dev).long()
+            hits.append(float((logits.argmax(-1) == y).float().mean()))
+    return float(np.mean(hits))
+
+
+def calibration_check(torch, dev, model_path, root):
+    """vgg11's calibrate_bn on the card over 4 training batches against a
+    float64 recomputation: each BN input taken by a hook in the same
+    train-mode bf16 forwards, concatenated, its two-pass mean and
+    variance.  Returns the largest relative error."""
+    from nunif_tpu_torch.imagenet.training import (ImageFolderDataset, bn_names,
+                                                   calibrate_bn)
+    from nunif_tpu_torch.models import load_model
+    model, _meta = load_model(model_path, device=dev)
+    ds = ImageFolderDataset(os.path.join(root, "train"), size=IMAGENET_HW)
+    batches = [b for _, b in zip(range(4), ds.batches(SWIN_T_TRAIN_BATCH))]
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    got = calibrate_bn(model, params, batches, max_batches=16, dtype=torch.bfloat16)
+    taken = {n: [] for n in bn_names(model)}
+    hooks = [getattr(model, n).register_forward_pre_hook(
+        lambda _m, inputs, n=n: taken[n].append(inputs[0].detach().double()
+                                                .reshape(-1, inputs[0].shape[-1])))
+        for n in taken]
+    with torch.no_grad():
+        for b in batches:
+            model(torch.from_numpy(b["x"]).to(dev, torch.bfloat16), train=True)
+    for h in hooks:
+        h.remove()
+    worst = 0.0
+    for n, parts in taken.items():
+        v = torch.cat(parts)
+        for stat, want in (("mean", v.mean(0)), ("var", v.var(0, unbiased=False))):
+            have = got[f"{n}.{stat}"].double()
+            rel = float((have - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+    del model, taken
+    torch_empty_cache()
+    return worst
+
+
+def imagenet_cli_check(torch, dev, k4, smi, work_dir):
+    """Part (b): ``train imagenet`` at its defaults for one epoch on a
+    seeded class-folder tree, swin_t (K4 counted) then vgg11; each .nztm
+    loaded on the card, its eval accuracy equal to the trainer's last;
+    vgg11's calibrated statistics against a float64 recomputation."""
+    from nunif_tpu_torch.models import load_model
+    root = os.path.join(work_dir, "imagenet_data")
+    image_folder_tree(root)
+    n = TRAINER_CLASSES * TRAINER_IMAGES
+    out = {}
+    for arch in ("imagenet.swin_t", "imagenet.vgg11"):
+        model_dir = os.path.join(work_dir, arch.replace(".", "_"))
+        k4.fused_window_attention.launches = 0
+        lines, wall = run_train_cli(
+            ["imagenet", "--arch", arch, "--data-dir", root, "--model-dir",
+             model_dir, "--num-samples", str(n), "--max-epoch", "1"], arch, dev)
+        launches = k4.fused_window_attention.launches
+        e = lines[-1]
+        path = os.path.join(model_dir, arch.replace(".", "_") + ".nztm")
+        model, meta = load_model(path, device=dev)
+        acc = imagenet_eval_accuracy(torch, dev, model, root, torch.bfloat16)
+        del model
+        torch_empty_cache()
+        r = out[arch] = {"epoch": e, "wall_s": wall, "k4_launches": launches,
+                         "nztm_eval_accuracy": acc, "nztm_name": meta["name"]}
+        steps = n // SWIN_T_TRAIN_BATCH
+        evals = TRAINER_CLASSES * TRAINER_EVAL_IMAGES // SWIN_T_TRAIN_BATCH
+        want = SWIN_T_K4 * (steps + evals) if arch == "imagenet.swin_t" else 0
+        if launches != want or e["steps"] != steps:
+            fail(f"train {arch}: {e['steps']} steps, K4 launches {launches}, want "
+                 f"{steps} and {want}")
+        if acc != -e["eval_score"]:
+            fail(f"train {arch}: the exported .nztm's eval accuracy {acc} is not "
+                 f"the trainer's last eval {-e['eval_score']}")
+        if arch == "imagenet.vgg11":
+            r["calibration_rel_err"] = calibration_check(torch, dev, path, root)
+            if not r["calibration_rel_err"] <= 1e-4:
+                fail(f"vgg11 calibrate_bn off a float64 recomputation by "
+                     f"{r['calibration_rel_err']} relative")
+        print(f"train {arch} CLI ({smi}): {e['steps']} steps of "
+              f"{SWIN_T_TRAIN_BATCH} x {IMAGENET_HW}^2 in {wall:.1f} s wall; "
+              f"{e['steps_per_second']:.3f} steps/s, {e['samples_per_second']:.2f} "
+              f"samples/s, data wait {e['data_wait_share']:.3f}, peak memory "
+              f"{(e['peak_memory_bytes'] or 0) / 2 ** 30:.2f} GiB; loss "
+              f"{e['train_loss']:.5f}, eval accuracy {-e['eval_score']:.4f} (the "
+              f".nztm on the card: {acc:.4f}); K4 launches {launches}"
+              + (f"; calibrated BN statistics vs float64 max rel err "
+                 f"{r['calibration_rel_err']:.3g}" if arch == "imagenet.vgg11" else ""),
+              flush=True)
+    return out
+
+
+def sbs_cli_check(torch, dev, k3, k7, smi, work_dir):
+    """Part (c): ``create_training_data sbs`` at its defaults on the card,
+    then ``train sbs`` for one epoch: row_flow_v3 resumed from the shaped
+    seeded weights of the iw3 phases (written as the trainer's checkpoint,
+    so its deltas move pixels), mlbw_l2 from flax's init; the trained
+    row_flow_v3 .nztm then drives the iw3 1080p batch (iw3_batch)."""
+    from nunif_tpu_torch.create_training_data import main as ctd_main
+    from nunif_tpu_torch.iw3.models.row_flow_v3 import RowFlowV3, shaped_flax_params
+    from nunif_tpu_torch.iw3.training.sbs.trainer import build_trainer
+    from nunif_tpu_torch.models import from_flax, load_model
+    from nunif_tpu_torch.train import create_parser
+    data = os.path.join(work_dir, "sbs_data")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = ctd_main(["sbs", "-i", "synthetic", "-o", data, "--device", str(dev)])
+    data_s = time.perf_counter() - t0
+    n_quads = len(os.listdir(os.path.join(data, "train"))) // 4
+    if rc or not n_quads:
+        fail(f"create_training_data sbs: rc {rc}, {n_quads} quads")
+    out = {"data_seconds": data_s, "quads": n_quads}
+    n = TRAINER_STEPS * 16
+    for arch in ("sbs.row_flow_v3", "sbs.mlbw_l2"):
+        model_dir = os.path.join(work_dir, arch.replace(".", "_"))
+        argv = ["sbs", "--arch", arch, "--data-dir", data, "--model-dir", model_dir,
+                "--num-samples", str(n), "--max-epoch", "1"]
+        if arch == "sbs.row_flow_v3":
+            trainer, _t, _e = build_trainer(create_parser().parse_args(
+                [*argv, "--device", str(dev)]))
+            from_flax(trainer.model, shaped_flax_params(RowFlowV3(), seed=1))
+            trainer.save_checkpoint()
+            del trainer
+            argv.append("--resume")
+        lines, wall = run_train_cli(argv, f"train {arch}", dev)
+        e = lines[-1]
+        file = "sbs_row_flow_v3.nztm" if arch == "sbs.row_flow_v3" else "sbs_mlbw.nztm"
+        _m, meta = load_model(os.path.join(model_dir, file), device=dev)
+        out[arch] = {"epoch": e, "wall_s": wall, "nztm_name": meta["name"]}
+        print(f"train sbs {arch} CLI ({smi}): {e['steps']} steps of 16 x 96^2 in "
+              f"{wall:.1f} s wall; {e['steps_per_second']:.3f} steps/s, data wait "
+              f"{e['data_wait_share']:.3f}, peak memory "
+              f"{(e['peak_memory_bytes'] or 0) / 2 ** 30:.2f} GiB; loss "
+              f"{e['train_loss']:.6f}, eval loss {e['eval_score']:.6f}", flush=True)
+    flow = os.path.join(work_dir, "sbs_row_flow_v3", "sbs_row_flow_v3.nztm")
+    med, launches, psnr = iw3_batch(torch, dev, work_dir, k3, k7, flow_path=flow)
+    out["iw3_batch"] = {"median_ms": med, "launches": launches, "psnr_vs_twins": psnr}
+    print(f"iw3 1080p batch on the trained row_flow_v3 ({smi}): median {med:.1f} ms, "
+          f"launches {launches}, kernel path vs twin path {psnr:.2f} dB", flush=True)
+    torch_empty_cache()
+    return out
+
+
+OTHER_TRAINERS = {
+    "sod": ("iw3_sod_v1.nztm", []),
+    "depth_aa": ("iw3_depth_aa.nztm", ["--loss", "dct"]),
+    "da3mono": ("iw3_da3mono_disparity.nztm", []),
+    "stlizer_outpaint": ("stlizer_light_outpaint_v1.nztm", []),
+    "cliqa": ("cliqa_jpeg_quality.nztm", ["--kind", "jpeg", "--synthetic-p", "1.0"]),
+}
+
+
+def other_trainers_check(torch, dev, smi, work_dir):
+    """Part (d): one short epoch of each other trainer at its default size
+    on synthetic data, each .nztm loaded on the card; da3mono's benchmark
+    on its trained file."""
+    from nunif_tpu_torch.iw3.training.da3mono import benchmark_main
+    from nunif_tpu_torch.models import load_model
+    out = {}
+    for name, (file, extra) in OTHER_TRAINERS.items():
+        model_dir = os.path.join(work_dir, f"train_{name}")
+        lines, wall = run_train_cli(
+            [name, "--data-dir", os.path.join(work_dir, "no_data"), "--model-dir",
+             model_dir, "--num-samples", str(TRAINER_STEPS * 16), "--max-epoch", "1",
+             *extra], f"train {name}", dev)
+        e = lines[-1]
+        _m, meta = load_model(os.path.join(model_dir, file), device=dev)
+        r = out[name] = {"epoch": e, "wall_s": wall, "nztm_name": meta["name"]}
+        if name == "da3mono":
+            r["benchmark_psnr"] = benchmark_main(os.path.join(model_dir, file),
+                                                 device=str(dev))
+            if not np.isfinite(r["benchmark_psnr"]):
+                fail(f"da3mono benchmark: {r['benchmark_psnr']}")
+        print(f"train {name} CLI ({smi}): {e['steps']} steps of 16 in {wall:.1f} s "
+              f"wall; {e['steps_per_second']:.3f} steps/s, data wait "
+              f"{e['data_wait_share']:.3f}, peak memory "
+              f"{(e['peak_memory_bytes'] or 0) / 2 ** 30:.2f} GiB; loss "
+              f"{e['train_loss']:.6f}, eval {e['eval_score']:.6f}"
+              + (f"; benchmark normalised PSNR {r['benchmark_psnr']:.3f} dB"
+                 if name == "da3mono" else ""), flush=True)
+    torch_empty_cache()
+    return out
+
+
+def sweep_check(torch, dev, smi, work_dir):
+    """Part (e): find_mask_threshold.sweep on a seeded sbs.mask_mlbw_l2
+    .nztm over SWEEP_PAIRS seeded 540p rgb + depth pairs (smooth depth with
+    raised blocks, so the forward warp leaves holes): each IoU finite and
+    in [0, 1]."""
+    from PIL import Image
+    from nunif_tpu_torch.iw3.models.mlbw import MLBW, shaped_flax_params
+    from nunif_tpu_torch.iw3.training.sbs.find_mask_threshold import sweep
+    from nunif_tpu_torch.models import from_flax, save_model
+    root = os.path.join(work_dir, "sweep")
+    h, w = SWEEP_HW
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(SWEEP_PAIRS):
+        Image.fromarray(structured_frame(h, w, 40 + i)).save(
+            os.path.join(root, "rgb", f"{i}.png"))
+        rng = np.random.default_rng(60 + i)
+        yy, xx = np.mgrid[0:h, 0:w] / w
+        d = 0.3 + 0.2 * np.sin(4 * xx + 3 * yy)
+        for _ in range(4):
+            y0, x0 = rng.integers(0, h - h // 3), rng.integers(0, w - w // 4)
+            d[y0:y0 + h // 3, x0:x0 + w // 4] = rng.uniform(0.6, 1.0)
+        Image.fromarray((d * 255 + 0.5).astype(np.uint8)).save(
+            os.path.join(root, "depth", f"{i}.png"))
+    net = MLBW(num_layers=2, base_dim=32, hole_mask=True)
+    from_flax(net, shaped_flax_params(net, seed=3))
+    ckpt = os.path.join(root, "mask_mlbw_l2.nztm")
+    save_model(net, ckpt)
+    t0 = time.perf_counter()
+    table = sweep(os.path.join(root, "rgb"), os.path.join(root, "depth"), ckpt,
+                  device=str(dev))
+    wall = time.perf_counter() - t0
+    print(f"find_mask_threshold sweep ({smi}): {SWEEP_PAIRS} pairs of {h}x{w} in "
+          f"{wall:.1f} s; IoU by threshold {json.dumps(table)}", flush=True)
+    if not table or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in table.values()):
+        fail(f"find_mask_threshold sweep: {table}")
+    return {"iou": table, "wall_s": wall}
+
+
+def trainers_phase(torch, dev, k3, k4, k7, smi, work_dir):
+    """The "trainers" phase: (a) swin_t's training step through K4,
+    (b) the imagenet CLI (swin_t, vgg11), (c) sbs data and training and
+    the trained row_flow_v3 on the iw3 batch, (d) the other trainers'
+    CLIs, (e) the mask threshold sweep."""
+    out = {"swin_t_step": swin_t_train_check(torch, dev, k4, smi, work_dir)}
+    out["imagenet"] = imagenet_cli_check(torch, dev, k4, smi, work_dir)
+    out["sbs"] = sbs_cli_check(torch, dev, k3, k7, smi, work_dir)
+    out["others"] = other_trainers_check(torch, dev, smi, work_dir)
+    out["sweep"] = sweep_check(torch, dev, smi, work_dir)
     return out
 
 
@@ -5791,6 +6283,13 @@ def main() -> int:
     phase("feature losses and GAN")
     feature_gan = feature_gan_phase(torch, dev, k1, k2, k7, smi, new_dir.name)
     print(f"feature losses and GAN: {smi}; " + json.dumps(feature_gan), flush=True)
+
+    # 24. every other trainer: swin_t trains through K4 (backward: the
+    # twin's VJP), imagenet, sbs (its export drives the iw3 batch), sod,
+    # depth_aa, da3mono, stlizer, cliqa, the mask threshold sweep
+    phase("trainers")
+    trainers = trainers_phase(torch, dev, k3, k4, k7, smi, new_dir.name)
+    print(f"trainers: {smi}; " + json.dumps(trainers), flush=True)
     new_dir.cleanup()
 
     k1_bf16 = [r for r in k1_rows if r["dtype"] == "bfloat16"]
@@ -5965,6 +6464,19 @@ def main() -> int:
          "swin_t_launches": imagenet["swin_t"]["k4_launches"],
          "swin_t_forward_ms": imagenet["swin_t"]["forward_ms"],
          "swin_t_images_per_s_median": imagenet["swin_t"]["images_per_s_median"],
+         # a swin_t training step at batch 16 x 224^2, bf16: the forward's
+         # launches, the backward's (the twin's VJP), the gradient ratio
+         "train_launches": trainers["swin_t_step"]["forward_launches"][
+             "fused_window_attention"],
+         "train_backward_launches": trainers["swin_t_step"]["backward_launches"][
+             "fused_window_attention"],
+         "train_grad_rel_over_own": trainers["swin_t_step"]["worst_rel_over_own"],
+         "train_grad_control_rel_over_own":
+             trainers["swin_t_step"]["control_rel_over_own"],
+         "train_grad_rounding_model_rel_over_own":
+             trainers["swin_t_step"]["rounding_model_rel_over_own"],
+         "train_fwd_bwd_ms": trainers["swin_t_step"]["fwd_bwd_ms"]["kernel"],
+         "train_cli_launches": trainers["imagenet"]["imagenet.swin_t"]["k4_launches"],
          **window_extras(k4_bf16, k4_sum)},
         {"name": "sdpa", "route": "cuda",
          "source": "nunif_tpu_torch/csrc/flash_attn.cu",

@@ -1,9 +1,10 @@
 """Addons: app modules that register train / training-data commands
 (counterpart of ``nunif_tpu/addon.py``).
 
-waifu2x's trainer and iw3's inpaint trainer are ported.  The JAX
-package's other addons (iw3's sbs, sod, depth_aa and da3mono trainers,
-stlizer, cliqa and imagenet) wait for ROADMAP queue 1 item 7.
+All nine of the JAX package's addons are ported, in its order: waifu2x,
+iw3's sbs, inpaint, sod, depth_aa and da3mono trainers, stlizer's
+outpaint trainer, cliqa and imagenet.  waifu2x and sbs also register a
+``create_training_data`` command.
 """
 from __future__ import annotations
 
@@ -11,7 +12,14 @@ import importlib
 
 ADDON_MODULES = [
     "nunif_tpu_torch.waifu2x.training.trainer",
+    "nunif_tpu_torch.iw3.training.sbs.trainer",
     "nunif_tpu_torch.iw3.training.inpaint.trainer",
+    "nunif_tpu_torch.iw3.training.sod",
+    "nunif_tpu_torch.iw3.training.depth_aa",
+    "nunif_tpu_torch.iw3.training.da3mono",
+    "nunif_tpu_torch.stlizer.training",
+    "nunif_tpu_torch.cliqa.training",
+    "nunif_tpu_torch.imagenet.training",
 ]
 
 

@@ -24,9 +24,9 @@ from ..modules.norm import LayerNorm
 class FrozenBatchNorm(nn.Module):
     """BatchNorm whose running statistics are parameters (``mean``,
     ``var``), as in the JAX module, so ``.nztm`` files and parameter counts
-    agree: y = (x - mean) * rsqrt(var + eps) * scale + bias in fp32, rounded
-    to x's dtype.  ``use_batch_stats`` normalises by the batch's own
-    statistics (biased variance) instead."""
+    agree: y = (x - mean) * rsqrt(var + eps) * scale + bias in fp32 (float64
+    stays float64), rounded to x's dtype.  ``use_batch_stats`` normalises by
+    the batch's own statistics (biased variance) instead."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -37,7 +37,7 @@ class FrozenBatchNorm(nn.Module):
         self.var = nn.Parameter(torch.ones(channels))
 
     def forward(self, x: torch.Tensor, use_batch_stats: bool = False):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean, var = self.mean, self.var
         if use_batch_stats:
             axes = tuple(range(x.dim() - 1))

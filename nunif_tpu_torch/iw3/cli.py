@@ -38,7 +38,7 @@ divergence and convergence; ``--resume`` skips an existing output and
 failure, goes on, and skips a flagged output later;
 ``--scene-detect-only`` prints a video's scene boundaries (cached) and
 writes nothing.  ``--export`` takes images only.  ``--devices`` above 1
-raises ``NotImplementedError`` (ROADMAP queue 1 item 13).  ``--device``
+raises ``NotImplementedError`` (ROADMAP queue 1, multi-device).  ``--device``
 defaults to ``cuda`` and fails where CUDA is missing.
 
     python -m nunif_tpu_torch.iw3.cli -i in.mp4 -o out.mp4 --half-sbs --yes
@@ -518,7 +518,7 @@ def main(argv=None) -> int:
     if args.devices > 1:
         raise NotImplementedError(
             "--devices above 1 (a device mesh) is not ported to "
-            "nunif_tpu_torch yet (ROADMAP queue 1 item 13)")
+            "nunif_tpu_torch yet (ROADMAP queue 1, multi-device)")
     device = resolve_device(args.device)
     cfg = build_config(args)
     if args.input.lower().endswith((".yml", ".yaml")):

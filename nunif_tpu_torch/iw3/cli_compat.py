@@ -48,9 +48,9 @@ REFERENCE_IW3_FLAGS = [
 
 NOT_APPLICABLE = {
     "gpu": "--device names the card (one card; --devices above 1 is ROADMAP "
-           "queue 1 item 13)",
+           "queue 1, multi-device)",
     "cuda-stream": "one CUDA stream; overlap is the video path's (ROADMAP "
-                   "queue 1 item 5)",
+                   "queue 2, the video paths' host stages)",
     "low-vram": "the batch size sets the memory (a batch of 1 is the "
                 "low-memory path)",
     "disable-amp": "the compute dtype is the bf16 policy (core/dtypes.py), "

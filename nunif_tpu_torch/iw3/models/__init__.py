@@ -8,3 +8,4 @@ from .light_video_inpaint_v1 import LightVideoInpaintV1  # noqa: F401  (inpaint.
 from .depth_aa import DepthAA  # noqa: F401  (iw3.depth_aa)
 from .sod_v1 import SODV1  # noqa: F401  (iw3.sod_v1, and aux.u2netp)
 from .discriminator import FFCDiscriminator  # noqa: F401  (inpaint.ffc_discriminator, inpaint.l3_conditional_discriminator)
+from .da3mono_disparity import DA3MonoDisparity  # noqa: F401  (iw3.da3mono_disparity)

@@ -50,8 +50,9 @@ class MLBW(I2IBaseModel):
         super().__init__()
         if not delta_output:
             raise NotImplementedError(
-                "mlbw with delta_output=False (the training-time warping "
-                "head) is not ported to nunif_tpu_torch yet")
+                "mlbw with delta_output=False: no training head warps "
+                "inside the net in either package (the JAX flag is never "
+                "read); the sbs trainer warps by the delta in its loss")
         self.num_layers = num_layers
         self.base_dim = base_dim
         self.small = small

@@ -27,8 +27,9 @@ class RowFlowV2(I2IBaseModel):
         super().__init__()
         if not delta_output:
             raise NotImplementedError(
-                "row_flow_v2 with delta_output=False (the training-time "
-                "warping head) is not ported to nunif_tpu_torch yet")
+                "row_flow_v2 with delta_output=False: no training head warps "
+                "inside the net in either package (the JAX flag is never "
+                "read); the sbs trainer warps by the delta in its loss")
         self.symmetric = symmetric
         self.delta_output = delta_output
         self.feature_0 = nn.Conv2d(3, 16, (1, 3))

@@ -56,8 +56,9 @@ class RowFlowV3(I2IBaseModel):
         super().__init__()
         if not delta_output:
             raise NotImplementedError(
-                "row_flow_v3 with delta_output=False (the training-time "
-                "warping head) is not ported to nunif_tpu_torch yet")
+                "row_flow_v3 with delta_output=False: no training head warps "
+                "inside the net in either package (the JAX flag is never "
+                "read); the sbs trainer warps by the delta in its loss")
         self.symmetric = symmetric
         self.delta_output = delta_output
         self.blocks_0 = nn.Conv2d(3 * 8, 64, 1)

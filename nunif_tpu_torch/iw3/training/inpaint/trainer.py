@@ -35,7 +35,8 @@ from ....modules import losses as L
 from ....training.gan import GANConfig, make_gan_train_step
 from ....training.optimizers import create_optimizer
 from ....training.schedules import constant_lr
-from ....training.trainer import Trainer, TrainerConfig, params_swapped
+from ....training.trainer import (Trainer, TrainerConfig, epoch_report,
+                                  params_swapped, to_device)
 from ... import models as _models  # noqa: F401  (registers the inpaint nets)
 from .dataset import InpaintDataset, VideoInpaintDataset
 
@@ -67,11 +68,6 @@ def _mask_inputs(batch):
     """The generator's input: the hole-masked image and the mask (the
     inference preprocess, x * (1 - mask))."""
     return batch["y"] * (1.0 - batch["mask"]), batch["mask"]
-
-
-def _to_device(batch, device):
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
 
 
 def _datasets(args, video):
@@ -136,7 +132,7 @@ def gan_fit(args, model, device, video):
             wait += time.perf_counter() - tw
             if batch is None:
                 break
-            batch = _to_device(batch, device)
+            batch = to_device(batch, device)
             batch["cond"] = batch["y"] * (1.0 - batch["mask"])
             samples += batch["y"].shape[0]
             m = step(state, batch)
@@ -172,12 +168,12 @@ def recon_fit(args, model, device, video):
     recon = make_recon_loss(video)
 
     def loss_fn(m, batch, generator):
-        b = _to_device(batch, device)
+        b = to_device(batch, device)
         x, mask = _mask_inputs(b)
         return recon(m(x, mask=mask, train=True), b["y"]), {}
 
     def eval_fn(m, batch):
-        b = _to_device(batch, device)
+        b = to_device(batch, device)
         x, mask = _mask_inputs(b)
         return L.psnr(m(x, mask=mask, train=False), b["y"])  # negative PSNR
 
@@ -191,17 +187,10 @@ def recon_fit(args, model, device, video):
     train_ds, eval_ds = _datasets(args, video)
 
     def report(tr, epoch, train_loss, eval_score):
-        st = tr.epoch_stats[-1]
-        wall = st["train_seconds"]
-        print("train: " + json.dumps({
-            "epoch": epoch, "train_loss": train_loss,
-            "eval_psnr": None if eval_score is None else -eval_score,
-            "steps": st["steps"], "samples": st["samples"],
-            "steps_per_second": st["steps"] / wall if wall else None,
-            "samples_per_second": st["samples"] / wall if wall else None,
-            "data_wait_share": st["data_wait_seconds"] / wall if wall else None,
-            "peak_memory_bytes": st["peak_memory_bytes"],
-            "nan_count": tr.state.nan_count, "device": str(device)}), flush=True)
+        line = epoch_report(tr, epoch, train_loss, eval_score)
+        del line["eval_score"]
+        line["eval_psnr"] = None if eval_score is None else -eval_score
+        print("train: " + json.dumps(line), flush=True)
 
     trainer.fit(lambda: train_ds.batches(args.batch_size),
                 lambda: eval_ds.batches(args.batch_size), on_epoch_end=report)

@@ -60,7 +60,7 @@ class Iw3FrameProcessor:
         if mesh is not None:
             raise NotImplementedError(
                 "Iw3FrameProcessor(mesh=...): device meshes are not ported "
-                "to nunif_tpu_torch yet (ROADMAP queue 1 item 13)")
+                "to nunif_tpu_torch yet (ROADMAP queue 1, multi-device)")
         self.cfg = cfg
         self.depth_model = depth_model
         self.side_model = side_model

@@ -356,6 +356,13 @@ def _wa_block(sd, prefix):
             "conv_mlp_3": conv2d(sd, prefix + ".conv_mlp.3")}
 
 
+def convert_da3mono_disparity(sd):
+    """The reference's 3-layer MLP ``mlp.0`` / ``mlp.2`` / ``mlp.4``."""
+    return {"mlp_0": linear(sd, "mlp.0"),
+            "mlp_2": linear(sd, "mlp.2"),
+            "mlp_4": linear(sd, "mlp.4")}
+
+
 def convert_depth_aa(sd):
     return {"proj_in": conv2d(sd, "proj_in"),
             **{f"blocks_{i}": _wa_block(sd, f"blocks.{i}") for i in range(3)},

@@ -346,6 +346,7 @@ class WindowScoreBias(nn.Module):
         n = wh * ww
         index, delta = window_score_bias_input(self.window_size,
                                                self.to_bias_0.weight.device)
+        delta = delta.to(self.to_bias_0.weight.dtype)
         b = self.to_bias_2(F.gelu(self.to_bias_0(delta)))[index]
         if self.num_heads is None:
             return b.reshape(n, n)

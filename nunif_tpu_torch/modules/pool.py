@@ -22,9 +22,11 @@ def min_pool2d(x: torch.Tensor, kernel_size) -> torch.Tensor:
 
 def avg_pool2d(x: torch.Tensor, kernel_size) -> torch.Tensor:
     """Mean over the window's cells inside the image
-    (``count_include_pad=False``), summed in fp32, in x's dtype."""
+    (``count_include_pad=False``), summed in fp32 (float64 stays float64),
+    in x's dtype."""
     kh, kw = _pair(kernel_size)
-    y = F.avg_pool2d(x.float().permute(0, 3, 1, 2), (kh, kw), stride=1,
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    y = F.avg_pool2d(xf.permute(0, 3, 1, 2), (kh, kw), stride=1,
                      padding=(kh // 2, kw // 2), count_include_pad=False)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 

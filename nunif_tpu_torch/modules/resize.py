@@ -97,16 +97,18 @@ def _device_matrix(in_size, out_size, mode, antialias, align_corners, device):
 def resize(x: torch.Tensor, out_h: int, out_w: int, mode: str = "bicubic",
            antialias: bool = True, align_corners: bool = False) -> torch.Tensor:
     """Resize (..., H, W, C) to (..., out_h, out_w, C): fp32 products of x
-    (cast to fp32) with the two matrices, cast back to x's dtype."""
+    (cast to fp32; float64 stays float64) with the two matrices, cast back
+    to x's dtype."""
     in_h, in_w = x.shape[-3], x.shape[-2]
     if (in_h, in_w) == (out_h, out_w):
         return x
     shape = x.shape
     mh = _device_matrix(in_h, out_h, mode, antialias, align_corners, x.device)
     mw = _device_matrix(in_w, out_w, mode, antialias, align_corners, x.device)
-    y = x.float().reshape((-1,) + tuple(shape[-3:]))
+    y = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+        (-1,) + tuple(shape[-3:]))
     if mh is not None:
-        y = torch.einsum("oh,bhwc->bowc", mh, y)
+        y = torch.einsum("oh,bhwc->bowc", mh.to(y.dtype), y)
     if mw is not None:
-        y = torch.einsum("pw,bowc->bopc", mw, y)
+        y = torch.einsum("pw,bowc->bopc", mw.to(y.dtype), y)
     return y.reshape(tuple(shape[:-3]) + (out_h, out_w, shape[-1])).to(x.dtype)

@@ -272,6 +272,7 @@ def refuse_grad(what, *tensors):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward; it gets one with the "
-            "trainers that need it (ROADMAP queue 1 item 7). Call it under "
-            "torch.no_grad() or on inputs that need no gradient")
+            f"{what}: the CUDA kernel has no backward, and no trainer takes "
+            "a gradient through it (the sbs trainer warps by the gather). "
+            "Call it under torch.no_grad() or on inputs that need no "
+            "gradient")

@@ -107,7 +107,8 @@ class OutpaintBase(nn.Module):
 @register_model
 class LightOutpaintV1(I2IBaseModel):
     """forward(x (B, H, W, 3) with masked borders, mask (B, H, W, 1), 1 =
-    outside) -> x with the borders outpainted, clipped to [0, 1]."""
+    outside) -> x with the borders outpainted, clipped to [0, 1]; with
+    ``train`` (the composite before the clip, the net's output)."""
     model_name = "stlizer.light_outpaint_v1"
     i2i_scale = 1
     i2i_offset = 0
@@ -117,7 +118,7 @@ class LightOutpaintV1(I2IBaseModel):
         super().__init__()
         self.net = OutpaintBase(64, 8)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, train: bool = False):
         mod = 8 * 8
         B, H, W, _ = x.shape
         pad1 = (mod - W % mod) % mod
@@ -130,7 +131,10 @@ class LightOutpaintV1(I2IBaseModel):
             xp = xp * (1 - mask_f)
         z = crop2d(self.net(xp, mask_f), (0, pad1, 0, pad2))
         mask3 = mask.to(z.dtype).expand_as(z)
-        return torch.clamp(x.to(z.dtype) * (1 - mask3) + z * mask3, 0.0, 1.0)
+        out = x.to(z.dtype) * (1 - mask3) + z * mask3
+        if train:
+            return out, z
+        return torch.clamp(out, 0.0, 1.0)
 
 
 @torch.no_grad()

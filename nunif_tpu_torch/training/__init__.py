@@ -1,8 +1,8 @@
 """The training framework (counterpart of ``nunif_tpu/training``): the
 eager train step, the trainer, the optimizers held to optax's rules, the
-schedules, the hard-example sampler, EMA and the weight-decay mask.  GAN
-training and the confusion matrix are not ported yet (ROADMAP queue 1
-item 7)."""
+schedules, the hard-example sampler, EMA and the weight-decay mask; the
+GAN step (``gan.py``) and the softmax confusion matrix
+(``confusion_matrix.py``)."""
 from .env import TrainState, make_train_step, make_eval_step
 from .trainer import Trainer, TrainerConfig
 from .optimizers import create_optimizer

@@ -266,3 +266,36 @@ class Trainer:
             if new:
                 w.writerow(["epoch", "train_loss", "eval_score", "elapsed_sec"])
             w.writerow([epoch, train_loss, eval_score, round(elapsed, 2)])
+
+
+def to_device(batch: dict, device, dtypes: Optional[dict] = None) -> dict:
+    """A numpy batch {name: array} as tensors on ``device``; ``dtypes``
+    {name: torch dtype} casts the named ones."""
+    dtypes = dtypes or {}
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        out[k] = t.to(dtypes[k]) if k in dtypes else t
+    return out
+
+
+def epoch_report(trainer: Trainer, epoch, train_loss, eval_score) -> dict:
+    """One epoch's losses and where its time went: steps and samples a
+    second over the epoch's training wall time, the share of it spent
+    waiting on the host data pipeline, peak device memory."""
+    st = trainer.epoch_stats[-1]
+    wall = st["train_seconds"]
+    return {"epoch": epoch, "train_loss": train_loss, "eval_score": eval_score,
+            "steps": st["steps"], "samples": st["samples"],
+            "steps_per_second": st["steps"] / wall if wall else None,
+            "samples_per_second": st["samples"] / wall if wall else None,
+            "data_wait_share": st["data_wait_seconds"] / wall if wall else None,
+            "peak_memory_bytes": st["peak_memory_bytes"],
+            "nan_count": trainer.state.nan_count,
+            "device": str(trainer.device)}
+
+
+def print_epoch_report(trainer: Trainer, epoch, train_loss, eval_score):
+    """``on_epoch_end`` hook: prints ``train: {epoch_report as JSON}``."""
+    print("train: " + json.dumps(epoch_report(trainer, epoch, train_loss,
+                                              eval_score)), flush=True)

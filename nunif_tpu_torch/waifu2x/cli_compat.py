@@ -21,7 +21,7 @@ REFERENCE_WAIFU2X_FLAGS = [
 
 NOT_APPLICABLE = {
     "gpu": "--device names the card (one card; several cards are ROADMAP "
-           "queue 1 item 8)",
+           "queue 1, multi-device)",
     "compile": "no torch.compile: the hand kernels are built at first use",
     "disable-compile": "see compile",
     "disable-amp": "the compute dtype is the bf16 policy (core/dtypes.py), "
@@ -38,7 +38,7 @@ RENAMED = {"vf": "video-format"}
 # flags of the JAX parser that the port's parser does not have
 JAX_FLAGS_NOT_IN_PORT = {
     "devices": "the JAX CLI's data-parallel mesh over N devices; the port "
-               "runs on one card (ROADMAP queue 1 item 8)",
+               "runs on one card (ROADMAP queue 1, multi-device)",
 }
 
 # flags of the port's parser that the JAX parser does not have

@@ -32,6 +32,7 @@ from ...core.device import resolve_device
 from ...models import create_model, init_flax_default
 from ...modules import losses as L
 from ...training.trainer import Trainer, TrainerConfig
+from ...training.trainer import epoch_report as training_epoch_report
 from .dataset import Waifu2xDataset
 
 logger = logging.getLogger("nunif_tpu_torch.waifu2x.training")
@@ -262,21 +263,12 @@ class Waifu2xTrainerApp:
 
 
 def epoch_report(trainer, epoch, train_loss, eval_score) -> dict:
-    """One epoch's line: losses, eval Y-PSNR (dB), and where the time went
-    (steps and samples a second over the epoch's training wall time, the
-    share of it spent waiting on the host data pipeline, peak device
-    memory)."""
-    st = trainer.epoch_stats[-1]
-    wall = st["train_seconds"]
-    return {"epoch": epoch, "train_loss": train_loss,
-            "eval_y_psnr": None if eval_score is None else -eval_score,
-            "steps": st["steps"], "samples": st["samples"],
-            "steps_per_second": st["steps"] / wall if wall else None,
-            "samples_per_second": st["samples"] / wall if wall else None,
-            "data_wait_share": st["data_wait_seconds"] / wall if wall else None,
-            "peak_memory_bytes": st["peak_memory_bytes"],
-            "nan_count": trainer.state.nan_count,
-            "device": str(trainer.device)}
+    """``training.trainer.epoch_report`` with the eval score as the eval
+    Y-PSNR in dB (``eval_y_psnr``)."""
+    report = training_epoch_report(trainer, epoch, train_loss, eval_score)
+    del report["eval_score"]
+    report["eval_y_psnr"] = None if eval_score is None else -eval_score
+    return report
 
 
 def train_main(args):

@@ -1168,7 +1168,7 @@ def test_k3_k7_refuse_inputs_that_need_a_gradient(cuda):
     """K3 still refuses an input that needs a gradient; K7 (a custom op
     since its backward came) takes it and records its node."""
     x = torch.zeros(1, 4, 16, 3, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="queue 1 item 7"):
+    with pytest.raises(RuntimeError, match="no backward"):
         k3.warp_x_bounded(x, torch.zeros(1, 4, 16, device=cuda), 2)
     q = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16,
                     requires_grad=True)

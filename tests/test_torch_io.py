@@ -97,19 +97,19 @@ def test_load_model_defaults_to_the_card(small, tmp_path, monkeypatch):
 
 
 def test_unported_architecture_raises(tmp_path):
-    """A checkpoint of an architecture the port lacks (here iw3's DA3 mono
-    disparity net; the training discriminators are ported since GAN mode
-    came) raises ``NotPortedError``; the bundled turbo_2x checkpoints
-    load."""
+    """A checkpoint naming an architecture the port lacks raises
+    ``NotPortedError`` (every name of the JAX registry is ported since the
+    DA3 mono disparity net came, so the name here is one no package
+    registers); the bundled turbo_2x checkpoints load."""
     import json
     import zipfile
-    path = str(tmp_path / "da3mono_disparity.nztm")
+    path = str(tmp_path / "unknown.nztm")
     with zipfile.ZipFile(path, "w") as zf:
         zf.writestr("__meta__.json", json.dumps(
-            {"nunif_tpu_model": 1, "name": "iw3.da3mono_disparity",
+            {"nunif_tpu_model": 1, "name": "iw3.no_such_net",
              "kwargs": {}}))
     with pytest.raises(NotPortedError,
-                       match="iw3.da3mono_disparity.*not ported"):
+                       match="iw3.no_such_net.*not ported"):
         load_model(path, device="cpu")
     bundled = REPO / "models" / "waifu2x" / "turbo" / "scale2x.nztm"
     model, meta = load_model(str(bundled), device="cpu")

@@ -247,7 +247,7 @@ def test_unported_paths_raise(weights, tmp_path):
     from nunif_tpu_torch.iw3 import cli
     dm, flow = _port(weights, torch.float32)
     Iw3FrameProcessor(StereoConfig(), dm, flow, crop=(slice(0, 4), slice(None)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, multi-device"):
         Iw3FrameProcessor(StereoConfig(), dm, flow, mesh=object())
     out = postprocess_image(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 3),
                             StereoFormat(anaglyph="dubois"))

@@ -292,6 +292,6 @@ def test_unported_cli_paths_raise(tmp_path):
     with pytest.raises(IOError, match="vio_reader_open"):
         cli.main(["-i", str(tmp_path / "clip.mp4"), "-o", str(tmp_path / "o.mp4"),
                   "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1, multi-device"):
         cli.main(["-i", "x.png", "-o", "y.png", "--devices", "2", "--device", "cpu"])
     assert not os.path.exists(tmp_path / "o.mp4")

@@ -120,8 +120,8 @@ def test_missing_slot_names_file_and_lists_present(model_dir):
 
 def test_bundled_turbo_dir_is_not_ported_yet(tmp_path):
     """The bundled turbo_2x zoo is ported now: its scale2x converts; a
-    model dir whose checkpoint names an architecture the port lacks still
-    raises ``NotPortedError``."""
+    model dir whose checkpoint names an architecture the port lacks (a
+    name no package registers) still raises ``NotPortedError``."""
     assert default_model_dir() is not None
     w2x = Waifu2x(default_model_dir(), device="cpu")
     rgb, _ = w2x.convert(np.zeros((8, 8, 3), np.float32), method="scale",
@@ -131,9 +131,9 @@ def test_bundled_turbo_dir_is_not_ported_yet(tmp_path):
     import zipfile
     with zipfile.ZipFile(tmp_path / "scale2x.nztm", "w") as zf:
         zf.writestr("__meta__.json", json.dumps(
-            {"nunif_tpu_model": 1, "name": "iw3.da3mono_disparity",
+            {"nunif_tpu_model": 1, "name": "iw3.no_such_net",
              "kwargs": {}}))
-    with pytest.raises(NotPortedError, match="da3mono_disparity.*not ported"):
+    with pytest.raises(NotPortedError, match="no_such_net.*not ported"):
         Waifu2x(str(tmp_path), device="cpu").convert(
             np.zeros((8, 8, 3), np.float32), method="scale")
 

@@ -284,9 +284,13 @@ def test_cli_flags_match_jax():
     assert ours - theirs == set(t_train.PORT_ONLY_FLAGS)
     assert _flags(t_ctd.create_default_parser(), ttrainer.register_create_training_data) \
         == _flags(jctd.create_default_parser(), jtrainer.register_create_training_data)
-    assert [m.__name__ for m, _fn in load_addons("train")] == \
-        ["nunif_tpu_torch.waifu2x.training.trainer",
-         "nunif_tpu_torch.iw3.training.inpaint.trainer"]
+    assert [m.__name__ for m, _fn in load_addons("train")] == [
+        "nunif_tpu_torch.waifu2x.training.trainer",
+        "nunif_tpu_torch.iw3.training.sbs.trainer",
+        "nunif_tpu_torch.iw3.training.inpaint.trainer",
+        "nunif_tpu_torch.iw3.training.sod", "nunif_tpu_torch.iw3.training.depth_aa",
+        "nunif_tpu_torch.iw3.training.da3mono", "nunif_tpu_torch.stlizer.training",
+        "nunif_tpu_torch.cliqa.training", "nunif_tpu_torch.imagenet.training"]
     args = t_train.create_parser().parse_args(["waifu2x", "--model-dir", "m"])
     assert (args.arch, args.size, args.batch_size, args.optimizer, args.device) == \
         ("waifu2x.swin_unet_2x", 104, 16, "adam", "cuda")
